@@ -6,11 +6,13 @@ wrapper takes its kernel's plain PyTorch version.  It imports neither JAX nor
 anything of ``normflows_tpu``; ``interop.load_jax_leaves`` takes the JAX
 model's weights as numpy arrays.
 
-This slice holds the serving path of the flagship circular neural spline
-flow: ``NormalizingFlow.sample`` / ``sample_and_log_prob`` and ``log_prob``.
+It holds the serving path of the flagship circular neural spline flow
+(``NormalizingFlow.sample`` / ``sample_and_log_prob`` and ``log_prob``) and
+its training step (``forward_kld``, ``reverse_kld`` and
+``training.make_train_step``).
 """
 
-from . import core, distributions, flows, interop, nets, ops, utils
+from . import core, distributions, flows, interop, nets, ops, training, utils
 from .core.flow import Composite, Flow, Identity, Reverse
 from .core.facades import NormalizingFlow
 

@@ -1,9 +1,9 @@
 """Model facade (port of ``NormalizingFlow`` in ``normflows_tpu/core/facades.py``).
 
 ``forward`` is latent -> data (sampling); ``inverse`` is data -> latent
-(density).  ``sample`` draws from an explicit ``torch.Generator`` where the
-JAX version takes a key.  The training objectives (``forward_kld``,
-``reverse_kld``) wait for the training slice of the port.
+(density).  ``sample`` and ``reverse_kld`` draw from an explicit
+``torch.Generator`` where the JAX version takes a key.  ``reverse_alpha_div``
+waits for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -15,6 +15,18 @@ from torch import nn
 
 from ..ops.backend import resolve_device
 from .flow import zero_log_det_like_z
+
+
+class _LogProb(nn.Module):
+    """A flow's ``log_prob`` as a module's ``forward``, so that
+    ``torch.func.functional_call`` can run it on other parameters."""
+
+    def __init__(self, flow: nn.Module):
+        super().__init__()
+        self.flow = flow
+
+    def forward(self, x, context=None):
+        return self.flow.log_prob(x, context)
 
 
 class NormalizingFlow(nn.Module):
@@ -83,3 +95,29 @@ class NormalizingFlow(nn.Module):
     def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
                             generator: Optional[torch.Generator] = None):
         return self.sample(num_samples, context, generator=generator)
+
+    # ---- training objectives --------------------------------------------
+    def forward_kld(self, x, context=None):
+        """-E_p[log q(x)], the maximum-likelihood loss."""
+        return -torch.mean(self.log_prob(x, context))
+
+    def reverse_kld(self, num_samples: int = 1, context=None, beta: float = 1.0,
+                    score_fn: bool = True, z_sharding=None, *,
+                    generator: Optional[torch.Generator] = None):
+        """E_q[log q] - beta E_q[log p] on ``num_samples`` draws of the model.
+
+        ``score_fn=False`` drops the score-function term (sticking the landing,
+        Roeder et al. 2017): log q is computed again at the sampled z through
+        a copy of the model whose parameters are detached, so its gradient
+        reaches the parameters only through z.  ``z_sharding`` (a sharded
+        sample axis in the JAX package) waits for the parallel slice of the
+        port."""
+        if z_sharding is not None:
+            raise NotImplementedError(
+                "z_sharding waits for the parallel slice of the PyTorch port")
+        z, log_q = self.sample(num_samples, context, generator=generator)
+        if not score_fn:
+            detached = {f"flow.{name}": p.detach() for name, p in self.named_parameters()}
+            log_q = torch.func.functional_call(_LogProb(self), detached, (z, context))
+        log_p = self.p.log_prob(z) if context is None else self.p.log_prob(z, context)
+        return torch.mean(log_q) - beta * torch.mean(log_p)

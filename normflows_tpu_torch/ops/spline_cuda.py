@@ -1,15 +1,16 @@
-"""Planar rational-quadratic spline: the CUDA kernel, its wrapper, its launch
-count and its plain PyTorch version.
+"""Planar rational-quadratic spline: the CUDA kernels, their wrapper, their
+launch counts and their plain PyTorch versions.
 
-Port of ``rqs_transposed_pallas`` (``normflows_tpu/ops/spline_pallas.py:726``),
-forward only: the kernel is ``csrc/rqs_transposed.cu``, built with ``nvcc``
-for ``sm_90a`` at first use into ``normflows_tpu_torch/_build/`` and loaded
-with ``ctypes``.  Its backward (``_t_bwd_kernel``) belongs to the training
-slice; until then a backward through :func:`rqs_transposed` on the card
-raises.
+Port of ``rqs_transposed_pallas`` (``normflows_tpu/ops/spline_pallas.py:726``)
+with its custom-vjp backward: ``csrc/rqs_transposed.cu`` holds the kernel of
+each direction (counterpart of ``_t_fwd_kernel``) and the backward kernel
+(counterpart of ``_t_bwd_kernel``), built with ``nvcc`` for ``sm_90a`` at
+first use into ``normflows_tpu_torch/_build/`` and loaded with ``ctypes``.
 
-:func:`rqs_transposed` takes the plain version :func:`rqs_transposed_reference`
-for a CPU tensor and launches the kernel for a CUDA tensor (``ops/backend.py``).
+:func:`rqs_transposed` is one ``autograd.Function`` for both devices: on a
+CUDA tensor its forward and backward launch the kernels, on a CPU tensor they
+call the plain versions :func:`rqs_transposed_reference` and
+:func:`rqs_transposed_backward_reference` (``ops/backend.py``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_FEATURES = 8  # kMaxFeatures in the kernel
 
-# Kernel launches made by rqs_transposed since the count was last set to 0.
+# Kernel launches made by rqs_transposed since the count was last set to 0:
+# forward kernels (either direction) and backward kernels.
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
 _LIB = None
 
@@ -82,10 +85,11 @@ def _library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()["path"]))
-        fn = lib.rqs_transposed_forward
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_double] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn, pointers in ((lib.rqs_transposed_forward, 6),
+                             (lib.rqs_transposed_backward, 8)):
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
+                           + [ctypes.c_double] * 3 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -113,32 +117,80 @@ def _check(x_t, params_t, tail_codes, tail_bound):
         raise ValueError("rqs_transposed: need one tail code and one bound per feature")
 
 
+def _launch(fn, pointers, x_t, codes, bounds, K, inverse, mbw, mbh, md):
+    """Launch ``fn`` of the library on ``pointers`` on the current stream."""
+    F, B = x_t.shape
+    codes_c = (ctypes.c_int * F)(*codes)
+    bounds_c = (ctypes.c_float * F)(*bounds)
+    with torch.cuda.device(x_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in pointers), codes_c, bounds_c, F, B, K,
+                int(inverse), mbw, mbh, md, stream)
+    if rc != 0:
+        raise RuntimeError(f"rqs_transposed kernel launch failed: CUDA error {rc}")
+
+
 class _RQSTransposed(torch.autograd.Function):
+    """Forward and backward of the planar spline: the kernels on the card,
+    the plain versions on the CPU."""
+
     @staticmethod
     def forward(ctx, x_t, params_t, codes, bounds, inverse, mbw, mbh, md):
         global LAUNCHES
-        F, B = x_t.shape
-        K = (params_t.shape[0] // F - 1) // 3
+        ctx.save_for_backward(x_t, params_t)
+        ctx.config = (codes, bounds, inverse, mbw, mbh, md)
+        if not backend.use_kernel(x_t):
+            return rqs_transposed_reference(x_t, params_t, codes, bounds, inverse,
+                                            mbw, mbh, md)
+        K = (params_t.shape[0] // x_t.shape[0] - 1) // 3
         y_t = torch.empty_like(x_t)
         ld_t = torch.empty_like(x_t)
-        codes_c = (ctypes.c_int * F)(*codes)
-        bounds_c = (ctypes.c_float * F)(*bounds)
-        with torch.cuda.device(x_t.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = _library().rqs_transposed_forward(
-                x_t.data_ptr(), params_t.data_ptr(), y_t.data_ptr(),
-                ld_t.data_ptr(), codes_c, bounds_c, F, B, K, int(inverse),
-                mbw, mbh, md, stream)
-        if rc != 0:
-            raise RuntimeError(f"rqs_transposed kernel launch failed: CUDA error {rc}")
+        _launch(_library().rqs_transposed_forward, (x_t, params_t, y_t, ld_t), x_t,
+                codes, bounds, K, inverse, mbw, mbh, md)
         LAUNCHES += 1
         return y_t, ld_t
 
     @staticmethod
     def backward(ctx, ybar, lbar):
-        raise NotImplementedError(
-            "rqs_transposed has no backward kernel yet (the training slice "
-            "ports _t_bwd_kernel); run the CUDA path under torch.no_grad()")
+        x_t, params_t = ctx.saved_tensors
+        want_x, want_p = ctx.needs_input_grad[:2]
+        # autograd hands over the layer's y_t.T as a transposed view and the
+        # sum over features of ld_t as a stride-0 expansion
+        dx, dp = rqs_transposed_backward(x_t, params_t, ybar.contiguous(),
+                                         lbar.contiguous(), *ctx.config)
+        return (dx if want_x else None, dp if want_p else None) + (None,) * 6
+
+
+def rqs_transposed_backward(x_t, params_t, ybar, lbar, tail_codes, tail_bound,
+                            inverse, min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
+                            min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
+                            min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
+    """Backward of :func:`rqs_transposed`: the cotangents ``ybar``, ``lbar``
+    (F, B) of ``(y_t, ld_t)`` -> ``(dx (F, B), dparams (P, B))``.
+
+    A CPU tensor takes :func:`rqs_transposed_backward_reference`; a CUDA
+    tensor launches the backward kernel or raises."""
+    global BACKWARD_LAUNCHES
+    _check(x_t, params_t, tail_codes, tail_bound)
+    for name, t in (("ybar", ybar), ("lbar", lbar)):
+        if t.shape != x_t.shape or t.dtype != x_t.dtype or t.device != x_t.device \
+                or not t.is_contiguous():
+            raise ValueError(f"rqs_transposed_backward: {name} must be a contiguous "
+                             f"float32 tensor like x_t {tuple(x_t.shape)} on {x_t.device}")
+    codes = tuple(int(c) for c in tail_codes)
+    bounds = tuple(float(b) for b in tail_bound)
+    cfg = (bool(inverse), float(min_bin_width), float(min_bin_height),
+           float(min_derivative))
+    if not backend.use_kernel(x_t):
+        return rqs_transposed_backward_reference(x_t, params_t, ybar, lbar, codes,
+                                                 bounds, *cfg)
+    K = (params_t.shape[0] // x_t.shape[0] - 1) // 3
+    dx = torch.empty_like(x_t)
+    dp = torch.empty_like(params_t)
+    _launch(_library().rqs_transposed_backward, (x_t, params_t, ybar, lbar, dx, dp),
+            x_t, codes, bounds, K, *cfg)
+    BACKWARD_LAUNCHES += 1
+    return dx, dp
 
 
 def rqs_transposed(x_t, params_t, tail_codes, tail_bound, inverse,
@@ -150,12 +202,9 @@ def rqs_transposed(x_t, params_t, tail_codes, tail_bound, inverse,
     ``tail_codes`` / ``tail_bound`` hold one entry per feature; row
     ``f*(3K+1) + s`` of ``params_t`` holds widths | heights | slopes of feature f.
     A CPU tensor takes :func:`rqs_transposed_reference`; a CUDA tensor launches
-    the kernel or raises."""
+    the kernel or raises; either way the backward follows the same rule
+    (:func:`rqs_transposed_backward`)."""
     _check(x_t, params_t, tail_codes, tail_bound)
-    if not backend.use_kernel(x_t):
-        return rqs_transposed_reference(
-            x_t, params_t, tail_codes, tail_bound, inverse, min_bin_width,
-            min_bin_height, min_derivative)
     return _RQSTransposed.apply(
         x_t, params_t, tuple(int(c) for c in tail_codes),
         tuple(float(b) for b in tail_bound), bool(inverse),
@@ -180,3 +229,20 @@ def rqs_transposed_reference(x_t, params_t, tail_codes, tail_bound, inverse,
         tail_codes=codes, tail_bound=bounds, min_bin_width=min_bin_width,
         min_bin_height=min_bin_height, min_derivative=min_derivative)
     return y.T, ld.T
+
+
+def rqs_transposed_backward_reference(x_t, params_t, ybar, lbar, tail_codes,
+                                      tail_bound, inverse,
+                                      min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
+                                      min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
+                                      min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
+    """Plain PyTorch version of the backward kernel: ``torch.autograd.grad``
+    of :func:`rqs_transposed_reference` with cotangents ``(ybar, lbar)``.
+    Returns ``(dx (F, B), dparams (P, B))``."""
+    with torch.enable_grad():
+        x = x_t.detach().requires_grad_()
+        p = params_t.detach().requires_grad_()
+        y, ld = rqs_transposed_reference(x, p, tail_codes, tail_bound, inverse,
+                                         min_bin_width, min_bin_height, min_derivative)
+        dx, dp = torch.autograd.grad((y, ld), (x, p), (ybar, lbar))
+    return dx, dp

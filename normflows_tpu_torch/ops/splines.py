@@ -44,8 +44,11 @@ def softplus(x):
 
     ``torch.nn.functional.softplus`` returns ``x`` itself above its threshold
     of 20, which differs from this form in the last bits; the CUDA kernel uses
-    this form too."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    this form too.  ``torch.maximum`` splits the gradient of a tie evenly, as
+    ``jnp.maximum`` does, so the gradient is ``sigmoid(x)`` at ``x = 0`` too
+    (``clamp_min`` would pass all of it there: 1, not 0.5).  That tie is
+    common: a degree-1 MADE output is its bias alone, and biases start at 0."""
+    return torch.maximum(x, x.new_zeros(())) + torch.log1p(torch.exp(-x.abs()))
 
 
 def searchsorted(bin_locations, inputs, eps: float = 1e-6):
@@ -122,12 +125,17 @@ def rational_quadratic_spline(
         a = in_heights * (in_delta - d_k) + y_rel * s
         b = in_heights * d_k - y_rel * s
         c = -in_delta * y_rel
+        # a tie at 0 (where jnp.maximum would split the gradient) needs
+        # b^2 == 4ac exactly: a set of measure zero
         discriminant = torch.clamp_min(b * b - 4.0 * a * c, 0.0)
         denom_root = -b - torch.sqrt(discriminant)
         # 2c / (-b - sqrt(disc)): the stable root in [0, 1].  1e-38 is a
         # float32 subnormal; it guards the 0/0 case.
         theta = (2.0 * c) / torch.where(
             denom_root == 0.0, torch.full_like(denom_root, 1e-38), denom_root)
+        # ties at 0 or 1 (jnp.clip splits them, clamp does not) need the
+        # input exactly on a knot, a set of measure zero; where the input
+        # was clamped to the bounds, the outputs are not used
         theta = theta.clamp(0.0, 1.0)
         outputs = theta * in_widths + in_cumwidths
         one_m_theta = 1.0 - theta
@@ -139,7 +147,7 @@ def rational_quadratic_spline(
         logabsdet = -(torch.log(derivative_numerator) - 2.0 * torch.log(denominator))
         return outputs, logabsdet
 
-    theta = ((inputs - in_cumwidths) / in_widths).clamp(0.0, 1.0)
+    theta = ((inputs - in_cumwidths) / in_widths).clamp(0.0, 1.0)  # ties: as above
     one_m_theta = 1.0 - theta
     theta_om = theta * one_m_theta
     s = d_k + d_k1 - 2.0 * in_delta
@@ -215,6 +223,9 @@ def unconstrained_rational_quadratic_spline(
     span = right - left
     wrapped = left + torch.remainder(inputs - left, span)
     is_circ = codes == TAIL_CIRCULAR
+    # clamp passes the whole gradient at x == +-B, as the JAX package's
+    # hand-written backward does (``inside`` includes the bounds); its jnp
+    # spline would split that tie, on a set of measure zero
     spline_in = torch.where(is_circ, wrapped, torch.clamp(inputs, left, right))
 
     outputs_s, logabsdet_s = rational_quadratic_spline(

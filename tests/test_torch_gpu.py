@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA spline kernel against its plain PyTorch
-version, and a small model's serving path through the kernel.
+"""The port on the card: the CUDA spline kernels (forward and backward) against
+their plain PyTorch versions, and a small model's serving path and training
+step through the kernels.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -21,6 +22,7 @@ from normflows_tpu_torch.ops import spline_cuda
 
 Y_TOL = 2e-5  # the JAX package's bars (tests/test_pallas.py), atol = rtol
 LD_TOL = 2e-4
+G_TOL = 2e-3  # the JAX package's gradient bars (tests/test_pallas.py)
 PARAM_STD = 0.5  # see tests/test_torch_splines.py
 CODES, BOUNDS = (1, 2), (5.0, math.pi)
 
@@ -66,17 +68,68 @@ def test_kernel_rejects_non_contiguous(cuda):
 
 
 @pytest.mark.gpu
-def test_small_model_serves_through_the_kernel(cuda):
-    def model(device):
-        base = nft.distributions.UniformGaussian.create(2, [1], [1.0, 2 * math.pi],
-                                                        device=device)
-        layers = [nft.flows.CircularAutoregressiveRationalQuadraticSpline.create(
-            torch.Generator().manual_seed(i), 2, 1, 64, ind_circ=[1], num_bins=10,
-            tail_bound=np.array([5.0, math.pi], np.float32), init_identity=False,
-            rng_seed=i, device=device) for i in range(2)]
-        return nft.NormalizingFlow.create(base, layers, device=device)
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("B", [2**14, 2**14 + 37, 1])
+def test_backward_kernel_matches_plain(cuda, B, inverse):
+    x, p = planar_inputs(B, cuda)
+    rng = np.random.default_rng(1)
+    yb, lb = (torch.from_numpy(a).to(cuda)
+              for a in rng.normal(size=(2, 2, B)).astype(np.float32))
+    before = spline_cuda.BACKWARD_LAUNCHES
+    dx, dp = spline_cuda.rqs_transposed_backward(x, p, yb, lb, CODES, BOUNDS, inverse)
+    torch.cuda.synchronize()
+    assert spline_cuda.BACKWARD_LAUNCHES == before + 1
+    dxr, dpr = spline_cuda.rqs_transposed_backward_reference(x, p, yb, lb, CODES, BOUNDS,
+                                                             inverse)
+    assert torch.isfinite(dx).all() and torch.isfinite(dp).all()
+    close(dx, dxr, G_TOL)
+    close(dp, dpr, G_TOL)
 
-    card, cpu = model(cuda), model("cpu")
+
+def small_model(device, target=False):
+    base = nft.distributions.UniformGaussian.create(2, [1], [1.0, 2 * math.pi],
+                                                    device=device)
+    layers = [nft.flows.CircularAutoregressiveRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(i), 2, 1, 64, ind_circ=[1], num_bins=10,
+        tail_bound=np.array([5.0, math.pi], np.float32), init_identity=False,
+        rng_seed=i, device=device) for i in range(2)]
+    p = nft.distributions.GaussianVonMises(device=device) if target else None
+    return nft.NormalizingFlow.create(base, layers, p=p, device=device)
+
+
+@pytest.mark.gpu
+def test_small_model_trains_through_the_kernels(cuda):
+    """One reverse-KL step with Adam on the card and on the CPU, the same
+    weights and the same base draws: 4 + 4 kernel launches, and the loss
+    and gradients agree."""
+    from normflows_tpu_torch.training import make_train_step
+
+    card, cpu = small_model(cuda, target=True), small_model("cpu", target=True)
+    cpu.load_state_dict(card.state_dict())
+    z, log_q = card.q0.sample_and_log_prob(1000, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    results = {}
+    for where, model, draw in (("card", card, (z, log_q)),
+                               ("cpu", cpu, (z.cpu(), log_q.cpu()))):
+        model.q0.sample_and_log_prob = lambda n, context=None, *, generator=None, d=draw: (
+            d[0].clone(), d[1].clone())
+        state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=5e-4),
+                                      lambda m, batch, gen: m.reverse_kld(1000))
+        spline_cuda.LAUNCHES = spline_cuda.BACKWARD_LAUNCHES = 0
+        _, metrics = step(state, None)
+        results[where] = (metrics, spline_cuda.LAUNCHES, spline_cuda.BACKWARD_LAUNCHES,
+                          {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (m_card, fwd, bwd, g_card), (m_cpu, fwd_cpu, bwd_cpu, g_cpu) = results["card"], results["cpu"]
+    assert (fwd, bwd) == (4, 4) and (fwd_cpu, bwd_cpu) == (0, 0)
+    assert m_card["finite"]
+    close(m_card["loss"], m_cpu["loss"], 1e-4)
+    for n, g in g_cpu.items():
+        assert float((g_card[n] - g).norm()) <= G_TOL * float(g.norm()) + 1e-6, n
+
+
+@pytest.mark.gpu
+def test_small_model_serves_through_the_kernel(cuda):
+    card, cpu = small_model(cuda), small_model("cpu")
     cpu.load_state_dict(card.state_dict())
     with torch.inference_mode():
         spline_cuda.LAUNCHES = 0
