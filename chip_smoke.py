@@ -5,15 +5,24 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the CUDA kernels from the sources
-in the checkout, holds each against its plain PyTorch version, drives the
-flagship model (12 circular autoregressive RQ-spline layers of hidden width
-512, 10 bins) at full width through its serving path (2^14 samples per
-request) and its training step (reverse KL and Adam(5e-4) on 2^14 samples),
-in float32 and bfloat16, times kernels, requests and steps, and prints one
-JSON line per phase: device, build, kernel, main_path, times_kernel,
-times_requests, kernel_backward, train_path, times_train, kernels.  The last
-line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
-CUDA card, or without the package beside it, it exits non-zero before
+in the checkout (one ``nvcc`` per source, started together), holds each
+against its plain PyTorch version, and drives two models at full width
+through their serving path and their training step (reverse KL and
+Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
+
+* the flagship (12 circular autoregressive RQ-spline layers of hidden width
+  512, 10 bins; 2^14 samples per request and step), through the planar
+  spline kernels: phases kernel, main_path, times_kernel, times_requests,
+  kernel_backward, train_path, times_train;
+* the large-D autoregressive NSF of ``examples/ar_large_d_bench.py`` (D = 64,
+  4 x (AR RQ-spline of hidden width 256, 8 bins + LULinearPermute), 4096
+  samples), whose sampling direction is the sliced sequential inverse,
+  through the flat spline kernels: phases kernel_flat,
+  kernel_flat_backward, large_d_path, large_d_train, times_large_d.
+
+It prints one JSON line per phase, then the ``kernels`` line, then
+``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
+a CUDA card, or without the package beside it, it exits non-zero before
 printing anything.  It imports nothing of JAX.
 """
 
@@ -76,6 +85,38 @@ STEP_G_TOL = 2e-3
 N_TRAIN_CPU = 2**12
 LR = 5e-4  # bench.py's Adam
 TRAIN_STEPS = 200
+
+# large-D autoregressive NSF (examples/ar_large_d_bench.py:60-93): linear
+# tails at the wrapper's default bound, DiagGaussian base, DiagGaussian
+# target with loc 0.5 and log_scale -0.2, both trainable
+LD_D, LD_HIDDEN, LD_BINS, LD_LAYERS, LD_BATCH = 64, 256, 8, 4, 4096
+LD_TAIL_BOUND = 3.0
+LD_CPU = 512  # samples of the card-against-CPU checks
+LD_TRAIN_STEPS = 50
+# Flat kernel against its plain version: the JAX package's bars for the
+# runtime-tail entry (tests/test_pallas.py:427-428), 1e-5 on outputs and
+# 1e-4 on log-dets, for the static-tail entry (:41-42) 2e-5 and 2e-4, and
+# 1e-3 on gradients (:450); atol = rtol.  The plain version runs in float64
+# on the same inputs: at N = 262,144 some elements' gradients are so badly
+# conditioned that two float32 evaluations, the kernel's and the plain
+# version's, can differ by more than the bar (on the card: two values of
+# 6.8 million, by up to 1.7e-4 over it), while the kernel lies within the
+# bar of the float64 value; the phase reports the float32 plain version's
+# own excess beside.
+FLAT_Y_TOL, FLAT_LD_TOL = 1e-5, 1e-4
+FLAT_G_TOL = 1e-3
+# sample's log_q against log_prob of the samples at D = 64, median over 4096:
+# the spline's inverse and forward rounding through 4 layers of 64 features,
+# and the LU's two triangular solves against its two products.  The same
+# model on the CPU, at 256 samples, gives 1.5e-5 (f32) and 7.6e-6 (bf16;
+# max 2.8e-3, where a float32 difference flips a parameter's bf16
+# rounding): the bars are the flagship's, LOGQ_F32 and LOGQ_BF16.
+LOGQ_LD_F32, LOGQ_LD_BF16 = LOGQ_F32, LOGQ_BF16
+# bf16 against f32 on the card: log_prob of the f32 samples with bf16 MADE
+# matmuls, median |difference| from the f32 log_prob.  Each MADE output
+# rounds to bf16 (~4e-3 relative) before 256 one-dimensional splines; the
+# same model on the CPU, at 256 samples, gives 0.029 nats (max 0.20).
+LD_BF16_VS_F32 = 0.1
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
@@ -186,13 +227,15 @@ def phase_device():
 
 
 def phase_build():
-    from normflows_tpu_torch.ops import spline_cuda
+    from normflows_tpu_torch.ops import cuda_build, spline_cuda, spline_flat
 
-    info = spline_cuda.build(force=True)
-    ptxas = [line for line in info["ptxas"].splitlines()
-             if "registers" in line or "spill" in line or "smem" in line]
-    emit("build", source=str(spline_cuda.SOURCE.relative_to(REPO)),
-         seconds=info["seconds"], ptxas=ptxas)
+    info = cuda_build.build([spline_cuda.SOURCE, spline_flat.SOURCE], force=True)
+    emit("build", sources={
+        str(src.relative_to(REPO)): {
+            "seconds": i["seconds"],
+            "ptxas": [line for line in i["ptxas"].splitlines()
+                      if "registers" in line or "spill" in line or "smem" in line]}
+        for src, i in info.items()})
 
 
 def phase_kernel():
@@ -232,20 +275,22 @@ def phase_kernel():
     return errs
 
 
-def drive(model, what, expect_launches, fn):
-    """Run one main-path phase with the launch count set to 0 just before
-    it; fail unless the kernel was launched exactly ``expect_launches``
-    times."""
-    from normflows_tpu_torch.ops import spline_cuda
+def counted(what, fn, planar=(0, 0), flat=(0, 0)):
+    """Run one main-path phase with every kernel's launch count set to 0 just
+    before it; fail unless the planar and the flat spline kernels were
+    launched exactly ``(forward, backward)`` times each."""
+    from normflows_tpu_torch.ops import spline_cuda, spline_flat
 
-    spline_cuda.LAUNCHES = 0
+    counters = {"planar": spline_cuda, "flat": spline_flat}
+    for m in counters.values():
+        m.LAUNCHES = m.BACKWARD_LAUNCHES = 0
     out = fn()
     sync()
-    launches = spline_cuda.LAUNCHES
-    if launches != expect_launches:
-        raise SystemExit(f"{what}: the kernel was launched {launches} times, "
-                         f"expected {expect_launches}")
-    return out, launches
+    got = {k: (m.LAUNCHES, m.BACKWARD_LAUNCHES) for k, m in counters.items()}
+    if got != {"planar": tuple(planar), "flat": tuple(flat)}:
+        raise SystemExit(f"{what}: (forward, backward) kernel launches {got}, expected "
+                         f"planar {planar} and flat {flat}")
+    return out, got
 
 
 def phase_main_path():
@@ -257,10 +302,10 @@ def phase_main_path():
         set_compute_dtype(model, None if dtype == "float32" else dtype)
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         with torch.inference_mode():
-            (x, log_q), n_inv = drive(model, f"sample {dtype}", 2 * LAYERS,
-                                      lambda: model.sample(N, generator=gen))
-            lp, n_fwd = drive(model, f"log_prob {dtype}", LAYERS,
-                              lambda: model.log_prob(x))
+            (x, log_q), n_s = counted(f"sample {dtype}", lambda: model.sample(N, generator=gen),
+                                      planar=(2 * LAYERS, 0))
+            lp, n_l = counted(f"log_prob {dtype}", lambda: model.log_prob(x), planar=(LAYERS, 0))
+        n_inv, n_fwd = n_s["planar"][0], n_l["planar"][0]
         launches["inverse"] += n_inv
         launches["forward"] += n_fwd
         finite = all(bool(torch.isfinite(t).all()) for t in (x, log_q, lp))
@@ -278,34 +323,34 @@ def phase_main_path():
             emit("main_path", ok=False, results=results)
             raise SystemExit(f"main path ({dtype}) failed its checks")
         if dtype == "float32":
-            results["cpu"] = against_cpu(model, x)
+            results["cpu"] = against_cpu("main_path", model, x, build_flagship, N_CPU)
     emit("main_path", ok=True, results=results,
          bars={"logq_f32": LOGQ_F32, "logq_bf16": LOGQ_BF16, "cpu": CPU_TOL})
     return model, launches
 
 
-def against_cpu(model, x):
-    """The same model on the CPU (plain spline, same weights) on 2^12 of the
-    samples and on 2^12 base draws, f32."""
-    cpu = build_flagship("cpu")
+def against_cpu(phase, model, x, build, n):
+    """The same model on the CPU (plain splines, the same weights; ``build``
+    makes it) on ``n`` of the samples and on ``n`` base draws, f32."""
+    cpu = build("cpu")
     cpu.load_state_dict(model.state_dict())
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     with torch.inference_mode():
-        xs = x[:N_CPU]
+        xs = x[:n]
         lp_card = model.log_prob(xs).cpu()
         lp_cpu = cpu.log_prob(xs.cpu())
-        z = model.q0.sample(N_CPU, generator=gen)
+        z = model.q0.sample(n, generator=gen)
         xf_card, ld_card = model.forward_and_log_det(z)
         xf_cpu, ld_cpu = cpu.forward_and_log_det(z.cpu())
-    r = {"excess_log_prob": excess(lp_card, lp_cpu, CPU_TOL, CPU_TOL),
+    r = {"samples": n, "excess_log_prob": excess(lp_card, lp_cpu, CPU_TOL, CPU_TOL),
          "max_abs_log_prob": float((lp_card - lp_cpu).abs().max()),
          "excess_forward_x": excess(xf_card.cpu(), xf_cpu, CPU_TOL, CPU_TOL),
          "max_abs_forward_x": float((xf_card.cpu() - xf_cpu).abs().max()),
          "excess_forward_ld": excess(ld_card.cpu(), ld_cpu, CPU_TOL, CPU_TOL),
          "max_abs_forward_ld": float((ld_card.cpu() - ld_cpu).abs().max())}
     if max(r["excess_log_prob"], r["excess_forward_x"], r["excess_forward_ld"]) > 0:
-        emit("main_path", ok=False, cpu=r)
-        raise SystemExit("the model on the card disagrees with the model on the CPU")
+        emit(phase, ok=False, cpu=r)
+        raise SystemExit(f"{phase}: the model on the card disagrees with the model on the CPU")
     return r
 
 
@@ -457,21 +502,6 @@ def forward_kld_loss(model, batch, generator):
     return model.forward_kld(batch)
 
 
-def drive_train(what, fn, fwd, bwd):
-    """One training phase with both launch counts set to 0 just before it;
-    fail unless the kernels ran exactly ``fwd`` and ``bwd`` times."""
-    from normflows_tpu_torch.ops import spline_cuda
-
-    spline_cuda.LAUNCHES = spline_cuda.BACKWARD_LAUNCHES = 0
-    out = fn()
-    sync()
-    got = (spline_cuda.LAUNCHES, spline_cuda.BACKWARD_LAUNCHES)
-    if got != (fwd, bwd):
-        raise SystemExit(f"{what}: {got[0]} forward and {got[1]} backward kernel "
-                         f"launches, expected {fwd} and {bwd}")
-    return out, got
-
-
 def phase_train_path():
     """(a) one f32 step on the card against the CPU, (b) exact launch counts
     of a reverse-KL and a forward-KL step at 2^14, (c) 200 bf16 steps from
@@ -479,22 +509,32 @@ def phase_train_path():
     from normflows_tpu_torch.training import make_train_step
     from normflows_tpu_torch.utils import set_compute_dtype
 
-    results = {"card_vs_cpu": step_against_cpu()}
+    def fixed_draws(card, cpu):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        z, log_q = card.q0.sample_and_log_prob(N_TRAIN_CPU, generator=gen)
+        card.q0 = Draws(card.q0, z, log_q)
+        cpu.q0 = Draws(cpu.q0, z.cpu(), log_q.cpu())
+
+    results = {"card_vs_cpu": step_against_cpu(
+        "train_path", build_flagship, N_TRAIN_CPU, fixed_draws,
+        {"planar": (2 * LAYERS, 2 * LAYERS)})}
     launches = {"backward_forward": 0, "backward_inverse": 0}
 
     model = build_flagship(DEVICE, init_identity=True)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
                                   reverse_kld_loss(N))
-    (_, m), (fwd, bwd) = drive_train("reverse_kld step", lambda: step(state, None, gen),
-                                     2 * LAYERS, 2 * LAYERS)
+    (_, m), got = counted("reverse_kld step", lambda: step(state, None, gen),
+                          planar=(2 * LAYERS, 2 * LAYERS))
+    fwd, bwd = got["planar"]
     launches["backward_inverse"] += bwd
     with torch.no_grad():
         x, _ = model.sample(N, generator=gen)
     fstate, fstep = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
                                     forward_kld_loss)
-    (_, mf), (ffwd, fbwd) = drive_train("forward_kld step", lambda: fstep(fstate, x, gen),
-                                        LAYERS, LAYERS)
+    (_, mf), fgot = counted("forward_kld step", lambda: fstep(fstate, x, gen),
+                            planar=(LAYERS, LAYERS))
+    ffwd, fbwd = fgot["planar"]
     launches["backward_forward"] += fbwd
     results["launches_per_step"] = {
         "reverse_kld": {"forward": fwd, "backward": bwd, "loss": float(m["loss"])},
@@ -515,8 +555,9 @@ def phase_train_path():
             losses.append(metrics["loss"])
 
     t0 = time.perf_counter()
-    _, (tfwd, tbwd) = drive_train(f"{TRAIN_STEPS} bf16 steps", train,
-                                  2 * LAYERS * TRAIN_STEPS, 2 * LAYERS * TRAIN_STEPS)
+    _, tgot = counted(f"{TRAIN_STEPS} bf16 steps", train,
+                      planar=(2 * LAYERS * TRAIN_STEPS, 2 * LAYERS * TRAIN_STEPS))
+    tfwd, tbwd = tgot["planar"]
     seconds = time.perf_counter() - t0
     launches["backward_inverse"] += tbwd
     losses = torch.stack(losses).cpu().numpy()
@@ -534,42 +575,45 @@ def phase_train_path():
     return launches
 
 
-def step_against_cpu():
+def step_against_cpu(phase, build, n, freeze_base, launches):
     """One f32 reverse-KL step, make_train_step + Adam, on the card and on
-    the CPU from the same weights and the same 2^12 base draws."""
+    the CPU from the same weights (``build`` makes the model) and the same
+    ``n`` base draws (``freeze_base(card, cpu)`` gives both models' bases
+    one fixed draw); the card's step launches the kernels exactly
+    ``launches`` times (``counted``).  Every gradient leaf within 2e-3 of its
+    norm, the loss within 1e-3."""
     from normflows_tpu_torch.training import make_train_step
 
-    card = build_flagship(DEVICE)
-    cpu = build_flagship("cpu")
+    card = build(DEVICE)
+    cpu = build("cpu")
     cpu.load_state_dict(card.state_dict())
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    z, log_q = card.q0.sample_and_log_prob(N_TRAIN_CPU, generator=gen)
-    card.q0 = Draws(card.q0, z, log_q)
-    cpu.q0 = Draws(cpu.q0, z.cpu(), log_q.cpu())
+    freeze_base(card, cpu)
     out = {}
     for where, model in (("card", card), ("cpu", cpu)):
         state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
-                                      reverse_kld_loss(N_TRAIN_CPU))
+                                      reverse_kld_loss(n))
         t0 = time.perf_counter()
-        _, metrics = step(state, None)
-        if where == "card":
-            sync()
+        (_, metrics), _ = counted(f"{phase} step on the {where}", lambda: step(state, None),
+                                  **(launches if where == "card" else {}))
         out[where] = (float(metrics["loss"]), time.perf_counter() - t0,
-                      {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+                      {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
     (loss_card, s_card, g_card), (loss_cpu, s_cpu, g_cpu) = out["card"], out["cpu"]
-    rel = {n: float((g_card[n] - g_cpu[n]).norm() / (g_cpu[n].norm() + 1e-12))
-           for n in g_cpu if float(g_cpu[n].norm()) > 0}
+    rel = {k: float((g_card[k] - g_cpu[k]).norm() / (g_cpu[k].norm() + 1e-12))
+           for k in g_cpu if float(g_cpu[k].norm()) > 0}
     worst = max(rel, key=rel.get)
-    r = {"samples": N_TRAIN_CPU, "loss_card": loss_card, "loss_cpu": loss_cpu,
+    r = {"samples": n, "loss_card": loss_card, "loss_cpu": loss_cpu,
          "excess_loss": excess(torch.tensor(loss_card), torch.tensor(loss_cpu),
                                CPU_TOL, CPU_TOL),
          "leaves": len(g_cpu), "worst_leaf": worst, "worst_relative_norm": rel[worst],
-         "zero_leaves_equal": all(bool((g_card[n] == 0).all()) for n in g_cpu
-                                  if n not in rel),
+         # the leaves outside the autoregressive nets: LU, base, target
+         "relative_norm": {k: v for k, v in rel.items()
+                           if not k.startswith("flows.") or ".linear." in k},
+         "zero_leaves_equal": all(bool((g_card[k] == 0).all()) for k in g_cpu
+                                  if k not in rel),
          "seconds_card_first_step": s_card, "seconds_cpu": s_cpu}
     if r["excess_loss"] > 0 or rel[worst] > STEP_G_TOL or not r["zero_leaves_equal"]:
-        emit("train_path", ok=False, card_vs_cpu=r)
-        raise SystemExit("the training step on the card disagrees with the CPU")
+        emit(phase, ok=False, card_vs_cpu=r)
+        raise SystemExit(f"{phase}: the training step on the card disagrees with the CPU")
     return r
 
 
@@ -626,6 +670,398 @@ def phase_times_train():
     return kernel, plain, bound_ms, bound_by
 
 
+# ---- large-D autoregressive NSF: the flat spline kernels ---------------------
+
+def flat_inputs(rng, N, slab):
+    """Inputs of the flat kernel, from the numpy generator: x (N,) with ~20%
+    outside +-bound, codes mixing linear and circular tails per element,
+    bounds, and the parameter rows uw_t, uh_t (K, N), ud_t (K+1, N).  With
+    ``slab`` the rows are one feature's slab of a (D(3K+1), N) tensor, as
+    the sliced inverse hands them over; else a packed (3K+1, N) tensor."""
+    K, S = LD_BINS, 3 * LD_BINS + 1
+    codes = rng.choice([1, 2], size=N).astype(np.int32)
+    bounds = np.where(codes == 1, LD_TAIL_BOUND, math.pi).astype(np.float32)
+    x = (rng.uniform(-1.25, 1.25, N) * bounds).astype(np.float32)
+    rows = S * LD_D if slab else S
+    params = torch.from_numpy((PARAM_STD * rng.normal(size=(rows, N))).astype(np.float32))
+    params = params.to(DEVICE)
+    if slab:
+        f = int(rng.integers(LD_D))
+        params = params[f * S:(f + 1) * S]
+    to = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    return to(x), params[:K], params[K:2 * K], params[2 * K:], to(codes), to(bounds)
+
+
+FLAT_CASES = ((LD_BATCH, True), (LD_BATCH + 37, True), (LD_BATCH * LD_D, False))
+
+
+def phase_kernel_flat():
+    """The flat kernel against its plain version (in float64) on the same
+    CUDA tensors: the sliced inverse's slab at N = 4096 and 4096 + 37
+    (runtime-tail bars) and packed rows at N = 262,144, the density
+    direction's size (static-tail bars), both directions; then the
+    static-tail entry on the (B, D, 3K+1) view of a net's output, with mixed
+    per-dim tails."""
+    from normflows_tpu_torch.ops import splines
+    from normflows_tpu_torch.ops import spline_flat as sf
+
+    rng = np.random.default_rng(SEED + 10)
+    errs = {}
+    for N, slab in FLAT_CASES:
+        y_tol, ld_tol = (FLAT_Y_TOL, FLAT_LD_TOL) if slab else (Y_TOL, LD_TOL)
+        for inverse in (False, True):
+            args = flat_inputs(rng, N, slab)
+            y, ld = sf.unconstrained_rqs_dyncodes(*args, inverse)
+            sync()
+            want = sf.unconstrained_rqs_dyncodes_reference(*as_f64(args), inverse)
+            e = check_pair("kernel_flat", errs, (y, ld), want, (y_tol, ld_tol), ("y", "ld"))
+            plain = sf.unconstrained_rqs_dyncodes_reference(*args, inverse)
+            e["plain_f32_excess"] = [excess(a, b, t, t)
+                                     for a, b, t in zip(plain, want, (y_tol, ld_tol))]
+            errs[f"{'inverse' if inverse else 'forward'}_N{N}"] = e
+    # the static-tail entry: x (B, D), params (D(3K+1), B) viewed (B, D, 3K+1)
+    K, S = LD_BINS, 3 * LD_BINS + 1
+    codes = tuple(1 + (d % 3 == 0) for d in range(LD_D))
+    bounds = tuple(math.pi if c == 2 else LD_TAIL_BOUND for c in codes)
+    x = (rng.uniform(-1.25, 1.25, (LD_BATCH, LD_D)) * np.asarray(bounds)).astype(np.float32)
+    x = torch.from_numpy(x).to(DEVICE)
+    p_t = torch.from_numpy((PARAM_STD * rng.normal(size=(LD_D * S, LD_BATCH)))
+                           .astype(np.float32)).to(DEVICE)
+    p = p_t.T.view(LD_BATCH, LD_D, S)
+    for inverse in (False, True):
+        out = sf.unconstrained_rational_quadratic_spline_flat(
+            x, p[..., :K], p[..., K:2 * K], p[..., 2 * K:], codes, bounds, inverse)
+        sync()
+        x64, p64 = x.double(), p.double()
+        ref = splines.unconstrained_rational_quadratic_spline(
+            x64, p64[..., :K], p64[..., K:2 * K], p64[..., 2 * K:], inverse=inverse,
+            tail_codes=torch.tensor(codes, device=DEVICE),
+            tail_bound=torch.tensor(bounds, dtype=torch.float64, device=DEVICE))
+        errs[f"{'inverse' if inverse else 'forward'}_natural_B{LD_BATCH}_D{LD_D}"] = \
+            check_pair("kernel_flat", errs, out, ref, (Y_TOL, LD_TOL), ("y", "ld"))
+    emit("kernel_flat", ok=True, errors=errs, bars={
+        "runtime_tails": [FLAT_Y_TOL, FLAT_LD_TOL], "static_tails": [Y_TOL, LD_TOL],
+        "param_std": PARAM_STD})
+    return errs
+
+
+def as_f64(args):
+    """The flat kernel's operands with the floating ones in float64."""
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+def check_pair(phase, errs, got, want, tols, names):
+    """Max |a - b| and the excess over atol = rtol = tol of each pair of
+    outputs; fail the phase unless all are finite and within their bars."""
+    e = {"finite": all(bool(torch.isfinite(a).all()) for a in got)}
+    for a, b, tol, name in zip(got, want, tols, names):
+        e[f"max_abs_{name}"] = float((a - b).abs().max())
+        e[f"excess_{name}"] = excess(a, b, tol, tol)
+    if not e["finite"] or any(v > 0 for k, v in e.items() if k.startswith("excess")):
+        emit(phase, ok=False, errors=errs, failed=e)
+        raise SystemExit(f"{phase}: the kernel disagrees with its plain version")
+    return e
+
+
+def phase_kernel_flat_backward():
+    """The flat backward kernel against its plain version (autograd through
+    the plain spline, in float64) at the same shapes, both directions, and
+    with zero derivative logits at 4096 + 37."""
+    from normflows_tpu_torch.ops import spline_flat as sf
+
+    rng = np.random.default_rng(SEED + 11)
+    errs = {}
+    for (N, slab), zero_slopes in [(c, False) for c in FLAT_CASES] + [(FLAT_CASES[1], True)]:
+        for inverse in (False, True):
+            args = flat_inputs(rng, N, slab)
+            if zero_slopes:
+                args[3].zero_()
+            yb, lb = (torch.from_numpy(a).to(DEVICE)
+                      for a in rng.normal(size=(2, N)).astype(np.float32))
+            got = sf.unconstrained_rqs_dyncodes_backward(*args, yb, lb, inverse)
+            sync()
+            want = sf.unconstrained_rqs_dyncodes_backward_reference(
+                *as_f64([*args, yb, lb]), inverse)
+            key = f"{'inverse' if inverse else 'forward'}_N{N}" + ("_zero_slopes" * zero_slopes)
+            e = check_pair("kernel_flat_backward", errs, got, want, (FLAT_G_TOL,) * 4,
+                           ("dx", "duw", "duh", "dud"))
+            plain = sf.unconstrained_rqs_dyncodes_backward_reference(*args, yb, lb, inverse)
+            e["plain_f32_excess"] = [excess(a, b, FLAT_G_TOL, FLAT_G_TOL)
+                                     for a, b in zip(plain, want)]
+            errs[key] = e
+    emit("kernel_flat_backward", ok=True, errors=errs, bars={"gradients": FLAT_G_TOL})
+    return errs
+
+
+def build_large_d(device, init_identity=False):
+    """examples/ar_large_d_bench.py's stack: 4 x (AR RQ-spline, LULinearPermute)
+    with a DiagGaussian base and target; seeds as there."""
+    import normflows_tpu_torch as nft
+
+    layers = []
+    for i in range(LD_LAYERS):
+        layers.append(nft.flows.AutoregressiveRationalQuadraticSpline.create(
+            torch.Generator().manual_seed(SEED + i), LD_D, 1, LD_HIDDEN, num_bins=LD_BINS,
+            tail_bound=LD_TAIL_BOUND, permute_mask=True, rng_seed=i,
+            init_identity=init_identity, device=device))
+        layers.append(nft.flows.LULinearPermute.create(
+            LD_D, generator=torch.Generator().manual_seed(SEED + 100 + i), device=device))
+    target = nft.distributions.DiagGaussian.create(LD_D, device=device)
+    with torch.no_grad():
+        target.loc.fill_(0.5)
+        target.log_scale.fill_(-0.2)
+    return nft.NormalizingFlow.create(nft.distributions.DiagGaussian.create(LD_D, device=device),
+                                      layers, p=target, device=device)
+
+
+def phase_large_d_path():
+    """sample(4096) and log_prob of the samples, f32 and bf16: exactly 256
+    flat launches per sample (4 layers x 64 steps), 4 per log_prob, no
+    planar one; sample's log_q against log_prob; f32 on the card against
+    the CPU, bf16 against f32."""
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    model = build_large_d(DEVICE)
+    results, launches = {}, {"forward": 0, "inverse": 0}
+    for dtype in ("float32", "bfloat16"):
+        set_compute_dtype(model, None if dtype == "float32" else dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        with torch.inference_mode():
+            (x, log_q), n_s = counted(f"large-D sample {dtype}",
+                                      lambda: model.sample(LD_BATCH, generator=gen),
+                                      flat=(LD_LAYERS * LD_D, 0))
+            lp, n_l = counted(f"large-D log_prob {dtype}", lambda: model.log_prob(x),
+                              flat=(LD_LAYERS, 0))
+        launches["inverse"] += n_s["flat"][0]
+        launches["forward"] += n_l["flat"][0]
+        finite = all(bool(torch.isfinite(t).all()) for t in (x, log_q, lp))
+        gap = (lp - log_q).abs()
+        r = {"sample_launches": n_s, "log_prob_launches": n_l, "finite": finite,
+             "shape": list(x.shape), "median_abs_logq_gap": float(gap.median()),
+             "max_abs_logq_gap": float(gap.max()), "mean_log_q": float(log_q.mean())}
+        results[dtype] = r
+        bar = LOGQ_LD_F32 if dtype == "float32" else LOGQ_LD_BF16
+        if not (finite and tuple(x.shape) == (LD_BATCH, LD_D)
+                and r["median_abs_logq_gap"] <= bar):
+            emit("large_d_path", ok=False, results=results)
+            raise SystemExit(f"large-D path ({dtype}) failed its checks")
+        if dtype == "float32":
+            results["cpu"] = against_cpu("large_d_path", model, x, build_large_d, LD_CPU)
+            x32, lp32 = x, lp
+            continue
+        with torch.inference_mode():
+            vs_f32 = (model.log_prob(x32) - lp32).abs()
+        r["log_prob_of_f32_samples_vs_f32"] = {"median_abs": float(vs_f32.median()),
+                                               "max_abs": float(vs_f32.max())}
+        if r["log_prob_of_f32_samples_vs_f32"]["median_abs"] > LD_BF16_VS_F32:
+            emit("large_d_path", ok=False, results=results)
+            raise SystemExit("large-D path: bf16 log_prob too far from f32")
+    emit("large_d_path", ok=True, results=results,
+         bars={"logq_f32": LOGQ_LD_F32, "logq_bf16": LOGQ_LD_BF16, "cpu": CPU_TOL,
+               "bf16_vs_f32": LD_BF16_VS_F32})
+    return model, launches
+
+
+class Noise(torch.nn.Module):
+    """Stands in for a DiagGaussian base: its reparameterised draw
+    loc + exp(log_scale) * eps on fixed noise ``eps``, so that its loc and
+    log_scale get their gradients as in a real draw; and its log_prob."""
+
+    def __init__(self, base, eps):
+        super().__init__()
+        self.base = base
+        self.eps = eps
+
+    def sample_and_log_prob(self, num_samples, context=None, *, generator=None):
+        z = self.base.loc + torch.exp(self.base.log_scale) * self.eps
+        return z, self.base.log_prob(z)
+
+    def log_prob(self, z, context=None):
+        return self.base.log_prob(z, context)
+
+
+def phase_large_d_train():
+    """(a) one f32 reverse-KL step on the card against the CPU at 512
+    samples, (b) exact flat launches of a reverse-KL step (256 + 256) and a
+    forward-KL step (4 + 4) at 4096 from the bench's init, (c) 50 bf16
+    steps from the bench's init: finite, and the loss falls."""
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    steps = LD_LAYERS * LD_D
+
+    def fixed_noise(card, cpu):
+        eps = torch.randn(LD_CPU, LD_D, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(SEED + 13))
+        card.q0 = Noise(card.q0, eps)
+        cpu.q0 = Noise(cpu.q0, eps.cpu())
+
+    results = {"card_vs_cpu": step_against_cpu("large_d_train", build_large_d, LD_CPU,
+                                               fixed_noise, {"flat": (steps, steps)})}
+    launches = {"backward_forward": 0, "backward_inverse": 0, "forward": 0, "inverse": 0}
+
+    model = build_large_d(DEVICE, init_identity=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                  reverse_kld_loss(LD_BATCH))
+    (_, m), got = counted("large-D reverse_kld step", lambda: step(state, None, gen),
+                          flat=(steps, steps))
+    with torch.no_grad():
+        x, _ = model.sample(LD_BATCH, generator=gen)
+    fstate, fstep = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                    forward_kld_loss)
+    (_, mf), fgot = counted("large-D forward_kld step", lambda: fstep(fstate, x, gen),
+                            flat=(LD_LAYERS, LD_LAYERS))
+    launches["inverse"] += got["flat"][0]
+    launches["backward_inverse"] += got["flat"][1]
+    launches["forward"] += fgot["flat"][0]
+    launches["backward_forward"] += fgot["flat"][1]
+    results["launches_per_step"] = {
+        "reverse_kld": {**got, "loss": float(m["loss"])},
+        "forward_kld": {**fgot, "loss": float(mf["loss"])}}
+    if not (m["finite"] and mf["finite"]):
+        emit("large_d_train", ok=False, results=results)
+        raise SystemExit("a large-D f32 training step gave a non-finite loss")
+
+    model = set_compute_dtype(build_large_d(DEVICE, init_identity=True), "bfloat16")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                  reverse_kld_loss(LD_BATCH))
+    losses = []
+
+    def train():
+        for _ in range(LD_TRAIN_STEPS):
+            losses.append(step(state, None, gen)[1]["loss"])
+
+    t0 = time.perf_counter()
+    _, tgot = counted(f"large-D {LD_TRAIN_STEPS} bf16 steps", train,
+                      flat=(steps * LD_TRAIN_STEPS, steps * LD_TRAIN_STEPS))
+    seconds = time.perf_counter() - t0
+    launches["inverse"] += tgot["flat"][0]
+    launches["backward_inverse"] += tgot["flat"][1]
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    results["bf16_training"] = {
+        "steps": LD_TRAIN_STEPS, "seconds": seconds,
+        "all_finite": bool(np.isfinite(losses).all()), "mean_first_10": first,
+        "mean_last_10": last, "max_loss": float(losses.max()),
+        "max_loss_step": int(losses.argmax()), "losses": losses.tolist(), "launches": tgot}
+    ok = results["bf16_training"]["all_finite"] and last < first
+    emit("large_d_train", ok=ok, results=results,
+         bars={"loss": [CPU_TOL, CPU_TOL], "gradient_norm": STEP_G_TOL})
+    if not ok:
+        raise SystemExit("large-D bf16 training: a loss was not finite or did not fall")
+    return launches
+
+
+def flat_bound(N, backward):
+    """Least time of a flat launch on N elements at K = LD_BINS, ms: the
+    bytes it must move over the memory rate against its operations over the
+    float32 rate (the larger).  Forward: x, 3K+1 parameters, code and bound
+    read, y and ld written; backward: x, parameters, code, bound, ybar, lbar
+    read, dx and 3K+1 gradients written.  Operations per element as in
+    phase_times / phase_times_train."""
+    K = LD_BINS
+    if backward:
+        words = (3 + (3 * K + 1) + 2) + (1 + (3 * K + 1))
+        ops = 21 * K + 28 + 130 + 24 * K + 10 * (K + 1)
+    else:
+        words = (1 + (3 * K + 1) + 2) + 2
+        ops = 2 * (K - 1) + 6 * K + 13 * K + 40
+    t_bytes, t_ops = words * 4 * N / HBM_BYTES_PER_S, ops * N / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        words * 4 * N
+
+
+def phase_times_large_d(model):
+    """The flat kernels' device time (CUDA graph) and call time at the sizes
+    the path gives them, with their bounds and plain versions' times; the
+    static-tail entry's call with its relayout; request and step times."""
+    from normflows_tpu_torch.ops import spline_flat as sf
+
+    rng = np.random.default_rng(SEED + 14)
+    kernels = {}
+    for N, slab in (FLAT_CASES[0], FLAT_CASES[2]):
+        # 16 input sets: 7.7 MB at N = 4096 (L2-resident, as the slab is right
+        # after the MADE wrote it), 503 MB at N = 262,144 (from device memory)
+        sets = [(*flat_inputs(rng, N, slab),
+                 *(torch.from_numpy(a).to(DEVICE) for a in rng.normal(size=(2, N))
+                   .astype(np.float32))) for _ in range(16)]
+        for inverse in (False, True):
+            d = "inverse" if inverse else "forward"
+            for backward in (False, True):
+                name = f"rqs_flat_{'backward_' if backward else ''}{d}"
+                fn = sf.unconstrained_rqs_dyncodes_backward if backward else \
+                    sf.unconstrained_rqs_dyncodes
+                plain = sf.unconstrained_rqs_dyncodes_backward_reference if backward else \
+                    sf.unconstrained_rqs_dyncodes_reference
+                n_args = 8 if backward else 6
+                r = {}
+                for key, f, timer, reps in (("ms", fn, graph_ms, 64),
+                                            ("call_ms", fn, cuda_ms, 400),
+                                            ("plain_ms", plain, cuda_ms, 10)):
+                    rotation = itertools.cycle(sets)
+                    r[key] = timer(lambda: f(*next(rotation)[:n_args], inverse), reps=reps)
+                r["bound_ms"], r["bound_by"], r["bytes"] = flat_bound(N, backward)
+                kernels.setdefault(name, {})[N] = r
+    # the static-tail entry with its relayout of (B, D, 3K+1) views into rows
+    K, S = LD_BINS, 3 * LD_BINS + 1
+    x = torch.randn(LD_BATCH, LD_D, device=DEVICE)
+    p_t = PARAM_STD * torch.randn(LD_D * S, LD_BATCH, device=DEVICE)
+    p = p_t.T.view(LD_BATCH, LD_D, S)
+    tails = ((1,) * LD_D, (LD_TAIL_BOUND,) * LD_D)
+
+    def natural():
+        return sf.unconstrained_rational_quadratic_spline_flat(
+            x, p[..., :K], p[..., K:2 * K], p[..., 2 * K:], *tails, False)
+
+    entry = {"call_ms": cuda_ms(natural, reps=200), "device_ms": graph_ms(natural, reps=32),
+             "note": "forward at (4096, 64): the three (B, D, S) -> (S, N) copies of the "
+                     "parameters, the flat input's copy, the code and bound rows, and "
+                     "the kernel"}
+    emit("times_large_d_kernels", kernels=kernels, static_tail_entry=entry,
+         note="ms: device time, 64 launches in one CUDA graph, 16 input sets rotated; "
+         "call_ms and plain_ms: CUDA events over a loop of calls (the wrapper's host "
+         "work included); bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s")
+    return kernels, large_d_request_and_step_times(model)
+
+
+def large_d_request_and_step_times(model):
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        set_compute_dtype(model, None if dtype == "float32" else dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        r = {}
+        with torch.inference_mode():
+            x, _ = model.sample(LD_BATCH, generator=gen)
+            for what, fn in (("sample", lambda: model.sample(LD_BATCH, generator=gen)),
+                             ("log_prob", lambda: model.log_prob(x))):
+                r[what] = timed(fn)
+        trained = set_compute_dtype(build_large_d(DEVICE, init_identity=True),
+                                    None if dtype == "float32" else dtype)
+        for what, loss_fn, batch in (("reverse_kld_step", reverse_kld_loss(LD_BATCH), None),
+                                     ("forward_kld_step", forward_kld_loss, x)):
+            state, step = make_train_step(
+                trained, torch.optim.Adam(trained.parameters(), lr=LR), loss_fn)
+            r[what] = timed(lambda: step(state, batch, gen))
+        out[dtype] = r
+    emit("times_large_d", requests_and_steps=out, batch=LD_BATCH,
+         note="ms: host median of 20 calls, each ending in a synchronise; profile: one "
+         "call under torch.profiler, device time summed over its CUDA kernels; "
+         "busy_share_of_median: that over the median; steps from the bench's init")
+    return out
+
+
+def timed(fn):
+    ms = host_ms(fn, reps=20)
+    prof = profile(fn, top=8)
+    return {"ms": ms, "samples_per_s": LD_BATCH / (ms / 1e3), "profile": prof,
+            "busy_share_of_median": prof["device_ms"] / ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -650,6 +1086,12 @@ def main() -> int:
     bwd_errs = phase_kernel_backward()
     bwd_launches = phase_train_path()
     bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by = phase_times_train()
+    flat_errs = phase_kernel_flat()
+    flat_bwd_errs = phase_kernel_flat_backward()
+    ld_model, ld_launches = phase_large_d_path()
+    ld_train_launches = phase_large_d_train()
+    flat_times, _ = phase_times_large_d(ld_model)
+    del ld_model
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -685,6 +1127,35 @@ def main() -> int:
             "bound_by": bwd_bound_by,
             "library_ms": None,
         })
+    # the flat kernels: times at the size the main path gives each (the
+    # sliced inverse's 4096 in the sampling direction, the density
+    # direction's 4096 x 64), the other size beside it
+    for d, n_path in (("forward", LD_BATCH * LD_D), ("inverse", LD_BATCH)):
+        for backward, errs_of, launched in ((False, flat_errs, ld_launches[d]),
+                                            (True, flat_bwd_errs,
+                                             ld_train_launches[f"backward_{d}"])):
+            name = f"rqs_flat_{'backward_' if backward else ''}{d}"
+            if not backward:
+                launched += ld_train_launches[d]
+            worst = [v for k, e in errs_of.items() if k.startswith(d)
+                     for n, v in e.items() if n.startswith("max_abs")]
+            t = flat_times[name]
+            kernels.append({
+                "name": name,
+                "route": "cuda",
+                "source": "normflows_tpu_torch/csrc/rqs_flat.cu",
+                "replaces": "normflows_tpu/ops/spline_pallas.py:" + ("313" if backward else "303"),
+                "launches": launched,
+                "max_abs_err": max(worst),
+                "ms": t[n_path]["ms"],
+                "plain_ms": t[n_path]["plain_ms"],
+                "bound_ms": t[n_path]["bound_ms"],
+                "bound_by": t[n_path]["bound_by"],
+                "library_ms": None,
+                "n": n_path,
+                "by_n": {str(n): {k: v for k, v in r.items() if k != "bytes"}
+                         for n, r in t.items()},
+            })
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,7 +9,10 @@ model's weights as numpy arrays.
 It holds the serving path of the flagship circular neural spline flow
 (``NormalizingFlow.sample`` / ``sample_and_log_prob`` and ``log_prob``) and
 its training step (``forward_kld``, ``reverse_kld`` and
-``training.make_train_step``).
+``training.make_train_step``), and the same for the large-D autoregressive
+flows (more than 8 features, sampled by the sliced sequential inverse:
+``MaskedAffineAutoregressive`` and the autoregressive RQ splines, with
+``LULinearPermute`` between them).
 """
 
 from . import core, distributions, flows, interop, nets, ops, training, utils

@@ -16,16 +16,15 @@
 // custom-vjp backward `_t_vjp_bwd` (:774) via `_bwd_scatter` (:198-300):
 // from the cotangents ybar, lbar (F, B) it computes dx (F, B) and dparams
 // (F*(3K+1), B).  It recomputes the softmax statistics and the bin search,
-// keeping the selected bin k* as an int (where `_bwd_scatter` carries K hit
-// masks), pulls the cotangents back through the rational-quadratic map by
-// the hand-derived partials of `post_math_vjp_*` below (the JAX kernel has
-// jax.vjp trace `_post_math`), and scatters them through the selection:
-// the selected width and height take their bin's logits, the left edges cw
-// and ch (prefix sums) the logits of every bin below k*, then softmax
-// backward; the slopes dk, dk1 go to the derivative logits of knots k* and
-// k*+1 through softplus' gradient sigmoid, with the linear and circular
-// boundary structure.  Every one of the 3K+1 rows is written for each
-// element, zeros included.
+// pulls the cotangents back through the rational-quadratic map by
+// hand-derived partials (the JAX kernel has jax.vjp trace `_post_math`), and
+// scatters them through the selection.
+//
+// The per-element math of both (bin search, map, backward) lives in
+// rqs_common.cuh, shared with the flat kernels of rqs_flat.cu; this file
+// holds only where an element's data lie: feature f's tail code and bound
+// travel by value in the launch's arguments, and its parameter rows are B
+// floats apart.
 //
 // What bounds both on this card: memory.  The forward reads 1 + (3K+1)
 // floats an element and writes 2 (at F=2, K=10, B=2^14: 4.46 MB, 1.33 us at
@@ -42,150 +41,21 @@
 // on an H100 SXM (700 W) a forward launch takes ~14.6 us, ~11x the bound
 // (chip_smoke.py; PERF.md).  Unrolling K and more work per thread are the
 // levers for a later change.
-//
-// Numerics, kept on purpose (tests hold the plain version to JAX, the
-// chip check holds these kernels to the plain version):
-// * the circular wrap is jnp.mod, which takes the divisor's sign: fmodf
-//   truncates toward zero and is exact, so a negative remainder gets `span`
-//   added back, which is how jnp.mod itself computes it (the same as
-//   x - span * floor((x - left) / span) without the rounding of the
-//   division);
-// * the 1e-38 guard of the inverse root is a float32 subnormal, so this file
-//   must not be built with --use_fast_math or -ftz=true (0/0 would give NaN);
-//   it uses expf/logf/log1pf/sqrtf, not the __ intrinsics;
-// * softplus is max(x,0) + log1p(exp(-|x|)), the form jax.nn.softplus takes;
-// * the backward takes JAX's gradients at ties: jnp.clip and jnp.maximum
-//   split a tie evenly (0.5), the input clamp to [-B, B] passes the whole
-//   gradient on the closed interval (`inside`), as `_bwd_scatter` does.
 
-#include <cuda_runtime.h>
+#include "rqs_common.cuh"
 
 namespace {
 
+using rqs::Consts;
+using rqs::Selection;
+
 constexpr int kMaxFeatures = 8;
-constexpr int kTailLinear = 1;
-constexpr int kTailCircular = 2;
 constexpr int kThreads = 256;
 
 struct Tails {
   int code[kMaxFeatures];
   float bound[kMaxFeatures];
 };
-
-struct Consts {
-  float min_bin_width, min_bin_height, min_derivative;
-  float fw, fh;  // 1 - K * min_bin_width, 1 - K * min_bin_height
-};
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// d clip(t, 0, 1) / dt as jnp.clip takes it: a tie at either end splits
-__device__ __forceinline__ float clip_grad(float t) {
-  if (t > 0.0f && t < 1.0f) return 1.0f;
-  return (t == 0.0f || t == 1.0f) ? 0.5f : 0.0f;
-}
-
-// One element's input, its tail mode, the softmax statistics of its logits
-// and the bin the search selected, with that bin's parameters.
-struct Selection {
-  float xs;  // wrapped (circular) or clamped (linear) input
-  bool inside, is_circ, is_lin;
-  float span;
-  float wmax, wsum, hmax, hsum;
-  int k;                       // selected bin
-  float cw, w, ch, h, dk, dk1;  // its left edges, sizes and knot slopes
-  float pw, ph;                // its width and height probabilities
-  float pw_below, ph_below;    // sums of the probabilities of bins below it
-};
-
-// Planar rows of element (f, b): uw[k * n], uh[k * n], ud[k * n].
-template <bool kInverse>
-__device__ __forceinline__ Selection select_bin(float x, const float* uw,
-                                                const float* uh,
-                                                const float* ud, size_t n,
-                                                int K, int code, float bound,
-                                                const Consts& c) {
-  Selection e;
-  e.is_circ = code == kTailCircular;
-  e.is_lin = code == kTailLinear;
-  const float left = -bound;
-  const float right = -left;
-  e.span = 2.0f * bound;
-  e.inside = (x >= left) && (x <= right);
-  if (e.is_circ) {
-    float r = fmodf(x - left, e.span);
-    if (r < 0.0f) r += e.span;
-    e.xs = left + r;
-  } else {
-    e.xs = fminf(fmaxf(x, left), right);
-  }
-
-  // softmax statistics of the width and height logits
-  e.wmax = uw[0];
-  e.hmax = uh[0];
-  for (int k = 1; k < K; ++k) {
-    e.wmax = fmaxf(e.wmax, uw[k * n]);
-    e.hmax = fmaxf(e.hmax, uh[k * n]);
-  }
-  e.wsum = 0.0f;
-  e.hsum = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    e.wsum += expf(uw[k * n] - e.wmax);
-    e.hsum += expf(uh[k * n] - e.hmax);
-  }
-
-  // knot slopes: linear tails pin both ends to 1, circular ones close d_K = d_0
-  const float d0_raw = c.min_derivative + softplus(ud[0]);
-  const bool is_lin = e.is_lin, is_circ = e.is_circ;
-  auto deriv = [&](int k) -> float {
-    if (k == 0) return is_lin ? 1.0f : d0_raw;
-    if (k == K && is_lin) return 1.0f;
-    if (k == K && is_circ) return d0_raw;
-    return c.min_derivative + softplus(ud[k * n]);
-  };
-
-  // K-step accumulate-and-select bin search
-  float cw = left;
-  float ch = left;
-  bool found = false;
-  e.k = K - 1;
-  e.cw = 0.0f, e.w = 1.0f, e.ch = 0.0f, e.h = 1.0f;
-  e.dk = 1.0f, e.dk1 = 1.0f;
-  e.pw = 0.0f, e.ph = 0.0f, e.pw_below = 0.0f, e.ph_below = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float p_w = expf(uw[k * n] - e.wmax) / e.wsum;
-    const float p_h = expf(uh[k * n] - e.hmax) / e.hsum;
-    const float w_k = (c.min_bin_width + c.fw * p_w) * e.span;
-    const float h_k = (c.min_bin_height + c.fh * p_h) * e.span;
-    const float cw_next = cw + w_k;
-    const float ch_next = ch + h_k;
-    const bool cond = (k == K - 1) || (e.xs < (kInverse ? ch_next : cw_next));
-    if (!found && cond) {
-      e.k = k;
-      e.cw = cw;
-      e.w = w_k;
-      e.ch = ch;
-      e.h = h_k;
-      e.dk = deriv(k);
-      e.dk1 = deriv(k + 1);
-      e.pw = p_w;
-      e.ph = p_h;
-      found = true;
-    } else if (!found) {
-      e.pw_below += p_w;
-      e.ph_below += p_h;
-    }
-    cw = cw_next;
-    ch = ch_next;
-  }
-  return e;
-}
 
 template <bool kInverse>
 __global__ void __launch_bounds__(kThreads)
@@ -202,195 +72,11 @@ rqs_transposed_kernel(const float* __restrict__ x_t,
   const float* uh = uw + static_cast<size_t>(K) * n;
   const float* ud = uh + static_cast<size_t>(K) * n;
 
-  const float x = x_t[static_cast<size_t>(f) * n + b];
-  const Selection e = select_bin<kInverse>(x, uw, uh, ud, n, K, tails.code[f],
-                                           tails.bound[f], consts);
-
-  // rational-quadratic map in the selected bin
-  const float delta = e.h / e.w;
-  const float s = e.dk + e.dk1 - 2.0f * delta;
-  float out;
-  float ld;
-  if (kInverse) {
-    const float y_rel = e.xs - e.ch;
-    const float a = e.h * (delta - e.dk) + y_rel * s;
-    const float bq = e.h * e.dk - y_rel * s;
-    const float c = -delta * y_rel;
-    const float disc = fmaxf(bq * bq - 4.0f * a * c, 0.0f);
-    const float denom_root = -bq - sqrtf(disc);
-    float theta = (2.0f * c) / (denom_root == 0.0f ? 1e-38f : denom_root);
-    theta = fminf(fmaxf(theta, 0.0f), 1.0f);
-    out = theta * e.w + e.cw;
-    const float om = 1.0f - theta;
-    const float tom = theta * om;
-    const float denom = delta + s * tom;
-    const float dnum = (delta * delta) *
-        (e.dk1 * theta * theta + 2.0f * delta * tom + e.dk * om * om);
-    ld = -(logf(dnum) - 2.0f * logf(denom));
-  } else {
-    const float theta = fminf(fmaxf((e.xs - e.cw) / e.w, 0.0f), 1.0f);
-    const float om = 1.0f - theta;
-    const float tom = theta * om;
-    const float num = e.h * (delta * theta * theta + e.dk * tom);
-    const float denom = delta + s * tom;
-    out = e.ch + num / denom;
-    const float dnum = (delta * delta) *
-        (e.dk1 * theta * theta + 2.0f * delta * tom + e.dk * om * om);
-    ld = logf(dnum) - 2.0f * logf(denom);
-  }
-
-  // linear tails outside [-B, B] are the identity with log|det| 0
-  const bool use_spline = e.inside || e.is_circ;
-  y_t[static_cast<size_t>(f) * n + b] = use_spline ? out : x;
-  ld_t[static_cast<size_t>(f) * n + b] = use_spline ? ld : 0.0f;
-}
-
-// Cotangents of the selected bin's inputs to `_post_math`.
-struct PostGrads {
-  float xs, cw, w, ch, h, dk, dk1;
-};
-
-// Cotangents that the log-det part of `_post_math` sends back.
-struct ThetaGrads {
-  float theta, delta, dk, dk1, s;
-};
-
-// The part both directions share: ld = lb_sign * (log dnum - 2 log denom),
-// with lb_sign = lbar forward and -lbar inverse.  The caller's other uses of
-// theta, tom and denom come in as g_theta_in, g_tom_in and g_denom_extra
-// (the forward's out = ch + num / denom uses all three).
-
-__device__ __forceinline__ ThetaGrads pull_back_log_det(
-    float theta, float delta, float s, float dk, float dk1, float lb_sign,
-    float g_denom_extra, float g_theta_in, float g_tom_in) {
-  // dnum = delta^2 Q, Q = dk1 theta^2 + 2 delta tom + dk om^2;
-  // ld = lb_sign * (log dnum - 2 log denom), denom = delta + s tom
-  const float om = 1.0f - theta;
-  const float tom = theta * om;
-  const float Q = dk1 * theta * theta + 2.0f * delta * tom + dk * om * om;
-  const float dnum = (delta * delta) * Q;
-  const float denom = delta + s * tom;
-  const float g_dnum = lb_sign / dnum;
-  const float g_denom = -2.0f * lb_sign / denom + g_denom_extra;
-  ThetaGrads g;
-  const float g_Q = g_dnum * (delta * delta);
-  g.delta = g_dnum * (2.0f * delta * Q) + g_Q * 2.0f * tom + g_denom;
-  g.dk1 = g_Q * theta * theta;
-  g.dk = g_Q * om * om;
-  float g_theta = g_theta_in + g_Q * 2.0f * dk1 * theta;
-  const float g_tom = g_tom_in + g_Q * 2.0f * delta + g_denom * s;
-  float g_om = g_Q * 2.0f * dk * om;
-  g.s = g_denom * tom;
-  // tom = theta om, om = 1 - theta
-  g_theta += g_tom * om;
-  g_om += g_tom * theta;
-  g.theta = g_theta - g_om;
-  return g;
-}
-
-// VJP of `_post_math(..., inverse=False)`: out = ch + num / denom,
-// ld = log(dnum) - 2 log(denom).
-__device__ __forceinline__ PostGrads post_math_vjp_forward(const Selection& e,
-                                                           float yb, float lb) {
-  const float delta = e.h / e.w;
-  const float s = e.dk + e.dk1 - 2.0f * delta;
-  const float t_raw = (e.xs - e.cw) / e.w;
-  const float theta = fminf(fmaxf(t_raw, 0.0f), 1.0f);
-  const float om = 1.0f - theta;
-  const float tom = theta * om;
-  // num = h R, R = delta theta^2 + dk tom
-  const float R = delta * theta * theta + e.dk * tom;
-  const float num = e.h * R;
-  const float denom = delta + s * tom;
-  const float g_num = yb / denom;
-  const float g_R = g_num * e.h;
-  const ThetaGrads t = pull_back_log_det(
-      theta, delta, s, e.dk, e.dk1, lb, -yb * num / (denom * denom),
-      g_R * 2.0f * delta * theta, g_R * e.dk);
-  PostGrads g;
-  g.ch = yb;
-  float g_delta = t.delta + g_R * theta * theta;
-  const float g_dk = t.dk + g_R * tom + t.s;
-  g.dk1 = t.dk1 + t.s;
-  g_delta -= 2.0f * t.s;  // s = dk + dk1 - 2 delta
-  g.dk = g_dk;
-  // theta = clip((xs - cw) / w, 0, 1)
-  const float g_t = t.theta * clip_grad(t_raw);
-  const float g_u = g_t / e.w;
-  g.xs = g_u;
-  g.cw = -g_u;
-  // delta = h / w
-  g.h = g_num * R + g_delta / e.w;
-  g.w = -(g_delta * delta + g_t * t_raw) / e.w;
-  return g;
-}
-
-// VJP of `_post_math(..., inverse=True)`: theta is the stable root
-// 2c / (-b - sqrt(b^2 - 4ac)), out = theta w + cw,
-// ld = -(log(dnum) - 2 log(denom)).
-__device__ __forceinline__ PostGrads post_math_vjp_inverse(const Selection& e,
-                                                           float yb, float lb) {
-  const float delta = e.h / e.w;
-  const float s = e.dk + e.dk1 - 2.0f * delta;
-  const float y_rel = e.xs - e.ch;
-  const float a = e.h * (delta - e.dk) + y_rel * s;
-  const float bq = e.h * e.dk - y_rel * s;
-  const float c = -delta * y_rel;
-  const float disc_raw = bq * bq - 4.0f * a * c;
-  const float disc = fmaxf(disc_raw, 0.0f);
-  const float sq = sqrtf(disc);
-  const float dr = -bq - sq;
-  const float dr_safe = dr == 0.0f ? 1e-38f : dr;
-  const float t_raw = (2.0f * c) / dr_safe;
-  const float theta = fminf(fmaxf(t_raw, 0.0f), 1.0f);
-  const ThetaGrads t = pull_back_log_det(theta, delta, s, e.dk, e.dk1, -lb,
-                                         0.0f, yb * e.w, 0.0f);
-  PostGrads g;
-  g.cw = yb;
-  float g_w = yb * theta;
-  float g_delta = t.delta;
-  float g_dk = t.dk;
-  float g_dk1 = t.dk1;
-  float g_s = t.s;
-  // theta = clip(t_raw, 0, 1), t_raw = 2c / dr_safe
-  const float g_t = t.theta * clip_grad(t_raw);
-  float g_c = 2.0f * g_t / dr_safe;
-  const float g_dr = dr == 0.0f ? 0.0f : -g_t * t_raw / dr_safe;
-  // dr = -bq - sqrt(max(disc_raw, 0)); jax's sqrt rule is g * 0.5 / sqrt,
-  // and jnp.maximum splits a tie at 0
-  float g_bq = -g_dr;
-  const float g_disc = -g_dr * (0.5f / sq);
-  const float g_draw =
-      g_disc * (disc_raw > 0.0f ? 1.0f : (disc_raw == 0.0f ? 0.5f : 0.0f));
-  // disc_raw = bq^2 - 4 a c
-  g_bq += g_draw * 2.0f * bq;
-  const float g_a = -4.0f * c * g_draw;
-  g_c += -4.0f * a * g_draw;
-  // c = -delta y_rel
-  g_delta -= g_c * y_rel;
-  float g_yrel = -g_c * delta;
-  // bq = h dk - y_rel s
-  float g_h = g_bq * e.dk;
-  g_dk += g_bq * e.h;
-  g_yrel -= g_bq * s;
-  g_s -= g_bq * y_rel;
-  // a = h (delta - dk) + y_rel s
-  g_h += g_a * (delta - e.dk);
-  g_delta += g_a * e.h;
-  g_dk -= g_a * e.h;
-  g_yrel += g_a * s;
-  g_s += g_a * y_rel;
-  // y_rel = xs - ch
-  g.xs = g_yrel;
-  g.ch = -g_yrel;
-  // s = dk + dk1 - 2 delta
-  g.dk = g_dk + g_s;
-  g.dk1 = g_dk1 + g_s;
-  g_delta -= 2.0f * g_s;
-  // delta = h / w
-  g.h = g_h + g_delta / e.w;
-  g.w = g_w - g_delta * delta / e.w;
-  return g;
+  const size_t i = static_cast<size_t>(f) * n + b;
+  const float x = x_t[i];
+  const Selection e = rqs::select_bin<kInverse>(
+      x, uw, uh, ud, n, K, tails.code[f], tails.bound[f], consts);
+  rqs::spline_element<kInverse>(e, x, y_t + i, ld_t + i);
 }
 
 template <bool kInverse>
@@ -416,48 +102,11 @@ rqs_transposed_backward_kernel(const float* __restrict__ x_t,
   float* dud = duh + static_cast<size_t>(K) * n;
 
   const size_t i = static_cast<size_t>(f) * n + b;
-  const Selection e = select_bin<kInverse>(x_t[i], uw, uh, ud, n, K,
-                                           tails.code[f], tails.bound[f],
-                                           consts);
-  const bool use_spline = e.inside || e.is_circ;
-  const float ybar = ybar_t[i];
-  const float yb = use_spline ? ybar : 0.0f;
-  const float lb = use_spline ? lbar_t[i] : 0.0f;
-  const PostGrads g = kInverse ? post_math_vjp_inverse(e, yb, lb)
-                               : post_math_vjp_forward(e, yb, lb);
-
-  // x: xs is the wrap (slope 1) or the clamp (slope 1 on [-B, B]); a linear
-  // tail outside it is the identity
-  const float pass_through = (e.is_circ || e.inside) ? 1.0f : 0.0f;
-  dx_t[i] = g.xs * pass_through + (use_spline ? 0.0f : ybar);
-
-  // widths and heights: bin k* takes dw, every bin below it dcw (cw is a
-  // prefix sum); then softmax backward, p_k (g_k - sum_j p_j g_j)
-  const float gw_hit = g.w * (consts.fw * e.span);
-  const float gw_below = g.cw * (consts.fw * e.span);
-  const float gh_hit = g.h * (consts.fh * e.span);
-  const float gh_below = g.ch * (consts.fh * e.span);
-  const float sum_w = e.pw * gw_hit + e.pw_below * gw_below;
-  const float sum_h = e.ph * gh_hit + e.ph_below * gh_below;
-  for (int k = 0; k < K; ++k) {
-    const float p_w = expf(uw[k * n] - e.wmax) / e.wsum;
-    const float p_h = expf(uh[k * n] - e.hmax) / e.hsum;
-    const float gw = k == e.k ? gw_hit : (k < e.k ? gw_below : 0.0f);
-    const float gh = k == e.k ? gh_hit : (k < e.k ? gh_below : 0.0f);
-    duw[k * n] = p_w * (gw - sum_w);
-    duh[k * n] = p_h * (gh - sum_h);
-  }
-
-  // derivative logits: dk is knot k*'s slope, dk1 knot k*+1's; a linear
-  // tail pins knots 0 and K to 1, a circular one takes knot K's slope from
-  // knot 0's logit
-  for (int j = 0; j <= K; ++j) {
-    float gd = 0.0f;
-    if (j == e.k && !(j == 0 && e.is_lin)) gd += g.dk;
-    if (j == e.k + 1 && !(j == K && (e.is_lin || e.is_circ))) gd += g.dk1;
-    if (j == 0 && e.k == K - 1 && e.is_circ && !e.is_lin) gd += g.dk1;
-    dud[j * n] = gd * sigmoid(ud[j * n]);
-  }
+  const Selection e = rqs::select_bin<kInverse>(
+      x_t[i], uw, uh, ud, n, K, tails.code[f], tails.bound[f], consts);
+  rqs::spline_element_backward<kInverse>(e, ybar_t[i], lbar_t[i], uw, uh, ud,
+                                         n, K, consts, dx_t + i, duw, duh,
+                                         dud, n);
 }
 
 bool fill_tails(const int* codes, const float* bounds, int F, Tails* tails) {
@@ -467,21 +116,10 @@ bool fill_tails(const int* codes, const float* bounds, int F, Tails* tails) {
     tails->bound[f] = bounds[f];
   }
   for (int f = F; f < kMaxFeatures; ++f) {
-    tails->code[f] = kTailLinear;
+    tails->code[f] = rqs::kTailLinear;
     tails->bound[f] = 1.0f;
   }
   return true;
-}
-
-Consts make_consts(int K, double min_bin_width, double min_bin_height,
-                   double min_derivative) {
-  // the floors' complements in double, then rounded once, as the JAX kernel
-  // folds its Python-float constants
-  return Consts{static_cast<float>(min_bin_width),
-                static_cast<float>(min_bin_height),
-                static_cast<float>(min_derivative),
-                static_cast<float>(1.0 - min_bin_width * K),
-                static_cast<float>(1.0 - min_bin_height * K)};
 }
 
 }  // namespace
@@ -501,7 +139,7 @@ extern "C" int rqs_transposed_forward(const float* x_t, const float* params_t,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Consts consts =
-      make_consts(K, min_bin_width, min_bin_height, min_derivative);
+      rqs::make_consts(K, min_bin_width, min_bin_height, min_derivative);
   const dim3 grid((B + kThreads - 1) / kThreads, F);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inverse) {
@@ -528,7 +166,7 @@ extern "C" int rqs_transposed_backward(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Consts consts =
-      make_consts(K, min_bin_width, min_bin_height, min_derivative);
+      rqs::make_consts(K, min_bin_width, min_bin_height, min_derivative);
   const dim3 grid((B + kThreads - 1) / kThreads, F);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inverse) {

@@ -2,7 +2,8 @@
 
 from ..core.flow import Flow, Reverse, Composite, Identity, zero_log_det_like_z
 from . import base
-from .affine.autoregressive import Autoregressive
+from .affine.autoregressive import Autoregressive, MaskedAffineAutoregressive
+from .mixing import LULinearPermute
 from .neural_spline import (
     MaskedPiecewiseRationalQuadraticAutoregressive,
     AutoregressiveRationalQuadraticSpline,
@@ -15,6 +16,8 @@ __all__ = [
     "Composite",
     "Identity",
     "Autoregressive",
+    "MaskedAffineAutoregressive",
+    "LULinearPermute",
     "MaskedPiecewiseRationalQuadraticAutoregressive",
     "AutoregressiveRationalQuadraticSpline",
     "CircularAutoregressiveRationalQuadraticSpline",

@@ -4,20 +4,28 @@ The port runs the autoregressive transform in the transposed layout (the
 batch on the last axis) from the MADE to the elementwise transform, which
 the JAX package does only on its planar kernel path.  The base class holds
 the two directions; a subclass supplies the elementwise transform
-:meth:`Autoregressive._elementwise_t`.
+:meth:`Autoregressive._elementwise_t` and, for more than 8 features, the
+one-feature inverse :meth:`Autoregressive._elementwise_inverse_row`.
 
-The inverse is the D-step recursion, unrolled, for D <= 8 features.  Its
-first pass is the batch-1 pass of the JAX package: the degree-1 outputs of
-the MADE see no input, and every sample starts from the same zero carry, so
-one column broadcast over the batch is exact.  The sliced inverse for D > 8
-and ``MaskedAffineAutoregressive`` wait for a later slice of the port.
+The inverse is the D-step recursion.  For D <= 8 features it is unrolled
+and its first pass is the batch-1 pass of the JAX package: the degree-1
+outputs of the MADE see no input, and every sample starts from the same zero
+carry, so one column broadcast over the batch is exact.  For D > 8 it is the
+sliced inverse of the JAX package (``Autoregressive._inverse_sliced``): step
+t runs the full MADE on the carry, but only the feature of degree t+1
+becomes final, so only its (mult, B) slab of the net's output goes through
+the elementwise inverse.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 from ...core.flow import Flow
+from ...nets.made import MADE
 
 MAX_UNROLLED_FEATURES = 8
 _LATER = "a later slice of the PyTorch port"
@@ -38,6 +46,26 @@ class Autoregressive(Flow):
         """x_t (F, B), params_t (P, B) -> (y_t (F, B), log|det| (F, B))."""
         raise NotImplementedError
 
+    def _elementwise_inverse_single(self, x_col, params, dim_idx: int):
+        """Inverse transform of ONE feature column: ``x_col`` (B, 1),
+        ``params`` (B, mult), ``dim_idx`` the feature's position; returns
+        ``(y_col (B, 1), log|det| (B,))``."""
+        raise NotImplementedError
+
+    def _elementwise_inverse_row(self, x_row, params_rows, dim_idx: int, tails=None):
+        """One step of the sliced inverse in the transposed layout: ``x_row``
+        (B,), ``params_rows`` (mult, B) -> ``(y_row (B,), log|det| (B,))``.
+        ``tails`` is what :meth:`_sliced_tails` made for this call.  The
+        default bridges to :meth:`_elementwise_inverse_single` by two
+        transposes."""
+        y_col, ld = self._elementwise_inverse_single(x_row[:, None], params_rows.T, dim_idx)
+        return y_col[:, 0], ld
+
+    def _sliced_tails(self, x_t):
+        """Per-call state of the sliced inverse, made once before its D
+        steps (the spline's tail rows); None by default."""
+        return None
+
     def _check(self, inputs, context):
         if context is not None:
             raise NotImplementedError(f"a conditional autoregressive flow waits for {_LATER}")
@@ -57,9 +85,7 @@ class Autoregressive(Flow):
         self._check(inputs, context)
         F, B = inputs.shape[1], inputs.shape[0]
         if F > MAX_UNROLLED_FEATURES:
-            raise NotImplementedError(
-                f"the sliced inverse for more than {MAX_UNROLLED_FEATURES} features "
-                f"waits for {_LATER}")
+            return self._inverse_sliced(inputs)
         net = self.autoregressive_net
         x_t = inputs.T.contiguous()
         # pass 1: batch-1 MADE pass, broadcast over the batch (exact)
@@ -70,3 +96,95 @@ class Autoregressive(Flow):
             params_t = net.apply_t(out_t)
             out_t, ld_t = self._elementwise_t(x_t, params_t, inverse=True)
         return out_t.T, ld_t.sum(dim=0)
+
+    def _inverse_sliced(self, inputs):
+        """The sliced sequential inverse (JAX ``_inverse_sliced``): D full
+        MADE passes, each followed by the one-feature inverse of the feature
+        of the next degree.  The feature order is a host tuple, so no step
+        waits on the device; the carry's row is replaced out of place,
+        because autograd has saved the carry for the MADE's backward."""
+        net = self.autoregressive_net
+        B, F = inputs.shape
+        mult = net.final_layer.weight.shape[0] // F
+        x_t = inputs.T.contiguous()
+        tails = self._sliced_tails(x_t)
+        out_t = torch.zeros_like(x_t)
+        ld = x_t.new_zeros(B)
+        for p in net.input_order_host:
+            params_t = net.apply_t(out_t)  # (F * mult, B)
+            y_row, ld_row = self._elementwise_inverse_row(
+                x_t[p], params_t[p * mult:(p + 1) * mult], p, tails)
+            out_t = torch.cat((out_t[:p], y_row[None].to(out_t.dtype), out_t[p + 1:]))
+            ld = ld + ld_row
+        return out_t.T, ld
+
+
+def _constrain_scale(unconstrained):
+    """MAF scale parameterisation, sigmoid(s + 2) + 1e-3: the one source for
+    the full-width and the one-feature paths."""
+    return torch.sigmoid(unconstrained + 2.0) + 1e-3
+
+
+class MaskedAffineAutoregressive(Autoregressive):
+    """MAF layer; scale = sigmoid(s + 2) + 1e-3.  The MADE's output
+    multiplier is 2: row ``2 f`` of its transposed output holds feature f's
+    unconstrained scale, row ``2 f + 1`` its shift."""
+
+    def __init__(self, autoregressive_net, features: int):
+        super().__init__(autoregressive_net)
+        self.features = features
+
+    @classmethod
+    def create(
+        cls,
+        generator: Optional[torch.Generator],
+        features: int,
+        hidden_features: int,
+        context_features=None,
+        num_blocks: int = 2,
+        use_residual_blocks: bool = True,
+        random_mask: bool = False,
+        activation: str = "relu",
+        dropout_probability: float = 0.0,
+        use_batch_norm: bool = False,
+        rng_seed: int = 0,
+        *,
+        device="cuda",
+    ):
+        """``generator`` draws the initial weights (it takes the place of the
+        JAX ``key``; ``None`` uses torch's default generator)."""
+        made = MADE(
+            features=features,
+            hidden_features=hidden_features,
+            context_features=context_features,
+            num_blocks=num_blocks,
+            output_multiplier=2,
+            use_residual_blocks=use_residual_blocks,
+            random_mask=random_mask,
+            activation=activation,
+            dropout_probability=dropout_probability,
+            use_batch_norm=use_batch_norm,
+            rng_seed=rng_seed,
+            generator=generator,
+            device=device,
+        )
+        return cls(made, features)
+
+    def _elementwise_t(self, x_t, params_t, inverse: bool):
+        p = params_t.view(self.features, 2, -1)
+        scale = _constrain_scale(p[:, 0])
+        shift = p[:, 1]
+        if inverse:
+            return (x_t - shift) / scale, -torch.log(scale)
+        return scale * x_t + shift, torch.log(scale)
+
+    def _elementwise_inverse_single(self, x_col, params, dim_idx: int):
+        # params (B, 2): [unconstrained scale, shift]
+        scale = _constrain_scale(params[:, :1])
+        shift = params[:, 1:]
+        return (x_col - shift) / scale, -torch.log(scale[:, 0])
+
+    def _elementwise_inverse_row(self, x_row, params_rows, dim_idx: int, tails=None):
+        # planar form, no transposes: params_rows (2, B)
+        scale = _constrain_scale(params_rows[0])
+        return (x_row - params_rows[1]) / scale, -torch.log(scale)

@@ -2,13 +2,18 @@
 ``normflows_tpu/flows/neural_spline/autoregressive.py``).
 
 Every dim takes the uniform 3K+1 parameter layout (widths | heights |
-derivatives).  Both directions run the transposed MADE (``apply_t``) into the
-planar spline, :func:`~normflows_tpu_torch.ops.spline_cuda.rqs_transposed`:
-the CUDA kernel for a tensor on the card, its plain version for a CPU tensor.
-The JAX package takes that path behind its gate ``_transposed_ok``; the port
-takes it at every batch size and raises ``NotImplementedError`` where that
-gate would refuse: constrained tails, more than 8 features, a context, or
-dropout.
+derivatives).  Both directions run the transposed MADE (``apply_t``).  Up to
+8 features its output goes whole into the planar spline,
+:func:`~normflows_tpu_torch.ops.spline_cuda.rqs_transposed`, as behind the
+JAX package's gate ``_transposed_ok``.  Above 8 features the density
+direction takes the flat spline on the (B, F, 3K+1) view of that output
+(:func:`~normflows_tpu_torch.ops.spline_flat.unconstrained_rational_quadratic_spline_flat`,
+as JAX's ``_elementwise``), and the sampling direction the sliced inverse,
+whose steps each take one feature's slab
+(:func:`~normflows_tpu_torch.ops.spline_flat.unconstrained_rqs_dyncodes`, as
+JAX's ``_elementwise_inverse_row``).  Each is the CUDA kernel for a tensor on
+the card and its plain version for a CPU tensor.  Constrained tails, a
+context and dropout raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from ...nets.made import MADE
-from ...ops import spline_cuda, splines
+from ...ops import spline_cuda, spline_flat, splines
 from ...ops.backend import resolve_device
 from ...utils.nn import PeriodicFeaturesElementwise
 from ..affine.autoregressive import Autoregressive, MAX_UNROLLED_FEATURES, _LATER
@@ -72,10 +77,6 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
         device = resolve_device(device)
         if tails is None:
             raise NotImplementedError(f"constrained splines (tails=None) wait for {_LATER}")
-        if features > MAX_UNROLLED_FEATURES:
-            raise NotImplementedError(
-                f"autoregressive splines over more than {MAX_UNROLLED_FEATURES} "
-                f"features wait for {_LATER}")
         # circular preprocessing
         preprocessing = None
         if isinstance(tails, (list, tuple)):
@@ -122,6 +123,36 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
     # and its MADE never sets that attribute, so the reference AR layer runs
     # unscaled (the JAX package checks this against the reference).
     def _elementwise_t(self, x_t, params_t, inverse: bool):
-        return spline_cuda.rqs_transposed(
-            x_t, params_t, self.tail_codes, self.tail_bound, inverse,
-            self.min_bin_width, self.min_bin_height, self.min_derivative)
+        F, B = x_t.shape
+        if F <= MAX_UNROLLED_FEATURES:
+            return spline_cuda.rqs_transposed(
+                x_t, params_t, self.tail_codes, self.tail_bound, inverse,
+                self.min_bin_width, self.min_bin_height, self.min_derivative)
+        K = self.num_bins
+        p = params_t.T.view(B, F, 3 * K + 1)
+        y, ld = spline_flat.unconstrained_rational_quadratic_spline_flat(
+            x_t.T, p[..., :K], p[..., K:2 * K], p[..., 2 * K:], self.tail_codes,
+            self.tail_bound, inverse, self.min_bin_width, self.min_bin_height,
+            self.min_derivative)
+        return y.T, ld.T
+
+    def _sliced_tails(self, x_t):
+        """Each feature's tail code and bound spread over the batch, (F, B)
+        each: made once a call, a row of each for every step."""
+        F, B = x_t.shape
+        rows = []
+        for values, dtype in ((self.tail_codes, torch.int32), (self.tail_bound, x_t.dtype)):
+            per_dim = spline_flat.per_dim(values, dtype, x_t.device)
+            rows.append(per_dim[:, None].expand(F, B).contiguous())
+        return rows
+
+    def _elementwise_inverse_row(self, x_row, params_rows, dim_idx: int, tails=None):
+        """One feature's RQS inverse, for a step of the sliced inverse: its
+        (3K+1, B) slab of the net's output, rows of one contiguous tensor,
+        goes to the flat kernel as it lies."""
+        codes, bounds = tails
+        K = self.num_bins
+        return spline_flat.unconstrained_rqs_dyncodes(
+            x_row, params_rows[:K], params_rows[K:2 * K], params_rows[2 * K:],
+            codes[dim_idx], bounds[dim_idx], True, self.min_bin_width,
+            self.min_bin_height, self.min_derivative)

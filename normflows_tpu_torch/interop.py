@@ -8,9 +8,11 @@ as ``{keystr(p): np.asarray(l) for p, l in tree_flatten_with_path(model)[0]}``
 
 Each path names the port's tensor of the same name.  A parameter is copied;
 the (in, out) weights of ``Linear`` / ``MaskedLinear`` are transposed into
-torch's (out, in), and so are their masks.  A buffer the port recomputes
-(masks, degrees, ``input_order``, index and permutation buffers, scales) is
-held for equality instead.  The first path that is missing, extra, of the
+torch's (out, in), and so are their masks.  A buffer drawn at random (one a
+module lists in its ``random_buffers``, such as a random permutation, which
+a torch generator cannot draw as a JAX key does) is copied too.  A buffer
+the port recomputes (masks, degrees, ``input_order``, index buffers, scales)
+is held for equality instead.  The first path that is missing, extra, of the
 wrong shape or unequal raises, and the message names it.
 """
 
@@ -43,12 +45,13 @@ def load_jax_leaves(model: torch.nn.Module, leaves: dict) -> torch.nn.Module:
         if target is None:
             raise KeyError(f"load_jax_leaves: {path} has no counterpart in the port")
         value = np.array(value)  # a writable copy: JAX hands out read-only views
-        if attr in _TRANSPOSED and isinstance(model.get_submodule(owner), Linear):
+        module = model.get_submodule(owner)
+        if attr in _TRANSPOSED and isinstance(module, Linear):
             value = value.T
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"load_jax_leaves: {path} has shape {value.shape}, "
                              f"the port's {name} {tuple(target.shape)}")
-        if name in params:
+        if name in params or attr in getattr(module, "random_buffers", ()):
             with torch.no_grad():
                 target.copy_(torch.as_tensor(value, dtype=target.dtype))
         elif not np.array_equal(value, target.detach().cpu().numpy()):

@@ -157,7 +157,8 @@ class MADE(nn.Module):
     """MADE with residual blocks.
 
     ``input_order`` holds the feature positions sorted by autoregressive
-    degree (the argsort of the possibly permuted input degrees)."""
+    degree (the argsort of the possibly permuted input degrees), and
+    ``input_order_host`` the same as a tuple of ints."""
 
     def __init__(self, features: int, hidden_features: int,
                  context_features=None, num_blocks: int = 2,
@@ -200,8 +201,10 @@ class MADE(nn.Module):
             out_degrees_=input_degrees_, generator=generator, device=device)
         self.preprocessing = preprocessing
         self.hidden_features = hidden_features
-        self.register_buffer("input_order", torch.as_tensor(
-            np.argsort(input_degrees_, kind="stable"), device=device))
+        order = np.argsort(input_degrees_, kind="stable")
+        self.register_buffer("input_order", torch.as_tensor(order, device=device))
+        # the same on the host, for loops that index features by it
+        self.input_order_host = tuple(int(i) for i in order)
 
     def forward(self, x, context=None):
         """(B, F) -> (B, F * output_multiplier)."""

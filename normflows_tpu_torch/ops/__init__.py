@@ -1,4 +1,5 @@
-"""Numerical kernels: the plain PyTorch spline and the CUDA spline kernel."""
+"""Numerical kernels: the plain PyTorch spline, the planar and flat CUDA
+spline kernels, and their build."""
 
-from . import backend, spline_cuda, splines
+from . import backend, cuda_build, spline_cuda, spline_flat, splines
 from .backend import resolve_device, use_kernel

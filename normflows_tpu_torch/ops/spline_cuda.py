@@ -5,7 +5,7 @@ Port of ``rqs_transposed_pallas`` (``normflows_tpu/ops/spline_pallas.py:726``)
 with its custom-vjp backward: ``csrc/rqs_transposed.cu`` holds the kernel of
 each direction (counterpart of ``_t_fwd_kernel``) and the backward kernel
 (counterpart of ``_t_bwd_kernel``), built with ``nvcc`` for ``sm_90a`` at
-first use into ``normflows_tpu_torch/_build/`` and loaded with ``ctypes``.
+first use and loaded with ``ctypes`` (``ops/cuda_build.py``).
 
 :func:`rqs_transposed` is one ``autograd.Function`` for both devices: on a
 CUDA tensor its forward and backward launch the kernels, on a CPU tensor they
@@ -16,24 +16,13 @@ call the plain versions :func:`rqs_transposed_reference` and
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import backend, splines
+from . import backend, cuda_build, splines
 
-_PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "rqs_transposed.cu"
-BUILD_DIR = _PACKAGE / "_build"
-# no --use_fast_math / -ftz=true: the kernel's 1e-38 guard is a subnormal
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = cuda_build.CSRC / "rqs_transposed.cu"
 MAX_FEATURES = 8  # kMaxFeatures in the kernel
 
 # Kernel launches made by rqs_transposed since the count was last set to 0:
@@ -41,57 +30,15 @@ MAX_FEATURES = 8  # kMaxFeatures in the kernel
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
-_LIB = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build(force: bool = False) -> dict:
-    """Compile the kernel into ``BUILD_DIR`` unless a build of this exact
-    source and these flags is there already (or ``force``).
-
-    Returns ``{"path", "seconds", "ptxas"}``; ``ptxas`` holds the compiler's
-    register / shared-memory / spill report of a fresh build ("" otherwise)."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"librqs_transposed-{key}.so"
-    if out.exists() and not force:
-        return {"path": out, "seconds": 0.0, "ptxas": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a torn file
-    ptxas = "\n".join(line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-                      if "ptxas" in line or "spill" in line)
-    return {"path": out, "seconds": seconds, "ptxas": ptxas}
+_SIGNATURES = {
+    name: [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_double] * 3
+    + [ctypes.c_void_p]
+    for name, pointers in (("rqs_transposed_forward", 6), ("rqs_transposed_backward", 8))
+}
 
 
 def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()["path"]))
-        for fn, pointers in ((lib.rqs_transposed_forward, 6),
-                             (lib.rqs_transposed_backward, 8)):
-            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
-                           + [ctypes.c_double] * 3 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return cuda_build.library(SOURCE, _SIGNATURES)
 
 
 def _check(x_t, params_t, tail_codes, tail_bound):

@@ -93,7 +93,9 @@ def test_round_trip():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"features": 9}, "more than 8 features"),
+    # above 8 features the layer is built (the sliced inverse), and refuses
+    # a context as below it
+    ({"features": 9, "context_features": 2}, "conditional"),
     ({"tails": None}, "constrained"),
     ({"context_features": 2}, "conditional"),
     ({"dropout_probability": 0.1}, "dropout"),

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA spline kernels (forward and backward) against
-their plain PyTorch versions, and a small model's serving path and training
-step through the kernels.
+"""The port on the card: the CUDA spline kernels, planar and flat (forward and
+backward), against their plain PyTorch versions, a small model's serving path
+and training step through the planar kernels, and a D = 64 autoregressive
+model's through the flat kernels.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 import normflows_tpu_torch as nft
-from normflows_tpu_torch.ops import spline_cuda
+from normflows_tpu_torch.ops import spline_cuda, spline_flat
 
 Y_TOL = 2e-5  # the JAX package's bars (tests/test_pallas.py), atol = rtol
 LD_TOL = 2e-4
@@ -137,5 +138,81 @@ def test_small_model_serves_through_the_kernel(cuda):
         assert spline_cuda.LAUNCHES == 4
         lp = card.log_prob(x)
         assert spline_cuda.LAUNCHES == 6
+        close(lp, log_q, 1e-3)
+        close(lp, cpu.log_prob(x.cpu()), 1e-3)
+
+
+def flat_inputs(N, device, seed=0, slab=True, K=8):
+    """x, uw_t, uh_t, ud_t, codes, bounds of the flat kernel, the parameter
+    rows one feature's slab of a (64 (3K+1), N) tensor or packed."""
+    rng = np.random.default_rng(seed)
+    S = 3 * K + 1
+    codes = rng.choice([1, 2], size=N).astype(np.int32)
+    bounds = np.where(codes == 1, 3.0, np.pi).astype(np.float32)
+    x = (rng.uniform(-1.25, 1.25, N) * bounds).astype(np.float32)
+    p = torch.from_numpy((PARAM_STD * rng.normal(size=(64 * S if slab else S, N)))
+                         .astype(np.float32)).to(device)
+    if slab:
+        p = p[5 * S:6 * S]
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return to(x), p[:K], p[K:2 * K], p[2 * K:], to(codes), to(bounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("N,slab", [(4096, True), (4096 + 37, True), (1, True),
+                                    (4096 * 64, False)])
+def test_flat_kernel_matches_plain(cuda, N, slab, inverse):
+    """Forward and backward (1e-3) against the plain versions in float64, at the JAX
+    package's bars: 1e-5 / 1e-4 for the sliced inverse's slab (the runtime-tail
+    entry), 2e-5 / 2e-4 at the density direction's packed size (the
+    static-tail entry)."""
+    args = flat_inputs(N, cuda, slab=slab)
+    before = (spline_flat.LAUNCHES, spline_flat.BACKWARD_LAUNCHES)
+    y, ld = spline_flat.unconstrained_rqs_dyncodes(*args, inverse)
+    yb, lb = (torch.from_numpy(a).to(cuda)
+              for a in np.random.default_rng(1).normal(size=(2, N)).astype(np.float32))
+    grads = spline_flat.unconstrained_rqs_dyncodes_backward(*args, yb, lb, inverse)
+    torch.cuda.synchronize()
+    assert (spline_flat.LAUNCHES, spline_flat.BACKWARD_LAUNCHES) == (before[0] + 1,
+                                                                     before[1] + 1)
+    # the plain versions in float64 (see chip_smoke.py's FLAT_G_TOL)
+    f64 = [a.double() if a.is_floating_point() else a for a in (*args, yb, lb)]
+    yr, ldr = spline_flat.unconstrained_rqs_dyncodes_reference(*f64[:6], inverse)
+    close(y, yr, 1e-5 if slab else Y_TOL)
+    close(ld, ldr, 1e-4 if slab else LD_TOL)
+    want = spline_flat.unconstrained_rqs_dyncodes_backward_reference(*f64, inverse)
+    for g, r in zip(grads, want):
+        assert torch.isfinite(g).all()
+        close(g, r, 1e-3)
+
+
+def large_d_model(device, layers=2):
+    """examples/ar_large_d_bench.py's layers at D = 64, narrowed to hidden 32."""
+    flows = []
+    for i in range(layers):
+        flows.append(nft.flows.AutoregressiveRationalQuadraticSpline.create(
+            torch.Generator().manual_seed(i), 64, 1, 32, num_bins=8, permute_mask=True,
+            rng_seed=i, init_identity=False, device=device))
+        flows.append(nft.flows.LULinearPermute.create(
+            64, generator=torch.Generator().manual_seed(100 + i), device=device))
+    return nft.NormalizingFlow.create(nft.distributions.DiagGaussian.create(64, device=device),
+                                      flows, device=device)
+
+
+@pytest.mark.gpu
+def test_large_d_model_serves_through_the_flat_kernel(cuda):
+    """64 flat launches per layer and sample (the sliced inverse), one per
+    layer and log_prob, no planar launch; the card against the CPU."""
+    card, cpu = large_d_model(cuda), large_d_model("cpu")
+    cpu.load_state_dict(card.state_dict())
+    with torch.inference_mode():
+        spline_cuda.LAUNCHES = spline_flat.LAUNCHES = 0
+        x, log_q = card.sample(1000, generator=torch.Generator(device=cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        assert spline_flat.LAUNCHES == 128
+        lp = card.log_prob(x)
+        torch.cuda.synchronize()
+        assert spline_flat.LAUNCHES == 130 and spline_cuda.LAUNCHES == 0
         close(lp, log_q, 1e-3)
         close(lp, cpu.log_prob(x.cpu()), 1e-3)
