@@ -18,7 +18,12 @@ Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   4 x (AR RQ-spline of hidden width 256, 8 bins + LULinearPermute), 4096
   samples), whose sampling direction is the sliced sequential inverse,
   through the flat spline kernels: phases kernel_flat,
-  kernel_flat_backward, large_d_path, large_d_train, times_large_d.
+  kernel_flat_backward, large_d_path, large_d_train, times_large_d;
+* the same large-D model with the opt-in fused MADE on
+  (``ops.backend.set_made_fusion(True)``): its density direction
+  (``log_prob``, the forward-KL step) runs each layer's MADE as the fused
+  kernels of ``csrc/made_fused.cu``: phases kernel_made_fused,
+  kernel_made_fused_backward, large_d_fused, times_made_fused.
 
 It prints one JSON line per phase, then the ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
@@ -118,8 +123,23 @@ LOGQ_LD_F32, LOGQ_LD_BF16 = LOGQ_F32, LOGQ_BF16
 # same model on the CPU, at 256 samples, gives 0.029 nats (max 0.20).
 LD_BF16_VS_F32 = 0.1
 
+# fused MADE (ops/made_fused.py): the large-D model's MADE (B 4096, F 64,
+# H 256, R 1, P 1600) and the JAX package's test shapes (F 2, H 512, R 1 and
+# 2, P 62, B 300: a masked edge in P and a batch no multiple of a tile)
+MADE_CASES = ((LD_BATCH, LD_D, LD_HIDDEN, 1, 3 * LD_BINS + 1), (300, 2, 512, 1, 31),
+              (300, 2, 512, 2, 31))
+# the JAX package's bars (tests/test_pallas.py): f32 outputs 1e-5 (:111) and
+# gradients 2e-4 (:129), here against the plain version in float64; bf16
+# against the bf16 plain version 5e-2 (:201), the forward against the f32
+# plain version 0.15 / 0.05 (:177)
+MADE_Y_TOL, MADE_G_TOL, MADE_BF16_TOL, MADE_BF16_F32 = 1e-5, 2e-4, 5e-2, (0.15, 0.05)
+# fusion on against off on the card, f32: log_prob and the forward-KL loss
+FUSED_TOL = 1e-4
+LD_FUSED_STEPS = 20
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores, same source
 
 
 def emit(phase: str, **fields):
@@ -227,9 +247,10 @@ def phase_device():
 
 
 def phase_build():
-    from normflows_tpu_torch.ops import cuda_build, spline_cuda, spline_flat
+    from normflows_tpu_torch.ops import cuda_build, made_fused, spline_cuda, spline_flat
 
-    info = cuda_build.build([spline_cuda.SOURCE, spline_flat.SOURCE], force=True)
+    info = cuda_build.build([spline_cuda.SOURCE, spline_flat.SOURCE, made_fused.SOURCE],
+                            force=True)
     emit("build", sources={
         str(src.relative_to(REPO)): {
             "seconds": i["seconds"],
@@ -275,21 +296,22 @@ def phase_kernel():
     return errs
 
 
-def counted(what, fn, planar=(0, 0), flat=(0, 0)):
+def counted(what, fn, planar=(0, 0), flat=(0, 0), made=(0, 0)):
     """Run one main-path phase with every kernel's launch count set to 0 just
-    before it; fail unless the planar and the flat spline kernels were
-    launched exactly ``(forward, backward)`` times each."""
-    from normflows_tpu_torch.ops import spline_cuda, spline_flat
+    before it; fail unless the planar and the flat spline kernels and the
+    fused MADE were launched exactly ``(forward, backward)`` times each."""
+    from normflows_tpu_torch.ops import made_fused, spline_cuda, spline_flat
 
-    counters = {"planar": spline_cuda, "flat": spline_flat}
+    counters = {"planar": spline_cuda, "flat": spline_flat, "made": made_fused}
     for m in counters.values():
         m.LAUNCHES = m.BACKWARD_LAUNCHES = 0
     out = fn()
     sync()
     got = {k: (m.LAUNCHES, m.BACKWARD_LAUNCHES) for k, m in counters.items()}
-    if got != {"planar": tuple(planar), "flat": tuple(flat)}:
+    want = {"planar": tuple(planar), "flat": tuple(flat), "made": tuple(made)}
+    if got != want:
         raise SystemExit(f"{what}: (forward, backward) kernel launches {got}, expected "
-                         f"planar {planar} and flat {flat}")
+                         f"{want}")
     return out, got
 
 
@@ -1062,6 +1084,384 @@ def timed(fn):
             "busy_share_of_median": prof["device_ms"] / ms}
 
 
+# ---- large-D density direction with the fused MADE ---------------------------
+
+def made_case(B, F, H, R, mult, bf16, seed):
+    """x (B, F) and the packed operands of a MADE with random weights (the
+    residual blocks' second linear drawn like the others, not near zero),
+    from the seed."""
+    import normflows_tpu_torch as nft
+    from normflows_tpu_torch.ops import made_fused as mf
+
+    made = nft.nets.MADE(F, H, num_blocks=R, output_multiplier=mult, permute_mask=True,
+                         rng_seed=seed, generator=torch.Generator().manual_seed(seed),
+                         device=DEVICE)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for blk in made.blocks:
+            for t in (blk.linear_1.weight, blk.linear_1.bias):
+                t.copy_(torch.empty(t.shape).uniform_(-H ** -0.5, H ** -0.5, generator=gen))
+    if bf16:
+        nft.utils.set_compute_dtype(made, "bfloat16")
+    x = np.random.default_rng(seed).normal(size=(B, F)).astype(np.float32)
+    return torch.from_numpy(x).to(DEVICE), [t.detach() for t in mf.pack(made)], made
+
+
+def made_key(case, bf16):
+    B, F, H, R, mult = case
+    return f"B{B}_F{F}_H{H}_R{R}_P{F * mult}_{'bf16' if bf16 else 'f32'}"
+
+
+def phase_kernel_made_fused():
+    """The fused forward kernel against its plain version on the same CUDA
+    tensors: f32 against it in float64, bf16 against the bf16 plain version
+    and against the f32 one."""
+    from normflows_tpu_torch.ops import made_fused as mf
+
+    errs = {}
+    for i, case in enumerate(MADE_CASES):
+        for bf16 in (False, True):
+            x, ops, _ = made_case(*case, bf16, SEED + 20 + i)
+            out = mf.fused_resmade(x, *ops)
+            sync()
+            if bf16:
+                e = check_pair("kernel_made_fused", errs, (out,),
+                               (mf.fused_resmade_reference(x, *ops),), (MADE_BF16_TOL,),
+                               ("out",))
+                f32 = mf.fused_resmade_reference(x, *[t.float() for t in ops])
+                e["max_abs_vs_f32"] = float((out - f32).abs().max())
+                e["excess_vs_f32"] = excess(out, f32, *MADE_BF16_F32)
+                if e["excess_vs_f32"] > 0:
+                    emit("kernel_made_fused", ok=False, errors=errs, failed=e)
+                    raise SystemExit("kernel_made_fused: bf16 kernel too far from f32")
+            else:
+                e = check_pair("kernel_made_fused", errs, (out,),
+                               (mf.fused_resmade_reference(*[t.double() for t in (x, *ops)]),),
+                               (MADE_Y_TOL,), ("out",))
+            errs[made_key(case, bf16)] = e
+    emit("kernel_made_fused", ok=True, errors=errs,
+         bars={"f32_vs_float64": MADE_Y_TOL, "bf16_vs_bf16_plain": MADE_BF16_TOL,
+               "bf16_vs_f32_plain": MADE_BF16_F32})
+    return errs
+
+
+GRAD_NAMES = ("dx", "dw0", "db0", "dw1s", "db1s", "dw2s", "db2s", "dwf", "dbf")
+
+
+def phase_kernel_made_fused_backward():
+    """The fused backward kernels against their plain version (the pull-back
+    written out): f32 against it in float64, bf16 against the bf16 one."""
+    from normflows_tpu_torch.ops import made_fused as mf
+
+    errs = {}
+    for i, case in enumerate(MADE_CASES):
+        for bf16 in (False, True):
+            x, ops, _ = made_case(*case, bf16, SEED + 30 + i)
+            g = torch.from_numpy(np.random.default_rng(SEED + 40 + i).normal(
+                size=(case[0], case[1] * case[4])).astype(np.float32)).to(DEVICE)
+            got = mf.fused_resmade_backward(x, *ops, g)
+            sync()
+            if bf16:
+                want, tol = mf.fused_resmade_backward_reference(x, *ops, g), MADE_BF16_TOL
+            else:
+                want = mf.fused_resmade_backward_reference(*[t.double() for t in (x, *ops, g)])
+                tol = MADE_G_TOL
+            errs[made_key(case, bf16)] = check_pair(
+                "kernel_made_fused_backward", errs, got, want, (tol,) * 9, GRAD_NAMES)
+    emit("kernel_made_fused_backward", ok=True, errors=errs,
+         bars={"f32_vs_float64": MADE_G_TOL, "bf16_vs_bf16_plain": MADE_BF16_TOL})
+    return errs
+
+
+def forward_kld_grads(model, x):
+    """The forward-KL loss of ``x`` and every gradient leaf, facade and
+    autograd only (no optimizer)."""
+    model.zero_grad(set_to_none=True)
+    loss = model.forward_kld(x)
+    loss.backward()
+    return float(loss), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def relative_norms(got, want):
+    return {k: float((got[k].cpu() - want[k].cpu()).norm() / (want[k].norm() + 1e-12))
+            for k in want if float(want[k].norm()) > 0}
+
+
+def phase_large_d_fused():
+    """The large-D model with fusion on: log_prob(4096) and a forward-KL
+    step in f32 and bf16 with exactly 4 fused forward launches per log_prob
+    and 4 + 4 per step, none in sample or the reverse-KL step, none with
+    fusion off; fusion on against off (f32 log_prob and loss within 1e-4,
+    each gradient leaf within 2e-3 of its norm); bf16 log_prob against the
+    f32 log_prob of the same samples; the card against the CPU at 512
+    samples with fusion on; 20 bf16 forward-KL steps."""
+    from normflows_tpu_torch.ops import backend
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    L, steps = LD_LAYERS, LD_LAYERS * LD_D
+    launches = {"forward": 0, "backward": 0}
+    results = {}
+    model = build_large_d(DEVICE)
+    backend.set_made_fusion(True)
+    try:
+        for dtype in ("float32", "bfloat16"):
+            set_compute_dtype(model, None if dtype == "float32" else dtype)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            with torch.inference_mode():
+                (x, log_q), _ = counted(f"fused sample {dtype}",
+                                        lambda: model.sample(LD_BATCH, generator=gen),
+                                        flat=(steps, 0))
+                lp, n_l = counted(f"fused log_prob {dtype}", lambda: model.log_prob(x),
+                                  flat=(L, 0), made=(L, 0))
+                backend.set_made_fusion(False)
+                lp_off, _ = counted(f"unfused log_prob {dtype}", lambda: model.log_prob(x),
+                                    flat=(L, 0))
+                backend.set_made_fusion(True)
+                if dtype == "bfloat16":  # the f32 log_prob of the same samples
+                    set_compute_dtype(model, None)
+                    lp_f32 = model.log_prob(x)
+                    set_compute_dtype(model, dtype)
+            x = x.clone()  # a normal tensor, which autograd may save
+            launches["forward"] += n_l["made"][0]
+            (loss, grads), n_f = counted(f"fused forward_kld {dtype}",
+                                         lambda: forward_kld_grads(model, x),
+                                         flat=(L, L), made=(L, L))
+            launches["forward"] += n_f["made"][0]
+            launches["backward"] += n_f["made"][1]
+            backend.set_made_fusion(False)
+            (loss_off, grads_off), _ = counted(f"unfused forward_kld {dtype}",
+                                               lambda: forward_kld_grads(model, x), flat=(L, L))
+            backend.set_made_fusion(True)
+            gap = (lp - log_q).abs()
+            rel = relative_norms(grads, grads_off)
+            worst = max(rel, key=rel.get)
+            r = {"finite": all(bool(torch.isfinite(t).all()) for t in (lp, *grads.values())),
+                 "median_abs_logq_gap": float(gap.median()),
+                 "max_abs_log_prob_vs_unfused": float((lp - lp_off).abs().max()),
+                 "excess_log_prob_vs_unfused": excess(lp, lp_off, FUSED_TOL, FUSED_TOL),
+                 "loss": loss, "loss_unfused": loss_off,
+                 "excess_loss_vs_unfused": excess(torch.tensor(loss), torch.tensor(loss_off),
+                                                  FUSED_TOL, FUSED_TOL),
+                 "worst_leaf_vs_unfused": worst, "worst_relative_norm_vs_unfused": rel[worst],
+                 "launches": {"log_prob": n_l, "forward_kld": n_f}}
+            results[dtype] = r
+            if dtype == "float32":
+                ok = r["finite"] and r["median_abs_logq_gap"] <= LOGQ_LD_F32 and max(
+                    r["excess_log_prob_vs_unfused"], r["excess_loss_vs_unfused"]) <= 0 \
+                    and rel[worst] <= STEP_G_TOL
+            else:
+                # the fused bf16 MADE keeps its activations in f32, the unfused
+                # one (sample's direction) in bf16: their gap is rounding, not
+                # error.  The bar is the large-D path's: the f32 log_prob of
+                # the same samples within a median LD_BF16_VS_F32.
+                vs_f32 = (lp - lp_f32).abs()
+                r["log_prob_vs_f32"] = {"median_abs": float(vs_f32.median()),
+                                        "max_abs": float(vs_f32.max())}
+                r["unfused_log_prob_vs_f32_median_abs"] = float((lp_off - lp_f32).abs().median())
+                ok = r["finite"] and r["log_prob_vs_f32"]["median_abs"] <= LD_BF16_VS_F32
+            if not ok:
+                emit("large_d_fused", ok=False, results=results)
+                raise SystemExit(f"large_d_fused ({dtype}) failed its checks")
+            if dtype == "float32":
+                results["cpu"] = fused_against_cpu(model, x)
+                x32 = x
+        # the training steps through make_train_step: forward KL fused, reverse
+        # KL (the sliced inverse) not
+        set_compute_dtype(model, None)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+        for what, loss_fn, batch, want in (
+                ("forward_kld", forward_kld_loss, x32, {"flat": (L, L), "made": (L, L)}),
+                ("reverse_kld", reverse_kld_loss(LD_BATCH), None, {"flat": (steps, steps)})):
+            state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                          loss_fn)
+            (_, m), got = counted(f"fused {what} step", lambda: step(state, batch, gen), **want)
+            launches["forward"] += got["made"][0]
+            launches["backward"] += got["made"][1]
+            results[f"{what}_step"] = {"loss": float(m["loss"]), "finite": m["finite"],
+                                       "launches": got}
+        results["bf16_training"] = fused_bf16_training(launches)
+    finally:
+        backend.set_made_fusion(False)
+    ok = results["bf16_training"]["all_finite"] and results["bf16_training"]["falls"]
+    emit("large_d_fused", ok=ok, results=results,
+         bars={"fused_vs_unfused": FUSED_TOL, "gradient_norm": STEP_G_TOL, "cpu": CPU_TOL,
+               "logq_f32": LOGQ_LD_F32, "bf16_vs_f32": LD_BF16_VS_F32})
+    if not ok:
+        raise SystemExit("large_d_fused: bf16 forward-KL training not finite or not falling")
+    return launches
+
+
+def fused_against_cpu(model, x):
+    """The same model on the CPU with fusion on (the fused plain versions):
+    log_prob of 512 samples, and the forward-KL loss and gradients."""
+    cpu = build_large_d("cpu")
+    cpu.load_state_dict(model.state_dict())
+    xs = x[:LD_CPU]
+    with torch.inference_mode():
+        lp_card, lp_cpu = model.log_prob(xs).cpu(), cpu.log_prob(xs.cpu())
+    (loss_card, g_card), _ = counted("fused forward_kld at 512 on the card",
+                                     lambda: forward_kld_grads(model, xs),
+                                     flat=(LD_LAYERS, LD_LAYERS), made=(LD_LAYERS, LD_LAYERS))
+    loss_cpu, g_cpu = forward_kld_grads(cpu, xs.cpu())
+    rel = relative_norms(g_card, g_cpu)
+    worst = max(rel, key=rel.get)
+    r = {"samples": LD_CPU, "excess_log_prob": excess(lp_card, lp_cpu, CPU_TOL, CPU_TOL),
+         "max_abs_log_prob": float((lp_card - lp_cpu).abs().max()),
+         "loss_card": loss_card, "loss_cpu": loss_cpu,
+         "excess_loss": excess(torch.tensor(loss_card), torch.tensor(loss_cpu), CPU_TOL,
+                               CPU_TOL),
+         "leaves": len(g_cpu), "worst_leaf": worst, "worst_relative_norm": rel[worst]}
+    if max(r["excess_log_prob"], r["excess_loss"]) > 0 or rel[worst] > STEP_G_TOL:
+        emit("large_d_fused", ok=False, cpu=r)
+        raise SystemExit("large_d_fused: the fused model on the card disagrees with the CPU")
+    return r
+
+
+def fused_bf16_training(launches):
+    """LD_FUSED_STEPS bf16 forward-KL steps with fusion on, from the bench's
+    init, on one batch of the target's samples: finite, and the loss falls."""
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    model = set_compute_dtype(build_large_d(DEVICE, init_identity=True), "bfloat16")
+    with torch.no_grad():
+        x = model.p.sample(LD_BATCH, generator=torch.Generator(device=DEVICE).manual_seed(
+            SEED + 15))
+    state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                  forward_kld_loss)
+    losses = []
+
+    def train():
+        for _ in range(LD_FUSED_STEPS):
+            losses.append(step(state, x)[1]["loss"])
+
+    n = LD_LAYERS * LD_FUSED_STEPS
+    t0 = time.perf_counter()
+    _, got = counted(f"{LD_FUSED_STEPS} fused bf16 forward-KL steps", train,
+                     flat=(n, n), made=(n, n))
+    seconds = time.perf_counter() - t0
+    launches["forward"] += got["made"][0]
+    launches["backward"] += got["made"][1]
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    return {"steps": LD_FUSED_STEPS, "seconds": seconds,
+            "all_finite": bool(np.isfinite(losses).all()), "mean_first_5": first,
+            "mean_last_5": last, "falls": last < first, "losses": losses.tolist(),
+            "launches": got}
+
+
+def made_bound(case, bf16, backward):
+    """Least time of the fused MADE at ``case``, ms, and what bounds it: the
+    bytes it must move (x, weights, biases and, backward, g read once; out
+    or dx and the gradients written once) over the memory rate, against its
+    operations over the rate of their type (bf16: the tensor cores).  The
+    forward's products are 2 B (F H + 2 R H^2 + H P) operations; the
+    backward's the input and weight cotangents of every product, twice
+    that, and the recompute of the hidden chain, 2 B (F H + 2 R H^2)."""
+    B, F, H, R, mult = case
+    P = F * mult
+    n_w, n_b = F * H + 2 * R * H * H + H * P, H + 2 * R * H + P
+    chain = 2 * B * (F * H + 2 * R * H * H)
+    ops = 2 * B * n_w * (2 if backward else 1) + (chain if backward else 0)
+    w_bytes = n_w * (2 if bf16 else 4) + n_b * 4
+    moved = B * F * 4 + w_bytes + B * P * 4 + (B * F * 4 + w_bytes if backward else 0)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = ops / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        moved, ops
+
+
+def phase_times_made_fused(model):
+    """Device time of each fused kernel in a CUDA graph at the large-D shape,
+    f32 and bf16, forward and backward; the wrapper's call time with the
+    packing; the plain versions; the library yardstick: the unfused MADE
+    pass (torch GEMMs and elementwise kernels) and its autograd backward,
+    the same way at the same shape; the bounds; then log_prob(4096) and the
+    forward-KL step, fusion off against on."""
+    from normflows_tpu_torch.ops import backend
+    from normflows_tpu_torch.ops import made_fused as mf
+
+    case = MADE_CASES[0]
+    kernels = {}
+    for bf16 in (False, True):
+        x, ops, made = made_case(*case, bf16, SEED + 50)
+        g = torch.randn(case[0], case[1] * case[4], device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 51))
+        xg = x.clone().requires_grad_()
+        leaves = [xg, *made.parameters()]
+
+        def library_forward():
+            return made(xg)
+
+        def library_forward_backward():
+            return torch.autograd.grad(made(xg), leaves, g)
+
+        backend.set_made_fusion(False)
+        lib_fwd = graph_ms(library_forward, reps=16)
+        lib_both = graph_ms(library_forward_backward, reps=8)
+        r = {"forward": {"ms": graph_ms(lambda: mf.fused_resmade(x, *ops), reps=16),
+                         "call_ms": cuda_ms(lambda: mf.made_apply_fused(made, x), reps=100),
+                         "plain_ms": cuda_ms(lambda: mf.fused_resmade_reference(x, *ops),
+                                             reps=10),
+                         "library_ms": lib_fwd},
+             "backward": {"ms": graph_ms(lambda: mf.fused_resmade_backward(x, *ops, g), reps=8),
+                          "call_ms": cuda_ms(lambda: mf.fused_resmade_backward(x, *ops, g),
+                                             reps=50),
+                          "plain_ms": cuda_ms(
+                              lambda: mf.fused_resmade_backward_reference(x, *ops, g), reps=5),
+                          "library_ms": lib_both - lib_fwd,
+                          "library_forward_and_backward_ms": lib_both}}
+        for d in ("forward", "backward"):
+            bound, by, moved, n_ops = made_bound(case, bf16, d == "backward")
+            r[d].update(bound_ms=bound, bound_by=by, bytes=moved, ops=n_ops)
+        kernels["bfloat16" if bf16 else "float32"] = r
+    emit("times_made_fused_kernels", kernels=kernels, shape=made_key(case, False)[:-4],
+         note="ms: device time, calls in one CUDA graph; call_ms: CUDA events over a loop "
+         "of made_apply_fused (the packing included) or of the backward wrapper; "
+         "plain_ms: the plain versions; library_ms: the unfused MADE.forward (torch "
+         "GEMMs, fusion off) in a CUDA graph, and for the backward its forward and "
+         "autograd backward less its forward; bound_ms: bytes over 3.35 TB/s or "
+         "operations over 67 TFLOP/s (f32) / 989 TFLOP/s (bf16)")
+    return kernels, fused_request_and_step_times(model)
+
+
+def fused_request_and_step_times(model):
+    """log_prob(4096) and the forward-KL step of the large-D model, fusion
+    off then on, f32 and bf16 (random weights, the same batch)."""
+    from normflows_tpu_torch.ops import backend
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    out = {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            set_compute_dtype(model, None if dtype == "float32" else dtype)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            with torch.no_grad():
+                x, _ = model.sample(LD_BATCH, generator=gen)
+            trained = set_compute_dtype(build_large_d(DEVICE),
+                                        None if dtype == "float32" else dtype)
+            state, step = make_train_step(trained, torch.optim.Adam(trained.parameters(),
+                                                                    lr=LR), forward_kld_loss)
+            r = {}
+            for fused in (False, True):
+                backend.set_made_fusion(fused)
+                with torch.inference_mode():
+                    lp = timed(lambda: model.log_prob(x))
+                r["fused" if fused else "unfused"] = {
+                    "log_prob": lp, "forward_kld_step": timed(lambda: step(state, x, gen))}
+            out[dtype] = r
+    finally:
+        backend.set_made_fusion(False)
+    emit("times_made_fused", requests_and_steps=out, batch=LD_BATCH,
+         note="ms: host median of 20 calls, each ending in a synchronise; profile: one "
+         "call under torch.profiler; busy_share_of_median: its device time over the "
+         "median; fusion off, then on, on the same card in one run")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -1091,6 +1491,10 @@ def main() -> int:
     ld_model, ld_launches = phase_large_d_path()
     ld_train_launches = phase_large_d_train()
     flat_times, _ = phase_times_large_d(ld_model)
+    made_errs = phase_kernel_made_fused()
+    made_bwd_errs = phase_kernel_made_fused_backward()
+    made_launches = phase_large_d_fused()
+    made_times, _ = phase_times_made_fused(ld_model)
     del ld_model
 
     kernels = []
@@ -1156,6 +1560,26 @@ def main() -> int:
                 "by_n": {str(n): {k: v for k, v in r.items() if k != "bytes"}
                          for n, r in t.items()},
             })
+    # the fused MADE: times at the large-D shape, f32 (bf16 beside)
+    for d, errs_of in (("forward", made_errs), ("backward", made_bwd_errs)):
+        t = {dt: made_times[dt][d] for dt in made_times}
+        worst = [v for e in errs_of.values() for n, v in e.items() if n.startswith("max_abs")]
+        kernels.append({
+            "name": f"made_fused_{d}",
+            "route": "cuda",
+            "source": "normflows_tpu_torch/csrc/made_fused.cu",
+            "replaces": "normflows_tpu/ops/made_pallas.py:" + ("89" if d == "forward" else "117"),
+            "launches": made_launches[d],
+            "max_abs_err": max(worst),
+            "ms": t["float32"]["ms"],
+            "plain_ms": t["float32"]["plain_ms"],
+            "bound_ms": t["float32"]["bound_ms"],
+            "bound_by": t["float32"]["bound_by"],
+            "library_ms": t["float32"]["library_ms"],
+            "shape": made_key(MADE_CASES[0], False)[:-4],
+            "bf16": {k: t["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms")},
+        })
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,13 @@ sliced inverse of the JAX package (``Autoregressive._inverse_sliced``): step
 t runs the full MADE on the carry, but only the feature of degree t+1
 becomes final, so only its (mult, B) slab of the net's output goes through
 the elementwise inverse.
+
+The density direction (:meth:`Autoregressive.forward`) is one MADE pass.
+Above 8 features, with the fused MADE on (``ops.backend.set_made_fusion``)
+and its gate holding, that pass is the fused (B, F) kernel, as in the JAX
+package, whose ``_transposed_ok`` sends more than 8 features to
+``MADE.__call__``; its (B, P) output goes to the elementwise transform as the
+transposed view (P, B).  The recursion stays on ``apply_t``.
 """
 
 from __future__ import annotations
@@ -76,8 +83,12 @@ class Autoregressive(Flow):
 
     def forward(self, inputs, context=None):
         self._check(inputs, context)
+        net = self.autoregressive_net
         x_t = inputs.T.contiguous()
-        params_t = self.autoregressive_net.apply_t(x_t)
+        if inputs.shape[1] > MAX_UNROLLED_FEATURES and net.fuses(inputs):
+            params_t = net(inputs).T  # the fused (B, P) output, viewed (P, B)
+        else:
+            params_t = net.apply_t(x_t)
         y_t, ld_t = self._elementwise_t(x_t, params_t, inverse=False)
         return y_t.T, ld_t.sum(dim=0)
 

@@ -8,9 +8,12 @@ so are the masks.
 
 Only what the context-free residual MADE of the autoregressive spline needs
 is ported: ``MaskedLinear``, ``MaskedResidualBlock`` and ``MADE`` with
-``apply_t``.  A conditional MADE (``context_features``), dropout and
-feedforward blocks (with their random masks) wait for a later slice of the
-port and raise ``NotImplementedError``.
+``apply_t``.  With ``ops.backend.set_made_fusion(True)``, ``MADE.forward``
+runs the whole MADE as the fused kernels of ``ops/made_fused.py`` where
+their gate ``fusable`` holds, as the JAX package's ``MADE.__call__`` does;
+``apply_t`` is never fused.  A conditional MADE (``context_features``),
+dropout and feedforward blocks (with their random masks) wait for a later
+slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import backend, made_fused
 from ..ops.backend import resolve_device
 from .mlp import Linear, uniform_
 
@@ -206,11 +210,19 @@ class MADE(nn.Module):
         # the same on the host, for loops that index features by it
         self.input_order_host = tuple(int(i) for i in order)
 
+    def fuses(self, x, context=None) -> bool:
+        """Whether :meth:`forward` on ``x`` takes the fused kernels: fusion
+        is on and ``made_fused.fusable`` holds (the preprocessing is
+        elementwise, so ``x`` stands for its output)."""
+        return backend.made_fusion_enabled() and made_fused.fusable(self, x, context)
+
     def forward(self, x, context=None):
         """(B, F) -> (B, F * output_multiplier)."""
         if context is not None:
             raise NotImplementedError(f"a conditional MADE waits for {_LATER}")
         out = self.preprocessing(x) if self.preprocessing is not None else x
+        if self.fuses(out, context):
+            return made_fused.made_apply_fused(self, out).to(x.dtype)
         out = self.initial_layer(out)
         for block in self.blocks:
             out = block(out)

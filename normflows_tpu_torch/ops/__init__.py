@@ -1,5 +1,5 @@
 """Numerical kernels: the plain PyTorch spline, the planar and flat CUDA
-spline kernels, and their build."""
+spline kernels, the fused MADE's CUDA kernels, and their build."""
 
-from . import backend, cuda_build, spline_cuda, spline_flat, splines
+from . import backend, cuda_build, made_fused, spline_cuda, spline_flat, splines
 from .backend import resolve_device, use_kernel

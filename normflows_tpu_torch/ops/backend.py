@@ -7,11 +7,18 @@
   the kernel's plain PyTorch version, a CUDA tensor launches the kernel (or the
   wrapper raises).  There is no switch that sends a CUDA tensor to the plain
   version; a caller that wants it calls the plain function by name.
+* The fused MADE (``ops/made_fused.py``) is opt-in, as in the JAX package:
+  :func:`set_made_fusion` turns it on for every MADE whose pass passes
+  ``made_fused.fusable``.  The flag picks the fused path, not the device:
+  on a CUDA tensor that path launches the kernels, on a CPU tensor it runs
+  their plain versions.
 """
 
 from __future__ import annotations
 
 import torch
+
+_MADE_FUSION = False
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -33,3 +40,14 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def set_made_fusion(enabled: bool):
+    """Turn the fused MADE on or off for every later MADE pass (off by
+    default; the counterpart of ``set_made_fusion`` in the JAX package)."""
+    global _MADE_FUSION
+    _MADE_FUSION = bool(enabled)
+
+
+def made_fusion_enabled() -> bool:
+    return _MADE_FUSION

@@ -1,0 +1,333 @@
+"""Fused residual MADE: the CUDA kernels, their gate and entry point, their
+launch counts and their plain PyTorch versions (port of
+``normflows_tpu/ops/made_pallas.py``).
+
+``csrc/made_fused.cu`` holds the counterparts of the TPU kernels
+``_fwd_kernel`` and ``_bwd_kernel`` (made_pallas.py:89, :117): the whole
+context-free residual MADE (first masked linear, R residual blocks, final
+masked linear) in one forward launch whose hidden activations stay in shared
+memory, and a backward that recomputes them.  Built with ``nvcc`` for
+``sm_90a`` at first use and loaded with ``ctypes`` (``ops/cuda_build.py``).
+
+It is opt-in, as in the JAX package: ``MADE.forward`` takes
+:func:`made_apply_fused` when ``backend.made_fusion_enabled()`` and
+:func:`fusable` hold.  One ``autograd.Function`` serves both devices: on a
+CUDA tensor its forward and backward launch the kernels, on a CPU tensor
+they call the plain versions :func:`fused_resmade_reference` and
+:func:`fused_resmade_backward_reference`.
+
+With bfloat16 weights (``set_compute_dtype(model, "bfloat16")``) the
+rounding points are JAX's: every product's activation operand is rounded to
+bfloat16 and summed in float32 with float32 biases, activations and
+residual; in the backward every input cotangent is rounded to bfloat16.  The
+weight cotangents are summed in float32 over the whole batch and cast to
+bfloat16 once; JAX also rounds the sum of each 512-row tile (``TILE_B_BWD``)
+to bfloat16, which where the tiles' sums cancel costs up to an ulp of a
+tile's sum (see ``csrc/made_fused.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import backend, cuda_build
+
+SOURCE = cuda_build.CSRC / "made_fused.cu"
+
+# Kernel launches made by this module since the count was last set to 0: one
+# per forward call, one per backward call (the backward's three CUDA launches,
+# made by one C call, count once).
+LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
+
+# The gate's constants, as in the JAX package (made_pallas.py:45, :270)
+TILE_B = 256  # the least batch that is fused
+WEIGHT_BYTES = 8 * 2**20  # R * 2 * H * H * 4 must fit
+# The port's own limit: a block keeps two (32, H) float32 tiles in shared
+# memory beside 22.5 KB of staging, within the 227 KB a block may have.
+MAX_HIDDEN = 768
+SPLIT = 512  # rows of one float32 weight-gradient partial of the backward
+ACTIVATIONS = {"relu": 0, "tanh": 1, "leaky_relu": 2}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"made_fused_forward": [_P] * 10 + [_I] * 7 + [_P],
+               "made_fused_backward": [_P] * 14 + [_I] * 7 + [_P]}
+
+
+def _library():
+    return cuda_build.library(SOURCE, _SIGNATURES)
+
+
+def fusable(made, x, context) -> bool:
+    """True when ``made`` and ``x`` (the input after preprocessing) fit the
+    fused kernels: every condition of the JAX package's gate
+    (made_pallas.py:232-272), and H <= :data:`MAX_HIDDEN`."""
+    from ..nets.made import MaskedResidualBlock
+
+    if context is not None:
+        return False
+    if x.dim() != 2 or x.dtype != torch.float32:
+        return False
+    if x.shape[0] < TILE_B:
+        return False
+    blocks = list(made.blocks)
+    if not blocks:
+        return False
+    cd = made.initial_layer.compute_dtype
+    if cd not in (None, torch.bfloat16):
+        return False
+    for blk in blocks:
+        if not isinstance(blk, MaskedResidualBlock):
+            return False
+        if blk.activation != blocks[0].activation:
+            return False
+        if blk.linear_0.compute_dtype != cd or blk.linear_1.compute_dtype != cd:
+            return False
+        if blk.linear_0.bias is None or blk.linear_1.bias is None:
+            return False
+    if made.initial_layer.bias is None:
+        return False
+    fin = made.final_layer
+    if fin.compute_dtype != cd or fin.bias is None:
+        return False
+    H = made.initial_layer.weight.shape[0]
+    if H % 128 != 0 or H > MAX_HIDDEN:
+        return False
+    return len(blocks) * 2 * H * H * 4 <= WEIGHT_BYTES
+
+
+def pack(made):
+    """The operands of :func:`fused_resmade` after ``x``: the masks
+    multiplied into the weights in float32, then cast to bfloat16 when that
+    is the compute dtype; the R blocks' weights and biases stacked; biases
+    float32.  Differentiable."""
+    blocks = list(made.blocks)
+    cd = made.initial_layer.compute_dtype
+
+    def w(layer):
+        m = layer.weight * layer.mask
+        return m.to(cd) if cd is not None else m
+
+    return (w(made.initial_layer), made.initial_layer.bias,
+            torch.stack([w(b.linear_0) for b in blocks]),
+            torch.stack([b.linear_0.bias for b in blocks]),
+            torch.stack([w(b.linear_1) for b in blocks]),
+            torch.stack([b.linear_1.bias for b in blocks]),
+            w(made.final_layer), made.final_layer.bias)
+
+
+def made_apply_fused(made, x):
+    """Run a context-free residual MADE on ``x`` (B, F), the input after
+    preprocessing, through :func:`fused_resmade` on :func:`pack`'s operands;
+    the caller checked :func:`fusable`."""
+    out = fused_resmade(x.contiguous(), *pack(made), made.blocks[0].activation)
+    return out.to(x.dtype)
+
+
+def _dims(x, w0, w1s, wf):
+    B, F = x.shape
+    return B, F, w0.shape[0], w1s.shape[0], wf.shape[0]
+
+
+def _check(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation):
+    """Raise on anything the kernels do not take."""
+    if activation not in ACTIVATIONS:
+        raise NotImplementedError(f"fused MADE: activation {activation}")
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError("fused MADE: x must be a 2-D float32 tensor")
+    B, F, H, R, P = _dims(x, w0, w1s, wf)
+    want = {"w0": (w0, (H, F)), "b0": (b0, (H,)), "w1s": (w1s, (R, H, H)),
+            "b1s": (b1s, (R, H)), "w2s": (w2s, (R, H, H)), "b2s": (b2s, (R, H)),
+            "wf": (wf, (P, H)), "bf": (bf, (P,))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused MADE: {name} has shape {tuple(t.shape)}, "
+                             f"need {shape} for x {tuple(x.shape)}")
+        if t.device != x.device:
+            raise ValueError("fused MADE: the operands lie on different devices")
+        want_dtype = w0.dtype if name.startswith("w") else torch.float32
+        if t.dtype != want_dtype:
+            raise TypeError(f"fused MADE: {name} must be {want_dtype}, got {t.dtype}")
+    if w0.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused MADE: weights must be float32 or bfloat16, got {w0.dtype}")
+    if x.is_cuda and (B < 1 or H > MAX_HIDDEN):
+        raise ValueError(f"fused MADE: B = {B}, H = {H}: the kernels take "
+                         f"B >= 1 and H <= {MAX_HIDDEN}")
+
+
+def _launch(name, pointers, x, dims, activation, bf16):
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(_library(), name)(*(t.data_ptr() for t in pointers), *dims,
+                                       ACTIVATIONS[activation], int(bf16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+class _FusedResMADE(torch.autograd.Function):
+    """Forward and backward of the fused MADE: the kernels on the card, the
+    plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation):
+        global LAUNCHES
+        operands = (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf)
+        ctx.save_for_backward(*operands)
+        ctx.activation = activation
+        if not backend.use_kernel(x):
+            return fused_resmade_reference(*operands, activation)
+        operands = tuple(t.contiguous() for t in operands)
+        out = torch.empty(x.shape[0], wf.shape[0], dtype=torch.float32, device=x.device)
+        _launch("made_fused_forward", (*operands, out), x, _dims(x, w0, w1s, wf),
+                activation, w0.dtype == torch.bfloat16)
+        LAUNCHES += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_resmade_backward(*ctx.saved_tensors, g.contiguous(), ctx.activation)
+        return (*(gr if want else None
+                  for gr, want in zip(grads, ctx.needs_input_grad)), None)
+
+
+def fused_resmade(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
+    """The residual MADE MLP with its masks in the weights: x (B, F) float32,
+    weights in the (out, in) layout, float32 or bfloat16 (w0 (H, F),
+    w1s / w2s (R, H, H), wf (P, H)), float32 biases (b0 (H,), b1s / b2s
+    (R, H), bf (P,)) -> (B, P) float32.
+
+        h = x W0^T + b0;  R x  h += act(act(h) W1^T + b1) W2^T + b2;
+        out = h Wf^T + bf
+
+    Differentiable.  A CPU tensor takes :func:`fused_resmade_reference`; a
+    CUDA tensor launches the kernel or raises; the backward follows the same
+    rule."""
+    _check(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
+    return _FusedResMADE.apply(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
+
+
+def fused_resmade_backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation="relu"):
+    """Backward of :func:`fused_resmade`: the output cotangent ``g`` (B, P)
+    -> ``(dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf)``, each shaped and
+    typed like its operand.  A CPU tensor takes
+    :func:`fused_resmade_backward_reference`; a CUDA tensor launches the
+    backward kernels or raises."""
+    global BACKWARD_LAUNCHES
+    operands = (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf)
+    _check(*operands, activation)
+    if tuple(g.shape) != (x.shape[0], wf.shape[0]) or g.dtype != torch.float32 \
+            or g.device != x.device:
+        raise ValueError(f"fused MADE backward: g must be a float32 "
+                         f"{(x.shape[0], wf.shape[0])} tensor on {x.device}")
+    if not backend.use_kernel(x):
+        return fused_resmade_backward_reference(*operands, g, activation)
+    operands = tuple(t.contiguous() for t in operands)
+    B, F, H, R, P = dims = _dims(x, w0, w1s, wf)
+    sizes = [H * F, R * H * H, R * H * H, P * H, H, R * H, R * H, P]
+    n_weights = sum(sizes[:4])
+    new = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=x.device)  # noqa: E731
+    dx, grads = new(B, F), new(sum(sizes))
+    scratch = new((4 * R + 2) * B * H)
+    splits = -(-B // SPLIT)
+    part = new(splits * grads.numel()) if splits > 1 else grads
+    _launch("made_fused_backward", (*operands, g.contiguous(), dx, grads, scratch, part),
+            x, dims, activation, w0.dtype == torch.bfloat16)
+    BACKWARD_LAUNCHES += 1
+    # the weights' gradients in their dtype (one cast), the biases' float32
+    weights = grads[:n_weights].to(w0.dtype)
+    pieces = list(weights.split(sizes[:4])) + list(grads[n_weights:].split(sizes[4:]))
+    dw0, dw1s, dw2s, dwf, db0, db1s, db2s, dbf = (
+        p.view(t.shape) for p, t in zip(pieces, (w0, w1s, w2s, wf, b0, b1s, b2s, bf)))
+    return dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf
+
+
+# ---- plain versions -----------------------------------------------------------
+
+def _act(name, x):
+    if name == "relu":
+        return torch.relu(x)
+    if name == "tanh":
+        return torch.tanh(x)
+    if name == "leaky_relu":
+        return torch.where(x >= 0, x, 0.01 * x)  # jax.nn.leaky_relu
+    raise NotImplementedError(f"activation {name}")
+
+
+def _act_grad(name, x):
+    """JAX's derivatives: relu' = (x > 0), leaky_relu' = 1 or 0.01 at
+    x >= 0 or below, tanh' = (1 + t)(1 - t)."""
+    if name == "relu":
+        return (x > 0).to(x.dtype)
+    if name == "tanh":
+        t = torch.tanh(x)
+        return (1 + t) * (1 - t)
+    if name == "leaky_relu":
+        return torch.where(x >= 0, 1.0, 0.01).to(x.dtype)
+    raise NotImplementedError(f"activation {name}")
+
+
+def _rounding(bf16, dtype):
+    """bfloat16 rounding of an operand kept in ``dtype``, or the identity."""
+    if not bf16:
+        return lambda a: a
+    return lambda a: a.to(torch.bfloat16).to(dtype)
+
+
+def fused_resmade_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
+    """Plain PyTorch version of the forward kernel, in ``x``'s dtype (float32
+    or float64), with JAX's rounding points when the weights are bfloat16:
+    each product's activation operand rounded to bfloat16, the weights
+    widened, the product summed in ``x``'s dtype."""
+    dt = x.dtype
+    rnd = _rounding(w0.dtype == torch.bfloat16, dt)
+
+    def mm(a, w):
+        return rnd(a) @ w.to(dt).T
+
+    h = mm(x, w0) + b0.to(dt)
+    for r in range(w1s.shape[0]):
+        t = mm(_act(activation, h), w1s[r]) + b1s[r].to(dt)
+        h = h + (mm(_act(activation, t), w2s[r]) + b2s[r].to(dt))
+    return mm(h, wf) + bf.to(dt)
+
+
+def fused_resmade_backward_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g,
+                                     activation="relu"):
+    """Plain PyTorch version of the backward kernels, the pull-back written
+    out, in ``x``'s dtype: the forward recomputed, then each product's input
+    cotangent (rounded to bfloat16 with bfloat16 weights) and its weight
+    cotangent, summed over the batch and cast to the weight's dtype at the
+    end, as the kernels do.  Returns ``(dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf,
+    dbf)``, each in its operand's dtype."""
+    dt = x.dtype
+    bf16 = w0.dtype == torch.bfloat16
+    rnd = _rounding(bf16, dt)
+    W = lambda w: w.to(dt)  # noqa: E731
+    R = w1s.shape[0]
+    g = g.to(dt)
+
+    def wgrad(dc, a):
+        return dc.T @ rnd(a)
+
+    hs, zs = [], []
+    h = rnd(x) @ W(w0).T + b0.to(dt)
+    for r in range(R):
+        hs.append(h)
+        zs.append(rnd(_act(activation, h)) @ W(w1s[r]).T + b1s[r].to(dt))
+        h = h + (rnd(_act(activation, zs[r])) @ W(w2s[r]).T + b2s[r].to(dt))
+    dwf, dbf = wgrad(g, h), g.sum(0)
+    dh = rnd(g @ W(wf))
+    dw1s, db1s, dw2s, db2s = [None] * R, [None] * R, [None] * R, [None] * R
+    for r in reversed(range(R)):
+        dw2s[r], db2s[r] = wgrad(dh, _act(activation, zs[r])), dh.sum(0)
+        dz1 = rnd(dh @ W(w2s[r])) * _act_grad(activation, zs[r])
+        dw1s[r], db1s[r] = wgrad(dz1, _act(activation, hs[r])), dz1.sum(0)
+        dh = dh + rnd(dz1 @ W(w1s[r])) * _act_grad(activation, hs[r])
+    dw0, db0 = wgrad(dh, x), dh.sum(0)
+    dx = rnd(dh @ W(w0))
+    return (dx.to(x.dtype), dw0.to(w0.dtype), db0.to(b0.dtype),
+            torch.stack(dw1s).to(w1s.dtype), torch.stack(db1s).to(b1s.dtype),
+            torch.stack(dw2s).to(w2s.dtype), torch.stack(db2s).to(b2s.dtype),
+            dwf.to(wf.dtype), dbf.to(bf.dtype))

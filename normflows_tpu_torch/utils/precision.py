@@ -4,7 +4,11 @@ Flows keep float32 state for invertibility; the parameter-net matmuls, where
 the operations are, may run in bfloat16.  ``set_compute_dtype(model,
 "bfloat16")`` sets the compute dtype of every ``Linear`` and ``MaskedLinear``
 in the model.  Unlike the JAX version, which returns a copy, it changes the
-model in place (and returns it).
+model in place (and returns it).  Every layer of a MADE is a ``Linear`` (the
+first and final ``MaskedLinear`` and both of each residual block's), so a
+MADE's layers always share one compute dtype, as the fused MADE's gate
+(``ops/made_fused.fusable``) asks; ``"float32"`` is a dtype of its own
+there, which that gate refuses, as the JAX package's does.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA spline kernels, planar and flat (forward and
-backward), against their plain PyTorch versions, a small model's serving path
-and training step through the planar kernels, and a D = 64 autoregressive
-model's through the flat kernels.
+backward), and the fused MADE's kernels, against their plain PyTorch
+versions, a small model's serving path and training step through the planar
+kernels, and a D = 64 autoregressive model's through the flat kernels and,
+with fusion on, the fused MADE.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 import normflows_tpu_torch as nft
-from normflows_tpu_torch.ops import spline_cuda, spline_flat
+from normflows_tpu_torch.ops import backend, cuda_build, made_fused, spline_cuda, spline_flat
 
 Y_TOL = 2e-5  # the JAX package's bars (tests/test_pallas.py), atol = rtol
 LD_TOL = 2e-4
@@ -216,3 +217,113 @@ def test_large_d_model_serves_through_the_flat_kernel(cuda):
         assert spline_flat.LAUNCHES == 130 and spline_cuda.LAUNCHES == 0
         close(lp, log_q, 1e-3)
         close(lp, cpu.log_prob(x.cpu()), 1e-3)
+
+
+def made_operands(B, F, H, R, mult, device, bf16=False, seed=0):
+    """x and the packed operands of a MADE with random weights (the residual
+    blocks' second linear drawn like the others, not near zero)."""
+    made = nft.nets.MADE(F, H, num_blocks=R, output_multiplier=mult, permute_mask=True,
+                         rng_seed=seed, generator=torch.Generator().manual_seed(seed),
+                         device=device)
+    with torch.no_grad():
+        for blk in made.blocks:
+            blk.linear_1.weight.uniform_(-H ** -0.5, H ** -0.5)
+            blk.linear_1.bias.uniform_(-H ** -0.5, H ** -0.5)
+    if bf16:
+        nft.utils.set_compute_dtype(made, "bfloat16")
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=(B, F)).astype(np.float32))
+    return x.to(device), [t.detach() for t in made_fused.pack(made)]
+
+
+MADE_SHAPES = [(4096, 64, 256, 1, 25), (300, 2, 512, 1, 31), (300, 2, 512, 2, 31)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,F,H,R,mult", MADE_SHAPES)
+def test_made_fused_kernels_match_plain(cuda, B, F, H, R, mult, bf16):
+    """Forward and backward kernels against the plain versions: in f32
+    against them in float64 (1e-5 outputs, 2e-4 gradients, the JAX
+    package's bars), in bf16 against the bf16 plain version (5e-2) and the
+    forward against the f32 one (0.15 / 0.05)."""
+    x, ops = made_operands(B, F, H, R, mult, cuda, bf16)
+    g = torch.randn(B, F * mult, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    before = (made_fused.LAUNCHES, made_fused.BACKWARD_LAUNCHES)
+    out = made_fused.fused_resmade(x, *ops)
+    grads = made_fused.fused_resmade_backward(x, *ops, g)
+    torch.cuda.synchronize()
+    assert (made_fused.LAUNCHES, made_fused.BACKWARD_LAUNCHES) == (before[0] + 1,
+                                                                 before[1] + 1)
+    if bf16:
+        close(out, made_fused.fused_resmade_reference(x, *ops), 5e-2)
+        f32_ops = [t.float() for t in ops]
+        np.testing.assert_allclose(out.cpu().numpy(), made_fused.fused_resmade_reference(
+            x, *f32_ops).cpu().numpy(), atol=0.15, rtol=0.05)
+        want = made_fused.fused_resmade_backward_reference(x, *ops, g)
+        tol = 5e-2
+    else:
+        f64 = [t.double() for t in (x, *ops, g)]
+        close(out, made_fused.fused_resmade_reference(*f64[:-1]), 1e-5)
+        want = made_fused.fused_resmade_backward_reference(*f64)
+        tol = 2e-4
+    for got, ref in zip(grads, want):
+        assert got.dtype == (ref.dtype if bf16 else torch.float32) and torch.isfinite(got).all()
+        close(got.float(), ref.float(), tol)
+
+
+@pytest.mark.gpu
+def test_made_fused_refuses_what_it_cannot_take(cuda, tmp_path):
+    x, ops = made_operands(300, 2, 128, 1, 3, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        made_fused.fused_resmade(x, ops[0][:, :1], *ops[1:])
+    with pytest.raises(ValueError, match="H <= 768"):
+        big = made_operands(300, 2, 896, 1, 3, cuda)
+        made_fused.fused_resmade(big[0], *big[1])
+    with pytest.raises(ValueError, match="B >= 1"):
+        made_fused.fused_resmade(x[:0], *ops)
+    out = torch.empty(300, 6, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the C side's own check
+        made_fused._launch("made_fused_forward", (x, *ops, out), x, (300, 2, 1024, 1, 6),
+                           "relu", False)
+    with pytest.raises(TypeError, match="float32"):
+        made_fused.fused_resmade(x, *ops[:6], ops[6].bfloat16(), ops[7])
+    broken = tmp_path / "broken.cu"
+    broken.write_text("extern \"C\" int f( { return 0; }\n")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_build.build([broken])
+
+
+@pytest.fixture
+def fusion():
+    before = backend.made_fusion_enabled()
+    backend.set_made_fusion(True)
+    yield
+    backend.set_made_fusion(before)
+
+
+@pytest.mark.gpu
+def test_large_d_fused_log_prob_equals_unfused(cuda, fusion):
+    """D = 64 at hidden 128: with fusion on, one fused launch per AR layer
+    and log_prob, and the same log-densities as the unfused path; none in
+    sample (the sliced inverse stays unfused)."""
+    card = nft.NormalizingFlow.create(
+        nft.distributions.DiagGaussian.create(64, device=cuda),
+        [f for i in range(2) for f in (
+            nft.flows.AutoregressiveRationalQuadraticSpline.create(
+                torch.Generator().manual_seed(i), 64, 1, 128, num_bins=8, permute_mask=True,
+                rng_seed=i, init_identity=False, device=cuda),
+            nft.flows.LULinearPermute.create(
+                64, generator=torch.Generator().manual_seed(100 + i), device=cuda))],
+        device=cuda)
+    with torch.inference_mode():
+        made_fused.LAUNCHES = 0
+        x, _ = card.sample(1000, generator=torch.Generator(device=cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        assert made_fused.LAUNCHES == 0
+        fused = card.log_prob(x)
+        torch.cuda.synchronize()
+        assert made_fused.LAUNCHES == 2
+        backend.set_made_fusion(False)
+        unfused = card.log_prob(x)
+    assert made_fused.LAUNCHES == 2
+    close(fused, unfused, 1e-4)
