@@ -6,9 +6,9 @@ NVIDIA GPU.
 
 Run from the root of a checkout.  It builds the CUDA kernels from the sources
 in the checkout (one ``nvcc`` per source, started together), holds each
-against its plain PyTorch version, and drives two models at full width
-through their serving path and their training step (reverse KL and
-Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
+against its plain PyTorch version, and drives three models at full width
+through their serving path and their training step (reverse or forward KL
+and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
 
 * the flagship (12 circular autoregressive RQ-spline layers of hidden width
   512, 10 bins; 2^14 samples per request and step), through the planar
@@ -23,7 +23,19 @@ Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   (``ops.backend.set_made_fusion(True)``): its density direction
   (``log_prob``, the forward-KL step) runs each layer's MADE as the fused
   kernels of ``csrc/made_fused.cu``: phases kernel_made_fused,
-  kernel_made_fused_backward, large_d_fused, times_made_fused.
+  kernel_made_fused_backward, large_d_fused, times_made_fused;
+* the flat backward's ablation (``csrc/rqs_flat_ablate.cu``, the port of
+  ``examples/spline_bwd_ablate.py``): each of its four variants against its
+  plain version, then the port's script
+  ``normflows_tpu_torch.examples.spline_bwd_ablate`` as a user runs it,
+  with each variant's registers and spills: phases kernel_ablate,
+  times_ablate;
+* the coupled NSF of ``docs/getting_started.md`` (DiagGaussian(2), 8
+  coupled RQ splines of 2 residual blocks of hidden 64, 8 bins, TwoMoons;
+  2^14 samples per request, forward-KL steps on batches of 512), through
+  the flat spline kernels along the coupling's and the CDF's layouts, and
+  a circular coupled stack: phases coupled_path, coupled_train,
+  times_coupled.
 
 It prints one JSON line per phase, then the ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
@@ -137,6 +149,15 @@ MADE_Y_TOL, MADE_G_TOL, MADE_BF16_TOL, MADE_BF16_F32 = 1e-5, 2e-4, 5e-2, (0.15, 
 FUSED_TOL = 1e-4
 LD_FUSED_STEPS = 20
 
+# the flat backward's ablation (examples/spline_bwd_ablate.py): run_variant's
+# 2^14 x 2 elements and 10 bins; sel_only's bar is 1e-5 (its output is the
+# selection's values summed, no pull-back), the others the flat backward's
+ABLATE_N, ABLATE_BINS, ABLATE_SEL_TOL = 2**15, 10, 1e-5
+
+# coupled NSF of docs/getting_started.md:19-47: 8 layers, 2 residual blocks
+# of hidden 64, 8 bins, linear tails at 3; forward-KL steps on batches of 512
+CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 200
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores, same source
@@ -247,16 +268,56 @@ def phase_device():
 
 
 def phase_build():
-    from normflows_tpu_torch.ops import cuda_build, made_fused, spline_cuda, spline_flat
+    """Every source built anew, one nvcc each, started together; returns
+    the ablation kernel's registers and spills by variant and direction."""
+    from normflows_tpu_torch.ops import (cuda_build, made_fused, spline_ablate, spline_cuda,
+                                         spline_flat)
 
-    info = cuda_build.build([spline_cuda.SOURCE, spline_flat.SOURCE, made_fused.SOURCE],
-                            force=True)
+    info = cuda_build.build([spline_cuda.SOURCE, spline_flat.SOURCE, made_fused.SOURCE,
+                             spline_ablate.SOURCE], force=True)
+    resources = ablate_resources(info[spline_ablate.SOURCE]["ptxas"])
     emit("build", sources={
         str(src.relative_to(REPO)): {
             "seconds": i["seconds"],
             "ptxas": [line for line in i["ptxas"].splitlines()
                       if "registers" in line or "spill" in line or "smem" in line]}
-        for src, i in info.items()})
+        for src, i in info.items()}, ablate_resources=resources)
+    return resources
+
+
+def ablate_resources(ptxas):
+    """Registers, stack frame and spill bytes per thread of each
+    instantiation of the ablation kernel, from ptxas' -v report:
+    ``{"<mode>_<direction>": {...}}``.  The kernel's template arguments
+    <mode, inverse> are in its mangled name, as ILi<mode>ELb<inverse>E."""
+    import re
+
+    from normflows_tpu_torch.ops import spline_ablate
+
+    out, key = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"rqs_flat_ablate_kernelILi(\d)ELb([01])E", line)
+        if m and "Compiling entry function" in line:
+            key = (f"{spline_ablate.VARIANTS[int(m.group(1))]}_"
+                   f"{'inverse' if m.group(2) == '1' else 'forward'}")
+            out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[key].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+            key = None
+    want = {f"{v}_{d}" for v in spline_ablate.VARIANTS for d in ("forward", "inverse")}
+    if set(out) != want or any("registers" not in r or "spill_store_bytes" not in r
+                               for r in out.values()):
+        raise SystemExit(f"build: no full ptxas report of the ablation kernel: {out}")
+    return out
 
 
 def phase_kernel():
@@ -597,11 +658,12 @@ def phase_train_path():
     return launches
 
 
-def step_against_cpu(phase, build, n, freeze_base, launches):
-    """One f32 reverse-KL step, make_train_step + Adam, on the card and on
-    the CPU from the same weights (``build`` makes the model) and the same
-    ``n`` base draws (``freeze_base(card, cpu)`` gives both models' bases
-    one fixed draw); the card's step launches the kernels exactly
+def step_against_cpu(phase, build, n, freeze_base, launches, loss_fn=None, batch=None):
+    """One f32 step, make_train_step + Adam, on the card and on the CPU from
+    the same weights (``build`` makes the model): a reverse-KL step on the
+    same ``n`` base draws (``freeze_base(card, cpu)`` gives both models'
+    bases one fixed draw), or ``loss_fn`` on ``batch`` (on the card; its
+    copy on the CPU); the card's step launches the kernels exactly
     ``launches`` times (``counted``).  Every gradient leaf within 2e-3 of its
     norm, the loss within 1e-3."""
     from normflows_tpu_torch.training import make_train_step
@@ -613,9 +675,10 @@ def step_against_cpu(phase, build, n, freeze_base, launches):
     out = {}
     for where, model in (("card", card), ("cpu", cpu)):
         state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
-                                      reverse_kld_loss(n))
+                                      loss_fn or reverse_kld_loss(n))
+        b = None if batch is None else (batch if where == "card" else batch.cpu())
         t0 = time.perf_counter()
-        (_, metrics), _ = counted(f"{phase} step on the {where}", lambda: step(state, None),
+        (_, metrics), _ = counted(f"{phase} step on the {where}", lambda: step(state, b),
                                   **(launches if where == "card" else {}))
         out[where] = (float(metrics["loss"]), time.perf_counter() - t0,
                       {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
@@ -1077,10 +1140,10 @@ def large_d_request_and_step_times(model):
     return out
 
 
-def timed(fn):
+def timed(fn, batch=LD_BATCH):
     ms = host_ms(fn, reps=20)
     prof = profile(fn, top=8)
-    return {"ms": ms, "samples_per_s": LD_BATCH / (ms / 1e3), "profile": prof,
+    return {"ms": ms, "samples_per_s": batch / (ms / 1e3), "profile": prof,
             "busy_share_of_median": prof["device_ms"] / ms}
 
 
@@ -1461,6 +1524,285 @@ def fused_request_and_step_times(model):
          "median; fusion off, then on, on the same card in one run")
     return out
 
+# ---- the flat backward's ablation (examples/spline_bwd_ablate.py) -------------
+
+def ablate_cases(rng):
+    """(name, inverse, inputs) of the ablation checks, N = 32,768, K = 10:
+    run_variant's inputs (circular at pi, unit cotangents) as the port's
+    script makes them, in both directions; a mixed-tail case (linear at 5,
+    circular at pi, random cotangents, x ~ N(0, 1): no linear input clamped,
+    where sel_post's unmasked pull-back would meet the clip's tie), both
+    directions; and, for full and vjp_all only, ~20% of the inputs outside
+    their bounds (flat_inputs' mix at K = 10)."""
+    from normflows_tpu_torch.examples import spline_bwd_ablate as script
+
+    n = ABLATE_N
+    cases = [(f"run_variant_{d}", d == "inverse", script.make_inputs(n, SEED, DEVICE))
+             for d in ("inverse", "forward")]
+    for d in ("forward", "inverse"):
+        x, uw, uh, ud, *_ = script.make_inputs(n, SEED + 60 + (d == "inverse"), DEVICE)
+        codes = torch.from_numpy(rng.choice([1, 2], size=n).astype(np.int32)).to(DEVICE)
+        bounds = torch.where(codes == 1, 5.0, math.pi).to(torch.float32)
+        yb, lb = (torch.from_numpy(a).to(DEVICE) for a in rng.normal(size=(2, n))
+                  .astype(np.float32))
+        cases.append((f"mixed_{d}", d == "inverse", (x, uw, uh, ud, codes, bounds, yb, lb)))
+    K = ABLATE_BINS
+    for d in ("forward", "inverse"):
+        codes = rng.choice([1, 2], size=n).astype(np.int32)
+        bounds = np.where(codes == 1, 5.0, math.pi).astype(np.float32)
+        x = (rng.uniform(-1.25, 1.25, n) * bounds).astype(np.float32)
+        p = (PARAM_STD * rng.normal(size=(3 * K + 1, n))).astype(np.float32)
+        yb, lb = rng.normal(size=(2, n)).astype(np.float32)
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+        cases.append((f"tails_{d}", d == "inverse",
+                      (to(x), to(p[:K]), to(p[K:2 * K]), to(p[2 * K:]), to(codes), to(bounds),
+                       to(yb), to(lb))))
+    return cases
+
+
+def phase_kernel_ablate():
+    """Each variant of the ablation kernel against its plain version in
+    float64 on the same CUDA tensors (sel_only 1e-5, the rest the flat
+    backward's 1e-3, atol = rtol), and vjp_all against full within 1e-3."""
+    from normflows_tpu_torch.ops import spline_ablate as sa
+
+    rng = np.random.default_rng(SEED + 61)
+    errs = {}
+    for name, inverse, args in ablate_cases(rng):
+        modes = ("full", "vjp_all") if name.startswith("tails") else sa.VARIANTS
+        got = {}
+        for mode in modes:
+            got[mode] = sa.run_variant(mode, *args, inverse=inverse)
+            sync()
+            want = sa.REFERENCES[mode](*as_f64(args), inverse)
+            tol = ABLATE_SEL_TOL if mode == "sel_only" else FLAT_G_TOL
+            errs[f"{mode}_{name}"] = check_pair("kernel_ablate", errs, got[mode], want,
+                                                (tol,) * 4, ("xg", "uwg", "uhg", "udg"))
+        errs[f"vjp_all_vs_full_{name}"] = check_pair(
+            "kernel_ablate", errs, got["vjp_all"], got["full"], (FLAT_G_TOL,) * 4,
+            ("xg", "uwg", "uhg", "udg"))
+    emit("kernel_ablate", ok=True, errors=errs, n=ABLATE_N, bins=ABLATE_BINS,
+         bars={"sel_only": ABLATE_SEL_TOL, "sel_post_full_vjp_all": FLAT_G_TOL,
+               "vjp_all_vs_full": FLAT_G_TOL})
+    return errs
+
+
+def phase_times_ablate(resources):
+    """The port's ablation script as a user runs it (its main path: every
+    launch count set to 0 before, read after), then each variant's plain
+    version timed on the same inputs, with the bounds and the registers and
+    spills of each instantiation (inverse, the script's direction)."""
+    from normflows_tpu_torch.examples import spline_bwd_ablate as script
+    from normflows_tpu_torch.ops import spline_ablate as sa
+
+    for mode in sa.VARIANTS:
+        sa.LAUNCHES[mode] = 0
+    records = script.main([])
+    sync()
+    launches = dict(sa.LAUNCHES)
+    inputs = script.make_inputs(ABLATE_N, SEED, DEVICE)
+    out = {}
+    for r in records:
+        mode = r["mode"]
+        bound_ms, bound_by, moved = script.bound(mode, ABLATE_N)
+        out[mode] = {
+            "ms": r["ms"], "launches": launches[mode],
+            "plain_ms": cuda_ms(lambda: sa.REFERENCES[mode](*inputs, True), reps=10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+            **resources[f"{mode}_inverse"],
+            "forward_direction": resources[f"{mode}_forward"]}
+        if not launches[mode]:
+            raise SystemExit(f"times_ablate: the script launched no {mode} kernel")
+    emit("times_ablate", variants=out, n=ABLATE_N, bins=ABLATE_BINS,
+         note="ms: the script's device time of one launch, 64 launches over 16 input sets "
+         "(75 MB) in one CUDA graph; plain_ms: CUDA events over 10 calls of the plain "
+         "version; launches: the script's run (1 checked + 3 warm-up + 64 captured); "
+         "registers, stack and spill bytes per thread from ptxas -v")
+    return out
+
+
+# ---- the coupled NSF of docs/getting_started.md -------------------------------
+
+def build_coupled(device, init_identity=False):
+    """docs/getting_started.md:19-25: DiagGaussian(2), 8 coupled RQ splines
+    (2 blocks of hidden 64, 8 bins, linear tails at 3, reverse_mask
+    alternating), TwoMoons.  Without the identity init every spline does
+    work: random transform nets, and CDF logits ~ 0.5 N(0, 1)."""
+    import normflows_tpu_torch as nft
+
+    layers = [nft.flows.CoupledRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(SEED + i), 2, CP_BLOCKS, CP_HIDDEN,
+        reverse_mask=bool(i % 2), init_identity=init_identity, device=device)
+        for i in range(CP_LAYERS)]
+    if not init_identity:
+        randomize_cdfs(layers)
+    return nft.NormalizingFlow.create(nft.distributions.DiagGaussian.create(2, device=device),
+                                      layers, p=nft.distributions.TwoMoons(device=device),
+                                      device=device)
+
+
+def randomize_cdfs(layers):
+    gen = torch.Generator().manual_seed(SEED + 70)
+    with torch.no_grad():
+        for layer in layers:
+            for p in layer.prqct.unconditional_transform.parameters():
+                p.copy_(PARAM_STD * torch.randn(p.shape, generator=gen))
+
+
+def build_circular_coupled(device):
+    """Circular coupled RQ splines (ind_circ [1], tail bound [5, pi]) on the
+    flagship's UniformGaussian base and GaussianVonMises target, at the
+    docs model's widths, random nets and CDFs."""
+    import normflows_tpu_torch as nft
+
+    layers = [nft.flows.CircularCoupledRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(SEED + 80 + i), 2, CP_BLOCKS, CP_HIDDEN, ind_circ=[1],
+        tail_bound=np.asarray(TAIL_BOUND, np.float32), reverse_mask=bool(i % 2),
+        init_identity=False, device=device) for i in range(CP_LAYERS)]
+    randomize_cdfs(layers)
+    base = nft.distributions.UniformGaussian.create(2, [1], SCALE, device=device)
+    return nft.NormalizingFlow.create(base, layers,
+                                      p=nft.distributions.GaussianVonMises(device=device),
+                                      device=device)
+
+
+def phase_coupled_path():
+    """sample(2^14) and log_prob of the samples, f32 and bf16: exactly 16
+    flat launches each (8 layers x coupling + CDF), inverse direction in
+    sample, forward in log_prob; sample's log_q against log_prob; the card
+    against the CPU at 2^12 (f32), for the docs model and for a circular
+    coupled stack."""
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    model = build_coupled(DEVICE)
+    per_pass = 2 * CP_LAYERS
+    results, launches = {}, {"forward": 0, "inverse": 0}
+    for dtype in ("float32", "bfloat16"):
+        set_compute_dtype(model, None if dtype == "float32" else dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        with torch.inference_mode():
+            (x, log_q), n_s = counted(f"coupled sample {dtype}",
+                                      lambda: model.sample(N, generator=gen),
+                                      flat=(per_pass, 0))
+            lp, n_l = counted(f"coupled log_prob {dtype}", lambda: model.log_prob(x),
+                              flat=(per_pass, 0))
+        launches["inverse"] += n_s["flat"][0]
+        launches["forward"] += n_l["flat"][0]
+        finite = all(bool(torch.isfinite(t).all()) for t in (x, log_q, lp))
+        gap = (lp - log_q).abs()
+        r = {"sample_launches": n_s, "log_prob_launches": n_l, "finite": finite,
+             "shape": list(x.shape), "median_abs_logq_gap": float(gap.median()),
+             "max_abs_logq_gap": float(gap.max()), "mean_log_q": float(log_q.mean())}
+        results[dtype] = r
+        bar = LOGQ_F32 if dtype == "float32" else LOGQ_BF16
+        if not (finite and tuple(x.shape) == (N, 2) and r["median_abs_logq_gap"] <= bar):
+            emit("coupled_path", ok=False, results=results)
+            raise SystemExit(f"coupled path ({dtype}) failed its checks")
+        if dtype == "float32":
+            results["cpu"] = against_cpu("coupled_path", model, x, build_coupled, N_CPU)
+    circ = build_circular_coupled(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 81)
+    with torch.inference_mode():
+        (xc, _), n_c = counted("circular coupled sample", lambda: circ.sample(N_CPU, generator=gen),
+                               flat=(per_pass, 0))
+    launches["inverse"] += n_c["flat"][0]
+    results["circular_cpu"] = against_cpu("coupled_path", circ, xc, build_circular_coupled,
+                                          N_CPU)
+    results["circular_in_bounds"] = bool((xc[:, 1].abs() <= math.pi + 1e-5).all())
+    if not results["circular_in_bounds"]:
+        emit("coupled_path", ok=False, results=results)
+        raise SystemExit("coupled path: a circular sample left [-pi, pi]")
+    emit("coupled_path", ok=True, results=results,
+         bars={"logq_f32": LOGQ_F32, "logq_bf16": LOGQ_BF16, "cpu": CPU_TOL})
+    return model, launches
+
+
+def docs_data(seed):
+    """docs/getting_started.md:31: 1024 samples of the target, on the card."""
+    import normflows_tpu_torch as nft
+
+    return nft.distributions.TwoMoons(device=DEVICE).sample(
+        2 * CP_BATCH, generator=torch.Generator(device=DEVICE).manual_seed(seed))
+
+
+def phase_coupled_train():
+    """(a) one f32 forward-KL step on the card against the CPU at 512 target
+    samples, (b) exactly 16 + 16 flat launches a step, (c) the docs' loop
+    (make_train_step + Adam(5e-4) on forward_kld, batches alternating between
+    the halves of 1024 target samples) for 200 steps from the docs' identity
+    init, f32 and bf16: finite, and the loss falls."""
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    per_pass = 2 * CP_LAYERS
+    data = docs_data(SEED + 90)
+    results = {"card_vs_cpu": step_against_cpu(
+        "coupled_train", build_coupled, CP_BATCH, lambda card, cpu: None,
+        {"flat": (per_pass, per_pass)}, forward_kld_loss, data[:CP_BATCH])}
+    launches = {"forward": 0, "backward": 0}
+    for dtype in ("float32", "bfloat16"):
+        model = set_compute_dtype(build_coupled(DEVICE, init_identity=True),
+                                  None if dtype == "float32" else dtype)
+        state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                      forward_kld_loss)
+        losses = []
+
+        def train():
+            for i in range(CP_TRAIN_STEPS):
+                losses.append(step(state, data[i % 2 * CP_BATCH:i % 2 * CP_BATCH + CP_BATCH])[1]
+                              ["loss"])
+
+        n = per_pass * CP_TRAIN_STEPS
+        t0 = time.perf_counter()
+        _, got = counted(f"coupled {CP_TRAIN_STEPS} {dtype} steps", train, flat=(n, n))
+        seconds = time.perf_counter() - t0
+        launches["forward"] += got["flat"][0]
+        launches["backward"] += got["flat"][1]
+        losses = torch.stack(losses).cpu().numpy()
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        results[dtype] = {
+            "steps": CP_TRAIN_STEPS, "seconds": seconds, "launches": got,
+            "launches_per_step": [got["flat"][0] // CP_TRAIN_STEPS,
+                                  got["flat"][1] // CP_TRAIN_STEPS],
+            "all_finite": bool(np.isfinite(losses).all()), "mean_first_20": first,
+            "mean_last_20": last, "losses": losses.tolist()}
+        if not (results[dtype]["all_finite"] and last < first):
+            emit("coupled_train", ok=False, results=results)
+            raise SystemExit(f"coupled training ({dtype}): a loss was not finite or did not fall")
+    emit("coupled_train", ok=True, results=results,
+         bars={"loss": [CPU_TOL, CPU_TOL], "gradient_norm": STEP_G_TOL})
+    return launches
+
+
+def phase_times_coupled(model):
+    """Request times of sample(2^14) and log_prob(2^14) and the docs' step
+    time at 512, f32 and bf16, each with the profiler's view."""
+    from normflows_tpu_torch.training import make_train_step
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    out = {}
+    data = docs_data(SEED + 91)
+    for dtype in ("float32", "bfloat16"):
+        set_compute_dtype(model, None if dtype == "float32" else dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        r = {}
+        with torch.inference_mode():
+            x, _ = model.sample(N, generator=gen)
+            r["sample"] = timed(lambda: model.sample(N, generator=gen), N)
+            r["log_prob"] = timed(lambda: model.log_prob(x), N)
+        trained = set_compute_dtype(build_coupled(DEVICE, init_identity=True),
+                                    None if dtype == "float32" else dtype)
+        state, step = make_train_step(trained, torch.optim.Adam(trained.parameters(), lr=LR),
+                                      forward_kld_loss)
+        r["forward_kld_step"] = timed(lambda: step(state, data[:CP_BATCH]), CP_BATCH)
+        out[dtype] = r
+    emit("times_coupled", requests_and_steps=out, request_batch=N, step_batch=CP_BATCH,
+         note="ms: host median of 20 calls, each ending in a synchronise; profile: one "
+         "call under torch.profiler, device time summed over its CUDA kernels; "
+         "busy_share_of_median: that over the median; random weights for the requests, "
+         "the docs' identity init for the step")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1477,7 +1819,7 @@ def main() -> int:
     torch.manual_seed(SEED)
 
     smi = phase_device()
-    phase_build()
+    resources = phase_build()
     errs = phase_kernel()
     model, launches = phase_main_path()
     kernel_ms, plain_ms, bound_ms, bound_by = phase_times(model)
@@ -1496,6 +1838,12 @@ def main() -> int:
     made_launches = phase_large_d_fused()
     made_times, _ = phase_times_made_fused(ld_model)
     del ld_model
+    ablate_errs = phase_kernel_ablate()
+    ablate_times = phase_times_ablate(resources)
+    cp_model, cp_launches = phase_coupled_path()
+    cp_train_launches = phase_coupled_train()
+    phase_times_coupled(cp_model)
+    del cp_model
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -1531,9 +1879,11 @@ def main() -> int:
             "bound_by": bwd_bound_by,
             "library_ms": None,
         })
-    # the flat kernels: times at the size the main path gives each (the
+    # the flat kernels: times at the size the large-D path gives each (the
     # sliced inverse's 4096 in the sampling direction, the density
-    # direction's 4096 x 64), the other size beside it
+    # direction's 4096 x 64), the other size beside it; launches on the
+    # large-D path and on the coupled one (its forward-KL steps launch the
+    # forward direction and its backward)
     for d, n_path in (("forward", LD_BATCH * LD_D), ("inverse", LD_BATCH)):
         for backward, errs_of, launched in ((False, flat_errs, ld_launches[d]),
                                             (True, flat_bwd_errs,
@@ -1541,6 +1891,8 @@ def main() -> int:
             name = f"rqs_flat_{'backward_' if backward else ''}{d}"
             if not backward:
                 launched += ld_train_launches[d]
+            coupled = (cp_train_launches["backward"] if d == "forward" else 0) if backward \
+                else cp_launches[d] + (cp_train_launches["forward"] if d == "forward" else 0)
             worst = [v for k, e in errs_of.items() if k.startswith(d)
                      for n, v in e.items() if n.startswith("max_abs")]
             t = flat_times[name]
@@ -1549,7 +1901,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": "normflows_tpu_torch/csrc/rqs_flat.cu",
                 "replaces": "normflows_tpu/ops/spline_pallas.py:" + ("313" if backward else "303"),
-                "launches": launched,
+                "launches": launched + coupled,
+                "launches_by_path": {"large_d": launched, "coupled": coupled},
                 "max_abs_err": max(worst),
                 "ms": t[n_path]["ms"],
                 "plain_ms": t[n_path]["plain_ms"],
@@ -1579,6 +1932,27 @@ def main() -> int:
             "shape": made_key(MADE_CASES[0], False)[:-4],
             "bf16": {k: t["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                     "library_ms")},
+        })
+    # the ablation's variants: the script's run on run_variant's inputs
+    for mode, t in ablate_times.items():
+        kernels.append({
+            "name": f"rqs_flat_ablate_{mode}",
+            "route": "cuda",
+            "source": "normflows_tpu_torch/csrc/rqs_flat_ablate.cu",
+            "replaces": "examples/spline_bwd_ablate.py:51",
+            "launches": t["launches"],
+            "max_abs_err": max(v for k, e in ablate_errs.items() if k.startswith(mode + "_")
+                               for n, v in e.items() if n.startswith("max_abs")),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "n": ABLATE_N,
+            "registers": t["registers"],
+            "stack_bytes": t["stack_bytes"],
+            "spill_store_bytes": t["spill_store_bytes"],
+            "spill_load_bytes": t["spill_load_bytes"],
         })
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     name = torch.cuda.get_device_name(0)

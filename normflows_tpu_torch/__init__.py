@@ -9,10 +9,14 @@ model's weights as numpy arrays.
 It holds the serving path of the flagship circular neural spline flow
 (``NormalizingFlow.sample`` / ``sample_and_log_prob`` and ``log_prob``) and
 its training step (``forward_kld``, ``reverse_kld`` and
-``training.make_train_step``), and the same for the large-D autoregressive
+``training.make_train_step``), the same for the large-D autoregressive
 flows (more than 8 features, sampled by the sliced sequential inverse:
 ``MaskedAffineAutoregressive`` and the autoregressive RQ splines, with
-``LULinearPermute`` between them).
+``LULinearPermute`` between them), and for the coupled RQ-spline flows
+(``CoupledRationalQuadraticSpline`` and its circular form, on a
+``ResidualNet``; ``TwoMoons`` with the rejection sampler of ``Target``).
+``examples.spline_bwd_ablate`` times the four variants of the flat spline
+backward's ablation kernel.
 """
 
 from . import core, distributions, flows, interop, nets, ops, training, utils

@@ -1,4 +1,4 @@
 """Distributions."""
 
 from .base import BaseDistribution, DiagGaussian, UniformGaussian
-from .target import Target, GaussianVonMises
+from .target import Target, GaussianVonMises, TwoMoons

@@ -1,10 +1,19 @@
 """Target distributions (port of ``normflows_tpu/distributions/target.py``):
-the ``Target`` contract and ``GaussianVonMises``, the flagship's target.
-The rejection sampler of ``Target.sample`` waits for a later slice."""
+the ``Target`` contract with its rejection sampler, ``TwoMoons`` and
+``GaussianVonMises``.
+
+``Target.sample`` is the JAX package's static-shape sampler: each round
+proposes ``num_samples`` uniform candidates on the proposal box, accepts
+those with exp(log_prob - max_log_prob) > u, and writes the accepted ones
+into a fixed buffer at slots given by a cumulative sum, until the buffer is
+full.  The draws come from a ``torch.Generator``; one round is
+:meth:`Target.accept_round` on given uniforms, so that a test can replay
+JAX's draws and compare buffers."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,14 +37,51 @@ class Target(nn.Module):
         super().__init__()
         self.prop_scale = prop_scale
         self.prop_shift = prop_shift
-        resolve_device(device)
+        self.device = resolve_device(device)
 
     def log_prob(self, z, context=None):
         raise NotImplementedError("The log probability is not implemented yet.")
 
-    def sample(self, num_samples: int = 1, context=None, *, generator=None):
-        raise NotImplementedError(
-            "the rejection sampler of Target waits for a later slice of the PyTorch port")
+    def accept_round(self, buf, count: int, eps, u):
+        """One round of the rejection sampler on the proposal uniforms
+        ``eps`` (n, D) and ``u`` (n,): candidates z = prop_scale * eps +
+        prop_shift, accepted where exp(log_prob(z) - max_log_prob) > u, fill
+        the free slots of ``buf`` (n, D) from ``count`` on, in order; the
+        ones past the end are dropped.  Returns ``(buf, count)``, ``buf`` a
+        new tensor and ``count`` the number of filled slots."""
+        n = buf.shape[0]
+        z = self.prop_scale * eps + self.prop_shift
+        accept = torch.exp(self.log_prob(z) - self.max_log_prob) > u
+        pos = count + torch.cumsum(accept.to(torch.int64), 0) - 1
+        pos = torch.where(accept & (pos < n), pos, n)  # slot n is the drop
+        out = torch.cat([buf, buf.new_zeros(1, buf.shape[1])]).index_copy_(0, pos, z)
+        return out[:n], min(n, count + int(accept.sum()))
+
+    def sample(self, num_samples: int = 1, context=None, *,
+               generator: Optional[torch.Generator] = None):
+        """``num_samples`` exact draws by rejection from the uniform
+        proposal, on the target's device; ``generator`` (on that device)
+        draws the proposals.  Reads the count on the host once a round."""
+        buf = torch.zeros(num_samples, self.n_dims, device=self.device)
+        count = 0
+        while count < num_samples:
+            eps = torch.rand(num_samples, self.n_dims, generator=generator, device=self.device)
+            u = torch.rand(num_samples, generator=generator, device=self.device)
+            buf, count = self.accept_round(buf, count, eps, u)
+        return buf
+
+
+class TwoMoons(Target):
+    """2-D bimodal benchmark density (unnormalised), proposal box [-3, 3]^2."""
+
+    n_dims = 2
+    max_log_prob = 0.0
+
+    def log_prob(self, z, context=None):
+        a = torch.abs(z[:, 0])
+        norm = torch.linalg.vector_norm(z, dim=1)
+        return (-0.5 * ((norm - 2.0) / 0.2) ** 2 - 0.5 * ((a - 2.0) / 0.3) ** 2
+                + torch.log1p(torch.exp(-4.0 * a / 0.09)))
 
 
 class GaussianVonMises(Target):

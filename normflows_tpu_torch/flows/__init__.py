@@ -8,6 +8,10 @@ from .neural_spline import (
     MaskedPiecewiseRationalQuadraticAutoregressive,
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,
+    PiecewiseRationalQuadraticCoupling,
+    PiecewiseRationalQuadraticCDF,
+    CoupledRationalQuadraticSpline,
+    CircularCoupledRationalQuadraticSpline,
 )
 
 __all__ = [
@@ -21,4 +25,8 @@ __all__ = [
     "MaskedPiecewiseRationalQuadraticAutoregressive",
     "AutoregressiveRationalQuadraticSpline",
     "CircularAutoregressiveRationalQuadraticSpline",
+    "PiecewiseRationalQuadraticCoupling",
+    "PiecewiseRationalQuadraticCDF",
+    "CoupledRationalQuadraticSpline",
+    "CircularCoupledRationalQuadraticSpline",
 ]

@@ -2,3 +2,4 @@
 
 from .mlp import Linear
 from .made import MADE, MaskedLinear, MaskedResidualBlock
+from .resnet import ResidualBlock, ResidualNet

@@ -191,7 +191,10 @@ def _align(v, shape, event_axis, dtype, device) -> torch.Tensor:
         return torch.full((int(np.prod(shape)),), arr.item(), dtype=dtype, device=device)
     view = [1] * len(shape)
     view[event_axis % len(shape)] = arr.shape[0]
-    return per_dim(tuple(arr.tolist()), dtype, device).view(view).expand(shape).reshape(-1)
+    # contiguous: a one-entry tuple expands to a stride-0 view, which the
+    # reshape would keep
+    return per_dim(tuple(arr.tolist()), dtype, device).view(view).expand(shape) \
+        .reshape(-1).contiguous()
 
 
 def unconstrained_rational_quadratic_spline_flat(

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA spline kernels, planar and flat (forward and
-backward), and the fused MADE's kernels, against their plain PyTorch
-versions, a small model's serving path and training step through the planar
-kernels, and a D = 64 autoregressive model's through the flat kernels and,
-with fusion on, the fused MADE.
+backward), the fused MADE's kernels and the flat backward's ablation kernel,
+against their plain PyTorch versions, a small model's serving path and
+training step through the planar kernels, a D = 64 autoregressive model's
+through the flat kernels and, with fusion on, the fused MADE, and a coupled
+NSF's through the flat kernels.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 import normflows_tpu_torch as nft
-from normflows_tpu_torch.ops import backend, cuda_build, made_fused, spline_cuda, spline_flat
+from normflows_tpu_torch.ops import (backend, cuda_build, made_fused, spline_ablate, spline_cuda,
+                                     spline_flat)
 
 Y_TOL = 2e-5  # the JAX package's bars (tests/test_pallas.py), atol = rtol
 LD_TOL = 2e-4
@@ -327,3 +329,88 @@ def test_large_d_fused_log_prob_equals_unfused(cuda, fusion):
         unfused = card.log_prob(x)
     assert made_fused.LAUNCHES == 2
     close(fused, unfused, 1e-4)
+
+
+def ablate_inputs(N, device, seed=0, K=10):
+    """The ablation's flat operands with mixed tails (linear at 5, circular
+    at pi), x ~ N(0, 1) and random cotangents."""
+    rng = np.random.default_rng(seed)
+    codes = rng.choice([1, 2], size=N).astype(np.int32)
+    bounds = np.where(codes == 1, 5.0, np.pi).astype(np.float32)
+    x = rng.normal(size=N).astype(np.float32)
+    p = (0.1 * rng.normal(size=(3 * K + 1, N))).astype(np.float32)
+    yb, lb = rng.normal(size=(2, N)).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(x), to(p[:K]), to(p[K:2 * K]), to(p[2 * K:]), to(codes), to(bounds), to(yb), to(lb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("N", [2**15, 2**15 + 37])
+@pytest.mark.parametrize("mode", spline_ablate.VARIANTS)
+def test_ablate_kernel_matches_plain(cuda, mode, N, inverse):
+    """Each variant against its plain version in float64: sel_only 1e-5,
+    the others the flat backward's 1e-3; vjp_all equals full within 1e-3."""
+    args = ablate_inputs(N, cuda)
+    before = spline_ablate.LAUNCHES[mode]
+    got = spline_ablate.run_variant(mode, *args, inverse=inverse)
+    torch.cuda.synchronize()
+    assert spline_ablate.LAUNCHES[mode] == before + 1
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    want = spline_ablate.REFERENCES[mode](*f64, inverse)
+    tol = 1e-5 if mode == "sel_only" else 1e-3
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all()
+        close(g, r, tol)
+    if mode == "vjp_all":
+        for g, r in zip(got, spline_ablate.run_variant("full", *args, inverse=inverse)):
+            close(g, r, 1e-3)
+
+
+@pytest.mark.gpu
+def test_ablate_refuses_too_many_bins(cuda):
+    args = ablate_inputs(256, cuda, K=spline_ablate.MAX_BINS + 1)
+    with pytest.raises(ValueError, match="at most"):
+        spline_ablate.run_variant("vjp_all", *args, inverse=True)
+    spline_ablate.run_variant("full", *args, inverse=True)  # the lean kernel takes any K
+
+
+def coupled_model(device, layers=2):
+    """docs/getting_started.md's layers (2 blocks of hidden 64, 8 bins) with
+    random transform nets, on DiagGaussian(2) and TwoMoons."""
+    flows = [nft.flows.CoupledRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(i), 2, 2, 64, reverse_mask=bool(i % 2),
+        init_identity=False, device=device) for i in range(layers)]
+    return nft.NormalizingFlow.create(nft.distributions.DiagGaussian.create(2, device=device),
+                                      flows, p=nft.distributions.TwoMoons(device=device),
+                                      device=device)
+
+
+@pytest.mark.gpu
+def test_coupled_model_runs_through_the_flat_kernel(cuda):
+    """Two flat launches per layer in each direction (the coupling's and the
+    CDF's), their backward in a forward-KL step; the card against the CPU."""
+    card, cpu = coupled_model(cuda), coupled_model("cpu")
+    cpu.load_state_dict(card.state_dict())
+    x = card.p.sample(1000, generator=torch.Generator(device=cuda).manual_seed(0))
+    assert x.shape == (1000, 2) and bool((x.abs() <= 3.0).all())
+    with torch.inference_mode():
+        spline_flat.LAUNCHES = 0
+        z, log_q = card.sample(1000, generator=torch.Generator(device=cuda).manual_seed(1))
+        lp = card.log_prob(z)
+        torch.cuda.synchronize()
+        assert spline_flat.LAUNCHES == 8
+        close(lp, log_q, 1e-3)
+        close(card.log_prob(x), cpu.log_prob(x.cpu()), 1e-3)
+    spline_flat.LAUNCHES = spline_flat.BACKWARD_LAUNCHES = 0
+    losses = []
+    for model, batch in ((card, x), (cpu, x.cpu())):
+        model.zero_grad(set_to_none=True)
+        loss = model.forward_kld(batch)
+        loss.backward()
+        losses.append(loss.detach().cpu())
+    torch.cuda.synchronize()
+    assert (spline_flat.LAUNCHES, spline_flat.BACKWARD_LAUNCHES) == (4, 4)
+    close(losses[0], losses[1], 1e-4)
+    for (n, p), q in zip(card.named_parameters(), cpu.parameters()):
+        assert float((p.grad.cpu() - q.grad).norm()) <= G_TOL * float(q.grad.norm()) + 1e-6, n
