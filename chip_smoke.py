@@ -88,7 +88,8 @@ LOGQ_F32 = 1e-3
 # log-det moves by up to ~0.1.  Most elements see no flip, so the median
 # stays small; its bar is ten times the f32 one.
 LOGQ_BF16 = 1e-2
-# card against CPU, f32, same weights, 2^12 samples: matmuls summed in
+# card against CPU, f32, same weights, 2^12 samples (2^14 on the coupled
+# models, the size their requests run): matmuls summed in
 # another order and the kernel against the plain spline, through 12 layers,
 # each within 2e-5 / 2e-4: 1e-3 atol + rtol on values and log-densities.
 CPU_TOL = 1e-3
@@ -1213,24 +1214,33 @@ GRAD_NAMES = ("dx", "dw0", "db0", "dw1s", "db1s", "dw2s", "db2s", "dwf", "dbf")
 
 def phase_kernel_made_fused_backward():
     """The fused backward kernels against their plain version (the pull-back
-    written out): f32 against it in float64, bf16 against the bf16 one."""
+    written out): f32 against it in float64, bf16 against the bf16 one.
+    The kernels' pre-activations, read from their scratch, are held against
+    the plain forward's at the forward's bar; the plain pull-back then takes
+    their side of relu's step (a pre-activation within rounding of 0 may
+    fall on either side in sums of another order)."""
     from normflows_tpu_torch.ops import made_fused as mf
 
     errs = {}
     for i, case in enumerate(MADE_CASES):
+        B, _, H, R, _ = case
         for bf16 in (False, True):
             x, ops, _ = made_case(*case, bf16, SEED + 30 + i)
             g = torch.from_numpy(np.random.default_rng(SEED + 40 + i).normal(
                 size=(case[0], case[1] * case[4])).astype(np.float32)).to(DEVICE)
-            got = mf.fused_resmade_backward(x, *ops, g)
+            scratch = torch.empty((4 * R + 2) * B * H, device=DEVICE)
+            got = mf.fused_resmade_backward(x, *ops, g, scratch=scratch)
             sync()
-            if bf16:
-                want, tol = mf.fused_resmade_backward_reference(x, *ops, g), MADE_BF16_TOL
-            else:
-                want = mf.fused_resmade_backward_reference(*[t.double() for t in (x, *ops, g)])
-                tol = MADE_G_TOL
-            errs[made_key(case, bf16)] = check_pair(
-                "kernel_made_fused_backward", errs, got, want, (tol,) * 9, GRAD_NAMES)
+            slabs = scratch.view(4 * R + 2, B, H)
+            kinks = (slabs[:R], slabs[R + 1:2 * R + 1])
+            args = (x, *ops, g) if bf16 else [t.double() for t in (x, *ops, g)]
+            e = check_pair("kernel_made_fused_backward", errs, kinks,
+                           mf.preactivations_reference(*args[:-1]),
+                           (MADE_BF16_TOL if bf16 else MADE_Y_TOL,) * 2, ("h", "z"))
+            want = mf.fused_resmade_backward_reference(*args, kinks=kinks)
+            e.update(check_pair("kernel_made_fused_backward", errs, got, want,
+                                (MADE_BF16_TOL if bf16 else MADE_G_TOL,) * 9, GRAD_NAMES))
+            errs[made_key(case, bf16)] = e
     emit("kernel_made_fused_backward", ok=True, errors=errs,
          bars={"f32_vs_float64": MADE_G_TOL, "bf16_vs_bf16_plain": MADE_BF16_TOL})
     return errs
@@ -1670,8 +1680,9 @@ def phase_coupled_path():
     """sample(2^14) and log_prob of the samples, f32 and bf16: exactly 16
     flat launches each (8 layers x coupling + CDF), inverse direction in
     sample, forward in log_prob; sample's log_q against log_prob; the card
-    against the CPU at 2^12 (f32), for the docs model and for a circular
-    coupled stack."""
+    against the CPU at the same 2^14 (f32), for the docs model and for a
+    circular coupled stack, so that the flat wrapper's coupling and CDF
+    layouts are held against the plain spline at the size the path runs."""
     from normflows_tpu_torch.utils import set_compute_dtype
 
     model = build_coupled(DEVICE)
@@ -1699,15 +1710,14 @@ def phase_coupled_path():
             emit("coupled_path", ok=False, results=results)
             raise SystemExit(f"coupled path ({dtype}) failed its checks")
         if dtype == "float32":
-            results["cpu"] = against_cpu("coupled_path", model, x, build_coupled, N_CPU)
+            results["cpu"] = against_cpu("coupled_path", model, x, build_coupled, N)
     circ = build_circular_coupled(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 81)
     with torch.inference_mode():
-        (xc, _), n_c = counted("circular coupled sample", lambda: circ.sample(N_CPU, generator=gen),
+        (xc, _), n_c = counted("circular coupled sample", lambda: circ.sample(N, generator=gen),
                                flat=(per_pass, 0))
     launches["inverse"] += n_c["flat"][0]
-    results["circular_cpu"] = against_cpu("coupled_path", circ, xc, build_circular_coupled,
-                                          N_CPU)
+    results["circular_cpu"] = against_cpu("coupled_path", circ, xc, build_circular_coupled, N)
     results["circular_in_bounds"] = bool((xc[:, 1].abs() <= math.pi + 1e-5).all())
     if not results["circular_in_bounds"]:
         emit("coupled_path", ok=False, results=results)

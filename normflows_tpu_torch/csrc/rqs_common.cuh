@@ -80,6 +80,8 @@ struct Selection {
   float cw, w, ch, h, dk, dk1;  // its left edges, sizes and knot slopes
   float pw, ph;                // its width and height probabilities
   float pw_below, ph_below;    // sums of the probabilities of bins below it
+  float hits;                  // sum of the K hit masks (1); only the
+                               // ablation reads it, elsewhere it is dead code
 };
 
 // Tail handling, softmax statistics and the K-step accumulate-and-select bin
@@ -138,6 +140,7 @@ __device__ __forceinline__ Selection select_bin(float x, const float* uw,
   e.cw = 0.0f, e.w = 1.0f, e.ch = 0.0f, e.h = 1.0f;
   e.dk = 1.0f, e.dk1 = 1.0f;
   e.pw = 0.0f, e.ph = 0.0f, e.pw_below = 0.0f, e.ph_below = 0.0f;
+  e.hits = 0.0f;
   for (int k = 0; k < K; ++k) {
     const float p_w = expf(uw[k * n] - e.wmax) / e.wsum;
     const float p_h = expf(uh[k * n] - e.hmax) / e.hsum;
@@ -146,7 +149,9 @@ __device__ __forceinline__ Selection select_bin(float x, const float* uw,
     const float cw_next = cw + w_k;
     const float ch_next = ch + h_k;
     const bool cond = (k == K - 1) || (e.xs < (kInverse ? ch_next : cw_next));
-    if (!found && cond) {
+    const bool hit = !found && cond;
+    e.hits += hit ? 1.0f : 0.0f;
+    if (hit) {
       e.k = k;
       e.cw = cw;
       e.w = w_k;

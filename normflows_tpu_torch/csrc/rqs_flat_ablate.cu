@@ -12,13 +12,19 @@
 //
 //   kSelOnly  the bin search alone (`_selection(collect=True)`):
 //             xg = xs + sum of the selected (cw, w, ch, h, dk, dk1)
-//             + (wmax + wsum + hmax + hsum) + sum of the hit masks (1: the
-//             search selects exactly one bin, the last catching the rest);
-//             the planes are the parameters copied through.
+//             + (wmax + wsum + hmax + hsum) + sum of the hit masks, summed
+//             in the search's loop (1: the search selects exactly one bin,
+//             the last catching the rest); the planes are the parameters
+//             copied through.
 //   kSelPost  the search, then the pull-back of the rational-quadratic map
 //             of the selected bin (`_post_math`) at the cotangents
 //             (ybar, lbar) as given, with no inside/tail masking: xg = the
 //             sum of its 7 cotangents + the sum of the hits; planes copied.
+//             The pull-back follows the direction of the search: in the
+//             forward direction it is that of the forward map, where the
+//             TPU kernel pulls back the inverse map whatever its search
+//             did (its script runs the inverse direction only, where the
+//             two agree).
 //   kFull     the shipped flat backward (`_bwd_scatter`): the same work as
 //             rqs_flat_backward_kernel (rqs_flat.cu), dx and the gradients.
 //   kVjpAll   the same function as kFull, structured as reverse-mode
@@ -42,9 +48,10 @@
 // run_variant's N = 32,768 that is 8.9 MB, 2.7 us at 3.35 TB/s.  One thread
 // per element on threadIdx.x, as in rqs_flat.cu, so that every row read
 // and write is coalesced across a warp.  The point of the ablation is each
-// instantiation's registers and spills (nvcc -Xptxas -v): kVjpAll's
-// residual arrays, fully unrolled over kMaxBins so that every index is a
-// constant, are what spill.
+// instantiation's registers and spills (nvcc -Xptxas -v).  kVjpAll's
+// residual arrays are fully unrolled over kMaxBins, so that every index is a
+// constant and they can live in registers: on sm_90a ptxas gives it 128
+// registers and a 72-byte stack frame, with no spill (PERF.md).
 
 #include "rqs_common.cuh"
 
@@ -286,7 +293,7 @@ rqs_flat_ablate_kernel(const float* __restrict__ x,
                                  : rqs::post_math_vjp_forward(e, ybar[n], lbar[n]);
     acc = 0.0f + g.xs + g.cw + g.w + g.ch + g.h + g.dk + g.dk1;
   }
-  xg[n] = acc + 1.0f;  // the sum of the hit masks
+  xg[n] = acc + e.hits;
   copy_through(uw + n, uh + n, ud + n, stride, K, dparams + n, out);
 }
 

@@ -59,7 +59,7 @@ def _tail_codes_array(tails, indices):
     return np.asarray([splines.tail_code(tails[i]) for i in indices], np.int32)
 
 
-def _tail_bound_array(tail_bound, indices, n):
+def _tail_bound_array(tail_bound, indices):
     if np.ndim(tail_bound) == 0:
         return np.full(len(indices), float(tail_bound), np.float32)
     return np.asarray(tail_bound, np.float32)[np.asarray(indices)]
@@ -147,17 +147,17 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
         mask = np.asarray(mask)
         identity, transform, _ = _split_indices(mask)
         net = transform_net_create_fn(len(identity), len(transform) * (3 * num_bins + 1))
-        net_hidden = getattr(net, "hidden_features", 0) or getattr(net, "hidden_channels", 0)
+        net_hidden = getattr(net, "hidden_features", 0)
         uncond = None
         if apply_unconditional_transform:
             uncond = PiecewiseRationalQuadraticCDF.create(
                 shape=[len(identity)], num_bins=num_bins,
                 tails=_tail_codes_array(tails, identity),
-                tail_bound=_tail_bound_array(tail_bound, identity, len(mask)),
+                tail_bound=_tail_bound_array(tail_bound, identity),
                 min_bin_width=min_bin_width, min_bin_height=min_bin_height,
                 min_derivative=min_derivative, device=device)
         return cls(mask, net, uncond, _tail_codes_array(tails, transform),
-                   _tail_bound_array(tail_bound, transform, len(mask)), num_bins, net_hidden,
+                   _tail_bound_array(tail_bound, transform), num_bins, net_hidden,
                    min_bin_width, min_bin_height, min_derivative, device=device)
 
     def _coupling_transform(self, inputs, params, inverse: bool):

@@ -208,12 +208,17 @@ def fused_resmade(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
     return _FusedResMADE.apply(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
 
 
-def fused_resmade_backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation="relu"):
+def fused_resmade_backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation="relu",
+                           scratch=None):
     """Backward of :func:`fused_resmade`: the output cotangent ``g`` (B, P)
     -> ``(dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf)``, each shaped and
     typed like its operand.  A CPU tensor takes
     :func:`fused_resmade_backward_reference`; a CUDA tensor launches the
-    backward kernels or raises."""
+    backward kernels or raises.  On the card ``scratch``, a contiguous
+    float32 tensor of (4R + 2) B H elements, takes the kernels' recompute in
+    place of a fresh buffer: viewed as (4R + 2, B, H), slabs 0 ... R are h
+    before each block (R: before the final layer) and slabs R + 1 ... 2R
+    each block's inner pre-activation z, as the kernels computed them."""
     global BACKWARD_LAUNCHES
     operands = (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf)
     _check(*operands, activation)
@@ -229,7 +234,12 @@ def fused_resmade_backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation=
     n_weights = sum(sizes[:4])
     new = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=x.device)  # noqa: E731
     dx, grads = new(B, F), new(sum(sizes))
-    scratch = new((4 * R + 2) * B * H)
+    if scratch is None:
+        scratch = new((4 * R + 2) * B * H)
+    elif scratch.shape != ((4 * R + 2) * B * H,) or scratch.dtype != torch.float32 \
+            or scratch.device != x.device or not scratch.is_contiguous():
+        raise ValueError(f"fused MADE backward: scratch must be a contiguous float32 "
+                         f"tensor of {(4 * R + 2) * B * H} elements on {x.device}")
     splits = -(-B // SPLIT)
     part = new(splits * grads.numel()) if splits > 1 else grads
     _launch("made_fused_backward", (*operands, g.contiguous(), dx, grads, scratch, part),
@@ -275,32 +285,54 @@ def _rounding(bf16, dtype):
     return lambda a: a.to(torch.bfloat16).to(dtype)
 
 
+def _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation):
+    """The plain forward up to the final layer's input, in ``x``'s dtype:
+    ``(hs, zs, h)``, hs[r] the residual stream before block r, zs[r] the
+    block's inner pre-activation, h the final layer's input."""
+    dt = x.dtype
+    rnd = _rounding(w0.dtype == torch.bfloat16, dt)
+    hs, zs = [], []
+    h = rnd(x) @ w0.to(dt).T + b0.to(dt)
+    for r in range(w1s.shape[0]):
+        hs.append(h)
+        zs.append(rnd(_act(activation, h)) @ w1s[r].to(dt).T + b1s[r].to(dt))
+        h = h + (rnd(_act(activation, zs[r])) @ w2s[r].to(dt).T + b2s[r].to(dt))
+    return hs, zs, h
+
+
 def fused_resmade_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
     """Plain PyTorch version of the forward kernel, in ``x``'s dtype (float32
     or float64), with JAX's rounding points when the weights are bfloat16:
     each product's activation operand rounded to bfloat16, the weights
     widened, the product summed in ``x``'s dtype."""
     dt = x.dtype
-    rnd = _rounding(w0.dtype == torch.bfloat16, dt)
+    _, _, h = _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation)
+    return _rounding(w0.dtype == torch.bfloat16, dt)(h) @ wf.to(dt).T + bf.to(dt)
 
-    def mm(a, w):
-        return rnd(a) @ w.to(dt).T
 
-    h = mm(x, w0) + b0.to(dt)
-    for r in range(w1s.shape[0]):
-        t = mm(_act(activation, h), w1s[r]) + b1s[r].to(dt)
-        h = h + (mm(_act(activation, t), w2s[r]) + b2s[r].to(dt))
-    return mm(h, wf) + bf.to(dt)
+def preactivations_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
+    """The plain forward's pre-activations, stacked over the R blocks: (the
+    residual stream before each block, each block's inner z), (R, B, H)
+    each, in ``x``'s dtype; the backward kernels keep theirs in the slabs 0
+    ... R - 1 and R + 1 ... 2R of their scratch."""
+    hs, zs, _ = _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation)
+    return torch.stack(hs), torch.stack(zs)
 
 
 def fused_resmade_backward_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g,
-                                     activation="relu"):
+                                     activation="relu", kinks=None):
     """Plain PyTorch version of the backward kernels, the pull-back written
     out, in ``x``'s dtype: the forward recomputed, then each product's input
     cotangent (rounded to bfloat16 with bfloat16 weights) and its weight
     cotangent, summed over the batch and cast to the weight's dtype at the
     end, as the kernels do.  Returns ``(dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf,
-    dbf)``, each in its operand's dtype."""
+    dbf)``, each in its operand's dtype.
+
+    ``kinks = (hs, zs)``, R pre-activations each, gives the activation
+    derivatives their arguments in place of the recomputed ones.  Passed the
+    kernels' own (``fused_resmade_backward``'s ``scratch``), it takes their
+    side of relu's step wherever a pre-activation lies within rounding of 0,
+    where another order of the same sums may land on the other side."""
     dt = x.dtype
     bf16 = w0.dtype == torch.bfloat16
     rnd = _rounding(bf16, dt)
@@ -311,20 +343,16 @@ def fused_resmade_backward_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g,
     def wgrad(dc, a):
         return dc.T @ rnd(a)
 
-    hs, zs = [], []
-    h = rnd(x) @ W(w0).T + b0.to(dt)
-    for r in range(R):
-        hs.append(h)
-        zs.append(rnd(_act(activation, h)) @ W(w1s[r]).T + b1s[r].to(dt))
-        h = h + (rnd(_act(activation, zs[r])) @ W(w2s[r]).T + b2s[r].to(dt))
+    hs, zs, h = _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation)
+    kh, kz = (hs, zs) if kinks is None else [[t.to(dt) for t in k] for k in kinks]
     dwf, dbf = wgrad(g, h), g.sum(0)
     dh = rnd(g @ W(wf))
     dw1s, db1s, dw2s, db2s = [None] * R, [None] * R, [None] * R, [None] * R
     for r in reversed(range(R)):
         dw2s[r], db2s[r] = wgrad(dh, _act(activation, zs[r])), dh.sum(0)
-        dz1 = rnd(dh @ W(w2s[r])) * _act_grad(activation, zs[r])
+        dz1 = rnd(dh @ W(w2s[r])) * _act_grad(activation, kz[r])
         dw1s[r], db1s[r] = wgrad(dz1, _act(activation, hs[r])), dz1.sum(0)
-        dh = dh + rnd(dz1 @ W(w1s[r])) * _act_grad(activation, hs[r])
+        dh = dh + rnd(dz1 @ W(w1s[r])) * _act_grad(activation, kh[r])
     dw0, db0 = wgrad(dh, x), dh.sum(0)
     dx = rnd(dh @ W(w0))
     return (dx.to(x.dtype), dw0.to(w0.dtype), db0.to(b0.dtype),

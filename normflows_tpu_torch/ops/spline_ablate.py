@@ -20,7 +20,9 @@ or raises (``ops/backend.py``):
   (``normflows_tpu/ops/spline_pallas.py:89``, :50) step by step, the
   pull-back by ``torch.autograd`` with JAX's tie rules (``torch.maximum`` /
   ``torch.minimum`` split a tie evenly, as ``jnp.maximum`` and ``jnp.clip``
-  do);
+  do).  ``sel_post`` pulls back the map of the search's direction, where
+  the TPU kernel pulls back the inverse map in either direction; its
+  script runs the inverse direction only, where the two agree;
 * ``full`` and ``vjp_all`` compute one function, the gradients of the
   spline, and share one plain version:
   ``spline_flat.unconstrained_rqs_dyncodes_backward_reference``, which is
@@ -52,15 +54,13 @@ def _library():
     return cuda_build.library(SOURCE, _SIGNATURES)
 
 
-def run_variant(mode, x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, *, inverse,
-                min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
-                min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
-                min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
+def run_variant(mode, x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, *, inverse):
     """Variant ``mode`` of the flat backward: ``(xg (N,), uwg (K, N),
     uhg (K, N), udg (K+1, N))``.  For ``sel_only`` and ``sel_post`` the
     three planes are the parameters copied through; for ``full`` and
     ``vjp_all`` they are the gradients, and ``xg`` is dx.  On the card the
-    planes are rows of one (3K+1, N) tensor."""
+    planes are rows of one (3K+1, N) tensor.  The minimum bin width, height
+    and derivative are the package's defaults, as in the TPU kernel."""
     if mode not in VARIANTS:
         raise ValueError(f"run_variant: mode must be one of {VARIANTS}, not {mode!r}")
     spline_flat._check(x, uw_t, uh_t, ud_t, codes, bounds)
@@ -69,10 +69,9 @@ def run_variant(mode, x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, *, inverse
                 or not t.is_contiguous():
             raise ValueError(f"run_variant: {name} must be a contiguous float32 tensor "
                              f"like x {tuple(x.shape)} on {x.device}")
-    config = (min_bin_width, min_bin_height, min_derivative)
     if not backend.use_kernel(x):
         return REFERENCES[mode](x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar,
-                                bool(inverse), *config)
+                                bool(inverse))
     K, N = uw_t.shape
     if mode == "vjp_all" and K > MAX_BINS:
         raise ValueError(f"run_variant: vjp_all takes at most {MAX_BINS} bins, not {K}")
@@ -83,23 +82,24 @@ def run_variant(mode, x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, *, inverse
         rc = _library().rqs_flat_ablate(
             VARIANTS.index(mode), *(t.data_ptr() for t in (
                 x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, xg, dp)),
-            N, K, ud_t.stride(0), int(bool(inverse)), *map(float, config), stream)
+            N, K, ud_t.stride(0), int(bool(inverse)), splines.DEFAULT_MIN_BIN_WIDTH,
+            splines.DEFAULT_MIN_BIN_HEIGHT, splines.DEFAULT_MIN_DERIVATIVE, stream)
     if rc != 0:
         raise RuntimeError(f"rqs_flat_ablate ({mode}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[mode] += 1
     return xg, dp[:K], dp[K:2 * K], dp[2 * K:]
 
 
-def selection(x, uw_t, uh_t, ud_t, codes, bounds, inverse,
-              min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
-              min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
-              min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
+def selection(x, uw_t, uh_t, ud_t, codes, bounds, inverse):
     """``_selection(collect=True)`` of the JAX package on the flat layout:
     ``(xs, sel, hits, stats)`` with ``sel`` the selected (cw, w, ch, h, dk,
     dk1), ``hits`` the K hit masks and ``stats`` (wmax, wsum, hmax, hsum).
     The K-step accumulate-and-select search lets the last bin catch every
     element the others leave."""
     K = uw_t.shape[0]
+    min_bin_width = splines.DEFAULT_MIN_BIN_WIDTH
+    min_bin_height = splines.DEFAULT_MIN_BIN_HEIGHT
+    min_derivative = splines.DEFAULT_MIN_DERIVATIVE
     left = -bounds
     span = 2.0 * bounds
     is_circ = codes == splines.TAIL_CIRCULAR
@@ -181,29 +181,21 @@ def _copies(uw_t, uh_t, ud_t):
     return uw_t.clone(), uh_t.clone(), ud_t.clone()
 
 
-def sel_only_reference(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse,
-                       min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
-                       min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
-                       min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
+def sel_only_reference(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse):
     """Plain version of ``sel_only``: xs + sum(sel) + sum(stats) + sum(hits),
     summed in the JAX kernel's order; the parameters copied through."""
-    xs, sel, hits, stats = selection(x, uw_t, uh_t, ud_t, codes, bounds, inverse,
-                                     min_bin_width, min_bin_height, min_derivative)
+    xs, sel, hits, stats = selection(x, uw_t, uh_t, ud_t, codes, bounds, inverse)
     acc = xs + sum(sel) + sum(stats)
     for hit in hits:
         acc = acc + hit.to(x.dtype)
     return (acc, *_copies(uw_t, uh_t, ud_t))
 
 
-def sel_post_reference(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse,
-                       min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
-                       min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
-                       min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
+def sel_post_reference(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse):
     """Plain version of ``sel_post``: the sum of the 7 cotangents of
     :func:`post_math` at (ybar, lbar), unmasked, plus sum(hits); the
     parameters copied through."""
-    xs, sel, hits, _ = selection(x, uw_t, uh_t, ud_t, codes, bounds, inverse,
-                                 min_bin_width, min_bin_height, min_derivative)
+    xs, sel, hits, _ = selection(x, uw_t, uh_t, ud_t, codes, bounds, inverse)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (xs, *sel)]
         grads = torch.autograd.grad(post_math(*leaves, inverse), leaves, (ybar, lbar))

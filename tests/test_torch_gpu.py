@@ -223,14 +223,15 @@ def test_large_d_model_serves_through_the_flat_kernel(cuda):
 
 def made_operands(B, F, H, R, mult, device, bf16=False, seed=0):
     """x and the packed operands of a MADE with random weights (the residual
-    blocks' second linear drawn like the others, not near zero)."""
+    blocks' second linear drawn like the others, not near zero), all drawn
+    from ``seed``: the same operands whatever ran before."""
+    gen = torch.Generator().manual_seed(seed)
     made = nft.nets.MADE(F, H, num_blocks=R, output_multiplier=mult, permute_mask=True,
-                         rng_seed=seed, generator=torch.Generator().manual_seed(seed),
-                         device=device)
+                         rng_seed=seed, generator=gen, device=device)
     with torch.no_grad():
         for blk in made.blocks:
-            blk.linear_1.weight.uniform_(-H ** -0.5, H ** -0.5)
-            blk.linear_1.bias.uniform_(-H ** -0.5, H ** -0.5)
+            for t in (blk.linear_1.weight, blk.linear_1.bias):
+                t.copy_(torch.empty(t.shape).uniform_(-H ** -0.5, H ** -0.5, generator=gen))
     if bf16:
         nft.utils.set_compute_dtype(made, "bfloat16")
     x = torch.from_numpy(np.random.default_rng(seed).normal(size=(B, F)).astype(np.float32))
@@ -252,25 +253,64 @@ def test_made_fused_kernels_match_plain(cuda, B, F, H, R, mult, bf16):
     g = torch.randn(B, F * mult, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
     before = (made_fused.LAUNCHES, made_fused.BACKWARD_LAUNCHES)
     out = made_fused.fused_resmade(x, *ops)
-    grads = made_fused.fused_resmade_backward(x, *ops, g)
+    grads, kinks = made_backward_and_kinks(x, ops, g)
     torch.cuda.synchronize()
     assert (made_fused.LAUNCHES, made_fused.BACKWARD_LAUNCHES) == (before[0] + 1,
                                                                  before[1] + 1)
+    args = (x, *ops, g) if bf16 else [t.double() for t in (x, *ops, g)]
     if bf16:
         close(out, made_fused.fused_resmade_reference(x, *ops), 5e-2)
         f32_ops = [t.float() for t in ops]
         np.testing.assert_allclose(out.cpu().numpy(), made_fused.fused_resmade_reference(
             x, *f32_ops).cpu().numpy(), atol=0.15, rtol=0.05)
-        want = made_fused.fused_resmade_backward_reference(x, *ops, g)
         tol = 5e-2
     else:
-        f64 = [t.double() for t in (x, *ops, g)]
-        close(out, made_fused.fused_resmade_reference(*f64[:-1]), 1e-5)
-        want = made_fused.fused_resmade_backward_reference(*f64)
+        close(out, made_fused.fused_resmade_reference(*args[:-1]), 1e-5)
         tol = 2e-4
+    # the kernels' pre-activations against the plain ones at the forward's
+    # bar; the pull-back then takes the kernels' side of relu's step
+    for got, ref in zip(kinks, made_fused.preactivations_reference(*args[:-1])):
+        close(got, ref, 5e-2 if bf16 else 1e-5)
+    want = made_fused.fused_resmade_backward_reference(*args, kinks=kinks)
     for got, ref in zip(grads, want):
         assert got.dtype == (ref.dtype if bf16 else torch.float32) and torch.isfinite(got).all()
         close(got.float(), ref.float(), tol)
+
+
+def made_backward_and_kinks(x, ops, g):
+    """The backward kernels' gradients and, from their scratch, the
+    pre-activations they took: (h before each block (R, B, H), each block's
+    inner z (R, B, H))."""
+    B, H, R = x.shape[0], ops[0].shape[0], ops[2].shape[0]
+    scratch = torch.empty((4 * R + 2) * B * H, device=x.device)
+    grads = made_fused.fused_resmade_backward(x, *ops, g, scratch=scratch)
+    slabs = scratch.view(4 * R + 2, B, H)
+    return grads, (slabs[:R], slabs[R + 1:2 * R + 1])
+
+
+@pytest.mark.gpu
+def test_made_fused_backward_pins_relu_kinks(cuda):
+    """The bf16 backward at (300, 2, 512, R 2) over 24 draws of the weights:
+    against the plain version's own relu derivatives a draw can miss the
+    5e-2 bar where a pre-activation within rounding of 0 lands on the other
+    side of relu's step (the kernels sum on the tensor cores, the plain
+    version in cuBLAS's order); with the kernels' pre-activations every
+    draw passes.  Prints the count of draws each way."""
+    B, F, H, R, mult = 300, 2, 512, 2, 31
+    g = torch.randn(B, F * mult, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    misses = {"plain": 0, "kernels": 0}
+    for seed in range(24):
+        x, ops = made_operands(B, F, H, R, mult, cuda, bf16=True, seed=seed)
+        grads, kinks = made_backward_and_kinks(x, ops, g)
+        for side, want in (
+                ("plain", made_fused.fused_resmade_backward_reference(x, *ops, g)),
+                ("kernels", made_fused.fused_resmade_backward_reference(x, *ops, g,
+                                                                        kinks=kinks))):
+            misses[side] += any(not torch.allclose(a.float(), b.float(), atol=5e-2, rtol=5e-2)
+                                for a, b in zip(grads, want))
+    print(f"\nmade_fused bf16 backward, 24 draws: {misses['plain']} miss the bar with the "
+          f"plain relu derivatives, {misses['kernels']} with the kernels'")
+    assert misses["kernels"] == 0
 
 
 @pytest.mark.gpu

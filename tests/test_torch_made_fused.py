@@ -183,6 +183,31 @@ def test_bf16_backward_rounds_weight_gradients_once():
     assert torch.equal(grads[8], g.sum(0)) and torch.equal(rnd(dh), dh)
 
 
+def test_backward_reference_takes_given_kinks():
+    """``kinks=`` sets only the side of relu's step: the plain version's own
+    pre-activations give its own numbers; one pre-activation moved across 0
+    moves that row's inner cotangent, db1 by exactly its value."""
+    rng = np.random.default_rng(21)
+    B, F, H, R, P = 40, 3, 128, 2, 7
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    x, g = t(B, F), t(B, P)
+    ops = [t(H, F), t(H), t(R, H, H) * 0.1, t(R, H), t(R, H, H) * 0.1, t(R, H), t(P, H), t(P)]
+    hs, zs = made_fused.preactivations_reference(x, *ops)
+    assert hs.shape == zs.shape == (R, B, H)
+    own = made_fused.fused_resmade_backward_reference(x, *ops, g)
+    same = made_fused.fused_resmade_backward_reference(x, *ops, g, kinks=(hs, zs))
+    for a, b in zip(own, same):
+        assert_close(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6)
+    r, m, n = R - 1, 5, int(zs[R - 1, 5].abs().argmin())
+    flipped = zs.clone()
+    flipped[r, m, n] = -flipped[r, m, n]
+    moved = made_fused.fused_resmade_backward_reference(x, *ops, g, kinks=(hs, flipped))
+    dz1 = g @ ops[6] @ ops[4][r]  # the inner product's output cotangent of the last block
+    sign = 1.0 if flipped[r, m, n] > 0 else -1.0
+    assert_close((moved[4][r] - own[4][r]).numpy(), (sign * dz1[m, n] * torch.eye(H)[n]).numpy(),
+                 atol=1e-5, rtol=1e-5)
+
+
 def test_fusable_agrees_with_jax():
     """The cases of tests/test_pallas.py::test_fusable_gates the port can
     build, and a few that pass; the port refuses the MADEs it cannot build
