@@ -35,7 +35,7 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   2^14 samples per request, forward-KL steps on batches of 512), through
   the flat spline kernels along the coupling's and the CDF's layouts, and
   a circular coupled stack: phases coupled_path, coupled_train,
-  times_coupled.
+  coupled_float64 (card and CPU each against float64), times_coupled.
 
 It prints one JSON line per phase, then the ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
@@ -277,31 +277,29 @@ def phase_build():
     info = cuda_build.build([spline_cuda.SOURCE, spline_flat.SOURCE, made_fused.SOURCE,
                              spline_ablate.SOURCE], force=True)
     resources = ablate_resources(info[spline_ablate.SOURCE]["ptxas"])
+    made = made_resources(info[made_fused.SOURCE]["ptxas"])
     emit("build", sources={
         str(src.relative_to(REPO)): {
             "seconds": i["seconds"],
             "ptxas": [line for line in i["ptxas"].splitlines()
                       if "registers" in line or "spill" in line or "smem" in line]}
-        for src, i in info.items()}, ablate_resources=resources)
-    return resources
+        for src, i in info.items()}, ablate_resources=resources, made_resources=made)
+    return resources, made
 
 
-def ablate_resources(ptxas):
-    """Registers, stack frame and spill bytes per thread of each
-    instantiation of the ablation kernel, from ptxas' -v report:
-    ``{"<mode>_<direction>": {...}}``.  The kernel's template arguments
-    <mode, inverse> are in its mangled name, as ILi<mode>ELb<inverse>E."""
+def kernel_resources(ptxas, name_of):
+    """Registers, stack frame and spill bytes per thread of each kernel of
+    a ptxas -v report: ``{name_of(mangled name): {...}}`` (a kernel whose
+    ``name_of`` is None is left out)."""
     import re
-
-    from normflows_tpu_torch.ops import spline_ablate
 
     out, key = {}, None
     for line in ptxas.splitlines():
-        m = re.search(r"rqs_flat_ablate_kernelILi(\d)ELb([01])E", line)
-        if m and "Compiling entry function" in line:
-            key = (f"{spline_ablate.VARIANTS[int(m.group(1))]}_"
-                   f"{'inverse' if m.group(2) == '1' else 'forward'}")
-            out[key] = {}
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            key = name_of(m.group(1))
+            if key is not None:
+                out[key] = {}
             continue
         if key is None:
             continue
@@ -314,10 +312,50 @@ def ablate_resources(ptxas):
         if m:
             out[key]["registers"] = int(m.group(1))
             key = None
+    return out
+
+
+def ablate_resources(ptxas):
+    """The ablation kernel's instantiations: ``{"<mode>_<direction>": {...}}``.
+    Its template arguments <mode, inverse> are in its mangled name, as
+    ILi<mode>ELb<inverse>E."""
+    import re
+
+    from normflows_tpu_torch.ops import spline_ablate
+
+    def name_of(mangled):
+        m = re.search(r"rqs_flat_ablate_kernelILi(\d)ELb([01])E", mangled)
+        return m and (f"{spline_ablate.VARIANTS[int(m.group(1))]}_"
+                      f"{'inverse' if m.group(2) == '1' else 'forward'}")
+
+    out = kernel_resources(ptxas, name_of)
     want = {f"{v}_{d}" for v in spline_ablate.VARIANTS for d in ("forward", "inverse")}
     if set(out) != want or any("registers" not in r or "spill_store_bytes" not in r
                                for r in out.values()):
         raise SystemExit(f"build: no full ptxas report of the ablation kernel: {out}")
+    return out
+
+
+def made_resources(ptxas):
+    """The fused MADE's kernels: ``{"<kernel>_<f32|bf16>[_<second flag>]":
+    {...}}`` (the template's bool arguments are in the mangled name as
+    Lb<0|1>E, kBf16 first)."""
+    import re
+
+    def name_of(mangled):
+        m = re.search(r"(made_[a-z_]+?_kernel)(I(?:Lb[01]E)+E)?", mangled)
+        if not m:
+            return None
+        flags = re.findall(r"Lb([01])E", m.group(2) or "")
+        if not flags:
+            return m.group(1)
+        return (m.group(1) + ("_bf16" if flags[0] == "1" else "_f32") +
+                "".join(f"_{f}" for f in flags[1:]))
+
+    out = kernel_resources(ptxas, name_of)
+    if not out or any("registers" not in r or "spill_store_bytes" not in r
+                      for r in out.values()):
+        raise SystemExit(f"build: no full ptxas report of the fused MADE: {out}")
     return out
 
 
@@ -1240,9 +1278,17 @@ def phase_kernel_made_fused_backward():
             want = mf.fused_resmade_backward_reference(*args, kinks=kinks)
             e.update(check_pair("kernel_made_fused_backward", errs, got, want,
                                 (MADE_BF16_TOL if bf16 else MADE_G_TOL,) * 9, GRAD_NAMES))
+            again = mf.fused_resmade_backward(x, *ops, g)
+            sync()
+            e["deterministic"] = all(torch.equal(a, b) for a, b in zip(got, again))
             errs[made_key(case, bf16)] = e
+            if not e["deterministic"]:
+                emit("kernel_made_fused_backward", ok=False, errors=errs)
+                raise SystemExit("kernel_made_fused_backward: two calls on the same inputs "
+                                 "differ")
     emit("kernel_made_fused_backward", ok=True, errors=errs,
-         bars={"f32_vs_float64": MADE_G_TOL, "bf16_vs_bf16_plain": MADE_BF16_TOL})
+         bars={"f32_vs_float64": MADE_G_TOL, "bf16_vs_bf16_plain": MADE_BF16_TOL},
+         note="deterministic: a second call on the same inputs gives the same bits")
     return errs
 
 
@@ -1446,13 +1492,96 @@ def made_bound(case, bf16, backward):
         moved, ops
 
 
-def phase_times_made_fused(model):
+# Partial products of the backward's split tensor-core products
+# (csrc/made_fused.cu): a float32 operand is three bf16 terms; bf16 weights
+# take 3 products (one per term of the cotangent), 1 where the cotangent is
+# bf16 already; float32 weights take the products of terms i, j with
+# i + j < 3 (6 of the 9)
+F32_PAIRS = 6
+
+
+def made_issued_bound(case, bf16, activation="relu"):
+    """The backward's least time from the operations its kernels really
+    issue: every product on the tensor cores, each partial product of the
+    split counted, at 989 TFLOP/s: ``(ms, tensor_ops)``."""
+    B, F, H, R, mult = case
+    P = F * mult
+    wide = F32_PAIRS if not bf16 else 3  # a float32 cotangent
+    last = F32_PAIRS if not bf16 else 1  # the last block's dh: bf16 in bf16
+    inner = F32_PAIRS if not bf16 else (1 if activation == "relu" else 3)  # dz1
+    HH = 2 * B * H * H
+    tensor = 2 * (2 * B * P * H * wide + 2 * B * H * F * wide)  # dh_R, dx; dWf, dW0
+    for r in range(R):
+        blk = last if r == R - 1 else wide
+        tensor += 2 * (HH * blk + HH * inner)  # the pull-backs and dW2, dW1
+    tensor += 2 * B * (F * H + 2 * R * H * H) * (1 if bf16 else F32_PAIRS)  # the recompute
+    return tensor / BF16_OPS_PER_S * 1e3, tensor
+
+
+BACKWARD_KERNELS = ("made_dh_kernel", "made_bwd_tile_kernel", "made_wgrad_kernel",
+                    "made_reduce_kernel")
+
+
+def backward_occupancy(H, bf16):
+    """Blocks of each backward kernel one multiprocessor holds at hidden
+    width H (the CUDA occupancy calculator, from registers and shared
+    memory): the theoretical occupancy; the achieved one needs a counter
+    profiler this machine lacks."""
+    import ctypes
+
+    from normflows_tpu_torch.ops import made_fused as mf
+
+    query = mf._library().made_fused_backward_occupancy
+    blocks = (ctypes.c_int * 3)()
+    rc = query(H, int(bf16), ctypes.addressof(blocks))
+    if rc != 0:
+        raise SystemExit(f"made_fused_backward_occupancy: CUDA error {rc}")
+    return dict(zip(BACKWARD_KERNELS, blocks))
+
+
+def kernel_us(fn, calls=10):
+    """Device µs a launch of each CUDA kernel of a call of ``fn``, over
+    ``calls`` calls under torch.profiler after two traced warm-up calls it
+    discards: each kernel's device time over the launches the profiler
+    recorded, and that count.  The profiler can drop a launch's record
+    (on the H100, one of ten even after the warm-up), so the mean is taken
+    over the records."""
+    import re
+
+    from torch.profiler import ProfilerActivity, schedule
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    sync()
+    traced = []
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=2, active=calls, repeat=1),
+                       on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2 + calls):
+            fn()
+            sync()
+            prof.step()
+    events = traced[0]
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    total, count = {}, {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host \
+                and e.self_device_time_total > 0:
+            m = re.search(r"made_\w+_kernel(<[^>]*>)?", e.key)
+            key = m.group(0) if m else e.key[:60]
+            total[key] = total.get(key, 0.0) + e.self_device_time_total
+            count[key] = count.get(key, 0) + e.count
+    return {k: total[k] / count[k] for k in total}, count
+
+
+def phase_times_made_fused(model, resources):
     """Device time of each fused kernel in a CUDA graph at the large-D shape,
     f32 and bf16, forward and backward; the wrapper's call time with the
     packing; the plain versions; the library yardstick: the unfused MADE
     pass (torch GEMMs and elementwise kernels) and its autograd backward,
-    the same way at the same shape; the bounds; then log_prob(4096) and the
-    forward-KL step, fusion off against on."""
+    the same way at the same shape; the bounds; the backward's split by
+    launch (profiled calls) with each kernel's registers and spills; then
+    log_prob(4096) and the forward-KL step, fusion off against on."""
     from normflows_tpu_torch.ops import backend
     from normflows_tpu_torch.ops import made_fused as mf
 
@@ -1489,6 +1618,18 @@ def phase_times_made_fused(model):
         for d in ("forward", "backward"):
             bound, by, moved, n_ops = made_bound(case, bf16, d == "backward")
             r[d].update(bound_ms=bound, bound_by=by, bytes=moved, ops=n_ops)
+        issued_ms, tensor_ops = made_issued_bound(case, bf16)
+        suffix = "_bf16" if bf16 else "_f32"
+        launch_us, recorded = kernel_us(lambda: mf.fused_resmade_backward(x, *ops, g))
+        unseen = [k for k in BACKWARD_KERNELS if not any(n.startswith(k) for n in recorded)]
+        if unseen:
+            raise SystemExit(f"times_made_fused: the profiler recorded no launch of {unseen}")
+        r["backward"].update(
+            issued_bound_ms=issued_ms, issued_tensor_ops=tensor_ops,
+            launch_us=launch_us, launches_recorded=recorded,
+            blocks_per_sm=backward_occupancy(case[2], bf16),
+            resources={k: v for k, v in resources.items()
+                       if suffix + "_" in k + "_" or not ("_f32" in k or "_bf16" in k)})
         kernels["bfloat16" if bf16 else "float32"] = r
     emit("times_made_fused_kernels", kernels=kernels, shape=made_key(case, False)[:-4],
          note="ms: device time, calls in one CUDA graph; call_ms: CUDA events over a loop "
@@ -1496,7 +1637,11 @@ def phase_times_made_fused(model):
          "plain_ms: the plain versions; library_ms: the unfused MADE.forward (torch "
          "GEMMs, fusion off) in a CUDA graph, and for the backward its forward and "
          "autograd backward less its forward; bound_ms: bytes over 3.35 TB/s or "
-         "operations over 67 TFLOP/s (f32) / 989 TFLOP/s (bf16)")
+         "operations over 67 TFLOP/s (f32) / 989 TFLOP/s (bf16); issued_bound_ms: the "
+         "partial products the split route issues over 989 TFLOP/s; launch_us: device us "
+         "a launch by kernel, over the launches_recorded of 10 profiled backward calls; "
+         "blocks_per_sm: the occupancy "
+         "calculator's; resources: ptxas -v, per thread")
     return kernels, fused_request_and_step_times(model)
 
 
@@ -1727,6 +1872,328 @@ def phase_coupled_path():
     return model, launches
 
 
+def flat_float64(x, uw, uh, ud, codes, bound, inverse, mbw, mbh, md, event_axis=-1):
+    """The flat entry's function (same layout, same static tails) through
+    its plain version in float64; the entry itself takes float32 only."""
+    from normflows_tpu_torch.ops import spline_flat as sf
+
+    shape = x.shape
+    c = sf._align(codes, shape, event_axis, torch.int32, x.device)
+    b = sf._align(bound, shape, event_axis, x.dtype, x.device)
+
+    def rows(p):
+        return p.movedim(-1, 0).reshape(p.shape[-1], -1)
+
+    y, ld = sf.unconstrained_rqs_dyncodes_reference(x.reshape(-1), rows(uw), rows(uh),
+                                                    rows(ud), c, b, inverse, mbw, mbh, md)
+    return y.view(shape), ld.view(shape)
+
+
+class FlatCalls:
+    """While entered, the coupled layers' flat spline calls pass through
+    here: float64 operands go to :func:`flat_float64`, float32 ones to the
+    flat entry.  With ``record`` set, each call's operands and results are
+    kept on the CPU, a coupling call with the transform net's input and
+    output that fed it (the nets of ``model``'s layers are hooked)."""
+
+    def __init__(self, model=None):
+        self.model, self.record, self.calls, self.net = model, False, [], None
+        self.exact = False  # float32 calls through flat_float64, rounded once to float32
+
+    def __enter__(self):
+        from normflows_tpu_torch.ops import spline_flat as sf
+
+        self.entry = sf.unconstrained_rational_quadratic_spline_flat
+        sf.unconstrained_rational_quadratic_spline_flat = self
+        self.hooks = [layer.prqct.transform_net.register_forward_hook(
+            lambda m, inp, out, i=i: setattr(self, "net", (i, inp[0], out)))
+            for i, layer in enumerate(self.model.flows)] if self.model is not None else []
+        return self
+
+    def __exit__(self, *exc):
+        from normflows_tpu_torch.ops import spline_flat as sf
+
+        sf.unconstrained_rational_quadratic_spline_flat = self.entry
+        for h in self.hooks:
+            h.remove()
+
+    def __call__(self, x, uw, uh, ud, codes, bound, inverse, mbw, mbh, md, event_axis=-1):
+        args = (codes, bound, inverse, mbw, mbh, md, event_axis)
+        if x.dtype != torch.float32:
+            y, ld = flat_float64(x, uw, uh, ud, *args)
+        elif self.exact:
+            y, ld = (t.float() for t in flat_float64(*(t.double() for t in (x, uw, uh, ud)), *args))
+        else:
+            y, ld = self.entry(x, uw, uh, ud, *args[:-1], event_axis=event_axis)
+        if self.record:
+            net = None
+            if event_axis == -1 and self.net is not None:  # the net call just before fed it
+                i, net_in, net_out = self.net
+                net = (i, net_in.detach().cpu(), net_out.detach().cpu())
+            cpu = lambda t: t.detach().cpu()  # noqa: E731
+            call = {"x": cpu(x), "p": [cpu(uw), cpu(uh), cpu(ud)], "y": cpu(y), "ld": cpu(ld),
+                    "net": net, "live": (x, uw, uh, ud), "args": args}
+            if y.requires_grad:  # the cotangents the backward brings to this call
+                for name, t in (("gy", y), ("gld", ld)):
+                    t.register_hook(lambda g, name=name: call.__setitem__(name, g.detach().cpu()))
+            self.calls.append(call)
+        return y, ld
+
+
+def knot_distance_ulps(x, u, bound, mbw, mbh, inverse):
+    """Distance of the float32 input ``x`` from the nearest knot of its bin
+    search (heights when inverting, widths otherwise), computed in float64
+    from the raw logits ``u``, in float32 ulps of ``x``."""
+    from normflows_tpu_torch.ops import splines
+
+    left = torch.tensor(-bound, dtype=torch.float64)
+    _, cum = splines._normalize_bins(u.double(), u.shape[-1], mbh if inverse else mbw, left,
+                                     -left)
+    ulp = float(np.spacing(np.float32(abs(x))))
+    return float((cum - x).abs().min()) / ulp
+
+
+def attribute_to_float64(calls, f64, samples):
+    """For each of ``samples``: the call of the card's run whose own error
+    (its float32 result against float64 on the same float32 operands) moves
+    the log-density most, the spline's or the transform net's, and where
+    the spline's input lay: the circular wrap, the linear-tail clamp, a bin
+    edge (within 4 ulps of a knot), or inside a bin; and the sum of every
+    call's own error, which against the sample's whole error says how much
+    of it was carried from earlier layers and amplified."""
+    local = []
+    for j, c in enumerate(calls):
+        codes, bound, inverse, mbw, mbh, md, axis = c["args"]
+        x64 = c["x"].double()
+        p64 = [p.double() for p in c["p"]]
+        _, ld_ref = flat_float64(x64, *p64, *c["args"])
+        spline = (c["ld"].double() - ld_ref)  # (B, d)
+        net = None
+        if c["net"] is not None:
+            i, net_in, net_out = c["net"]
+            prqct = f64.flows[i].prqct
+            with torch.no_grad():
+                _, ld_net = prqct._coupling_transform(x64, prqct.transform_net(net_in.double()),
+                                                      inverse)
+                _, ld_own = prqct._coupling_transform(x64, net_out.double(), inverse)
+            net = ld_net - ld_own  # (B,): the net's float32 error, through the spline
+        local.append((spline, net))
+    out, where = [], {}
+    for s in samples:
+        best = max(((abs(float(sp[s].sum())), j, "spline") for j, (sp, _) in enumerate(local)),
+                   default=(0.0, -1, "spline"))
+        best_net = max(((abs(float(nt[s])), j, "net") for j, (_, nt) in enumerate(local)
+                        if nt is not None), default=(0.0, -1, "net"))
+        size, j, kind = max(best, best_net)
+        c = calls[j]
+        codes, bound, inverse, mbw, mbh, md, axis = c["args"]
+        d = int(local[j][0][s].abs().argmax())
+        x = float(c["x"][s, d])
+        b = float(np.broadcast_to(np.asarray(bound, np.float64), (c["x"].shape[1],))[d])
+        code = int(np.broadcast_to(np.asarray(codes), (c["x"].shape[1],))[d])
+        ulps = knot_distance_ulps(x, c["p"][1 if inverse else 0][s, d], b, mbw, mbh, inverse)
+        if kind == "net":
+            cat = "ResidualNet"
+        elif code == 2 and (abs(x) > b or b - abs(x) < 1e-3 * b):
+            cat = "circular wrap"
+        elif code == 1 and abs(x) >= b * (1 - 1e-6):
+            cat = "linear-tail clamp"
+        elif ulps <= 4:
+            cat = "bin edge"
+        else:
+            cat = "inside a bin"
+        where[cat] = where.get(cat, 0) + 1
+        own = sum(float(sp[s].sum()) + (float(nt[s]) if nt is not None else 0.0)
+                  for sp, nt in local)
+        out.append({"sample": int(s), "call": j, "layer": c["net"][0] if c["net"] else None,
+                    "sum_of_own_ld_errors": own,
+                    "kind": "coupling" if axis == -1 else "cdf", "where": cat,
+                    "ld_error": size, "x": x, "bound": b, "tail_code": code,
+                    "knot_distance_ulps": ulps})
+    return out, where
+
+
+def vs_float64(phase, model, x, build, n):
+    """The model on the card (f32) and on the CPU (f32), each against the
+    same model on the CPU in float64 (plain splines, ``double()``), on the
+    same ``n`` samples (log_prob) and ``n`` base draws (forward_and_log_det);
+    the 20 largest |card - float64| of log_prob attributed to a spline or a
+    transform net call and to where its input lay."""
+    cpu, f64 = build("cpu"), build("cpu")
+    cpu.load_state_dict(model.state_dict())
+    f64.load_state_dict(model.state_dict())
+    f64.double()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    xs = x[:n]
+    with torch.inference_mode(), FlatCalls(model) as rec:
+        z = model.q0.sample(n, generator=gen)
+        rec.record = True
+        lp_card = model.log_prob(xs).cpu().double()
+        rec.record = False
+        calls = rec.calls
+        lp_cpu = cpu.log_prob(xs.cpu()).double()
+        lp_64 = f64.log_prob(xs.cpu().double())
+        xf_card, ld_card = (t.cpu().double() for t in model.forward_and_log_det(z))
+        xf_cpu, ld_cpu = (t.double() for t in cpu.forward_and_log_det(z.cpu()))
+        xf_64, ld_64 = f64.forward_and_log_det(z.cpu().double())
+        top = torch.topk((lp_card - lp_64).abs(), 20).indices.tolist()
+        attributed, where = attribute_to_float64(calls, f64, top)
+
+    def dist(a, b):
+        d = (a - b).abs()
+        return {"max_abs": float(d.max()), "median_abs": float(d.median())}
+
+    r = {"samples": n,
+         "card_vs_float64": {"log_prob": dist(lp_card, lp_64), "forward_x": dist(xf_card, xf_64),
+                             "forward_ld": dist(ld_card, ld_64)},
+         "cpu_vs_float64": {"log_prob": dist(lp_cpu, lp_64), "forward_x": dist(xf_cpu, xf_64),
+                            "forward_ld": dist(ld_cpu, ld_64)},
+         "top20_card_log_prob": attributed, "top20_where": where}
+    for k in ("log_prob", "forward_x", "forward_ld"):
+        r[f"card_closer_{k}"] = r["card_vs_float64"][k]["max_abs"] <= \
+            r["cpu_vs_float64"][k]["max_abs"]
+    for i, a in enumerate(attributed):
+        a["card_minus_float64"] = float(lp_card[a["sample"]] - lp_64[a["sample"]])
+        a["cpu_minus_float64"] = float(lp_cpu[a["sample"]] - lp_64[a["sample"]])
+    return r
+
+
+def attribute_step(entry, card_calls, f64_calls, f64_model, f64_grads, names):
+    """The flat spline calls' own backward error in the card's step, carried
+    to the leaves ``names``.  A call's own error is what the card's
+    backward gives for its float32 operands and the cotangents the step
+    brought to it, less the plain backward in float64 on the same values.
+    That error is pulled back to the leaves through the float64 step's
+    graph (a vector-Jacobian product from the call's operands), so it reads
+    as the distance it alone puts between the card's leaf and float64."""
+    leaves = dict(f64_model.named_parameters())
+    leaves = [leaves[k] for k in names]
+    moved = [torch.zeros_like(t) for t in leaves]
+    per_call = []
+    for j, (c, r) in enumerate(zip(card_calls, f64_calls)):
+        axis = c["args"][-1]
+        cot = [c.get(k, torch.zeros_like(c[v])) for k, v in (("gy", "y"), ("gld", "ld"))]
+        ops = [c["x"], *c["p"]]
+        card_ops = [t.to(DEVICE).requires_grad_() for t in ops]
+        f64_ops = [t.double().requires_grad_() for t in ops]
+        got = torch.autograd.grad(entry(*card_ops, *c["args"][:-1], event_axis=axis), card_ops,
+                                  [t.to(DEVICE) for t in cot])
+        want = torch.autograd.grad(flat_float64(*f64_ops, *c["args"]), f64_ops,
+                                   [t.double() for t in cot])
+        own = [a.cpu().double() - b for a, b in zip(got, want)]
+        pairs = [(t, e) for t, e in zip(r["live"], own) if t.requires_grad]
+        carried = torch.autograd.grad([t for t, _ in pairs], leaves, [e for _, e in pairs],
+                                      retain_graph=True, allow_unused=True)
+        carried = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, carried)]
+        moved = [m + g for m, g in zip(moved, carried)]
+        per_call.append({
+            "call": j, "kind": "coupling" if axis == -1 else "cdf",
+            "own_rel": max(float(e.abs().max() / (w.abs().max() + 1e-300))
+                           for e, w in zip(own, want)),
+            "moves": {k: float(g.norm() / f64_grads[k].norm()) for k, g in zip(names, carried)}})
+    out = []
+    for k, m in zip(names, moved):
+        top = max(per_call, key=lambda p: p["moves"][k])
+        out.append({"leaf": k, "flat_backward_own": float(m.norm() / f64_grads[k].norm()),
+                    "largest_call": top["call"], "largest_call_moves": top["moves"][k]})
+    return out, max(p["own_rel"] for p in per_call)
+
+
+def own_forward_error(calls):
+    """The recorded flat calls' own forward error, each against the plain
+    version in float64 on the call's own float32 operands: the largest
+    |y - float64| or |log-det - float64|, and the largest excess over the
+    static-tail entry's bars (Y_TOL on y, LD_TOL on log-dets)."""
+    worst, over = 0.0, -math.inf
+    for c in calls:
+        with torch.no_grad():
+            y, ld = flat_float64(c["x"].double(), *(p.double() for p in c["p"]), *c["args"])
+        worst = max(worst, float((c["y"] - y).abs().max()), float((c["ld"] - ld).abs().max()))
+        over = max(over, excess(c["y"], y, Y_TOL, Y_TOL), excess(c["ld"], ld, LD_TOL, LD_TOL))
+    return worst, over
+
+
+def step_vs_float64(build, batch):
+    """One forward-KL step's gradient on the card (f32), on the CPU (f32)
+    and on the CPU in float64 from the same weights and batch: each leaf's
+    distance from float64 over its norm, for the card and for the CPU; the
+    card's five farthest leaves, with how far the flat calls' own backward
+    error alone moves each (``attribute_step``) and how far the card's step
+    lies with every flat call exact (float64, rounded to float32)."""
+    models = [build(DEVICE), build("cpu"), build("cpu")]
+    for m in models[1:]:
+        m.load_state_dict(models[0].state_dict())
+    models[2].double()
+    grads, calls = [], []
+    with FlatCalls() as rec:
+        for m, b in zip(models, (batch, batch.cpu(), batch.cpu().double())):
+            rec.calls, rec.record = [], True
+            m.zero_grad(set_to_none=True)
+            m.forward_kld(b).backward(retain_graph=m is models[2])  # kept for attribute_step
+            grads.append({k: p.grad.detach().cpu().double() for k, p in m.named_parameters()
+                          if p.grad is not None})
+            calls.append(rec.calls)
+        rec.record, rec.exact = False, True  # the card's step with every flat call exact
+        models[0].zero_grad(set_to_none=True)
+        models[0].forward_kld(batch).backward()
+        grads.append({k: p.grad.detach().cpu().double() for k, p in models[0].named_parameters()
+                      if p.grad is not None})
+        rec.exact = False
+        card, cpu, f64, exact = grads
+        rel = lambda a: {k: float((a[k] - f64[k]).norm() / (f64[k].norm() + 1e-300))  # noqa: E731
+                         for k in f64 if float(f64[k].norm()) > 0}
+        r_card, r_cpu, r_exact = rel(card), rel(cpu), rel(exact)
+        far = sorted(r_card, key=r_card.get, reverse=True)[:5]
+        attributed, own_max = attribute_step(rec.entry, calls[0], calls[2], models[2], f64, far)
+    gap = {k: float((card[k] - cpu[k]).norm() / (cpu[k].norm() + 1e-300)) for k in r_card}
+    worst = sorted(gap, key=gap.get, reverse=True)[:5]
+    for a in attributed:
+        a.update(card_vs_float64=r_card[a["leaf"]], cpu_vs_float64=r_cpu[a["leaf"]],
+                 card_exact_flat_vs_float64=r_exact[a["leaf"]])
+    return {"samples": int(batch.shape[0]), "leaves": len(f64),
+            "card_vs_float64_max": max(r_card.values()),
+            "cpu_vs_float64_max": max(r_cpu.values()),
+            "card_exact_flat_vs_float64_max": max(r_exact.values()),
+            "card_closer_leaves": sum(r_card[k] <= r_cpu[k] for k in r_card),
+            "worst_card_vs_cpu": [{"leaf": k, "card_vs_cpu": gap[k], "card_vs_float64": r_card[k],
+                                   "cpu_vs_float64": r_cpu[k]} for k in worst],
+            "flat_calls": len(calls[0]), "flat_backward_own_rel_max": own_max,
+            "flat_forward_own_max_abs_and_excess": {"card": own_forward_error(calls[0]),
+                                                    "cpu": own_forward_error(calls[1])},
+            "farthest_card_leaves": attributed}
+
+
+def phase_coupled_float64():
+    """The card-against-CPU gap of the coupled models, read against float64:
+    the docs model and the circular stack at 2^14 samples (as coupled_path
+    draws them) and one forward-KL step of the docs model at 512 (as
+    coupled_train); which of card and CPU lies closer to float64, where the
+    card's largest log-density errors sit, and what moves the step's
+    farthest leaves.  Fails if a flat call's own error on the card, against
+    float64 on its own operands, exceeds the flat entry's bars."""
+    results = {}
+    for name, build, seed in (("docs", build_coupled, SEED), ("circular", build_circular_coupled,
+                                                               SEED + 81)):
+        model = build(DEVICE)
+        with torch.inference_mode():
+            x, _ = model.sample(N, generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        results[name] = vs_float64("coupled_float64", model, x, build, N)
+    step = results["docs_step"] = step_vs_float64(build_coupled,
+                                                  docs_data(SEED + 90)[:CP_BATCH])
+    ok = step["flat_forward_own_max_abs_and_excess"]["card"][1] <= 0 and \
+        step["flat_backward_own_rel_max"] <= FLAT_G_TOL
+    emit("coupled_float64", ok=ok, results=results,
+         bars={"flat_forward_own": [Y_TOL, LD_TOL], "flat_backward_own_rel": FLAT_G_TOL},
+         note="distances from the same model on the CPU in float64 (plain splines); "
+         "top20: the card's 20 largest |log_prob - float64|, each given to the call "
+         "whose own float32 error moves it most; docs_step: the step's leaves, the "
+         "card's farthest with the flat calls' own backward error carried to them and "
+         "the card's step with every flat call exact")
+    if not ok:
+        raise SystemExit("coupled_float64: a flat call's own error on the card exceeds its bar")
+    return results
+
+
 def docs_data(seed):
     """docs/getting_started.md:31: 1024 samples of the target, on the card."""
     import normflows_tpu_torch as nft
@@ -1829,7 +2296,7 @@ def main() -> int:
     torch.manual_seed(SEED)
 
     smi = phase_device()
-    resources = phase_build()
+    resources, made_res = phase_build()
     errs = phase_kernel()
     model, launches = phase_main_path()
     kernel_ms, plain_ms, bound_ms, bound_by = phase_times(model)
@@ -1846,12 +2313,13 @@ def main() -> int:
     made_errs = phase_kernel_made_fused()
     made_bwd_errs = phase_kernel_made_fused_backward()
     made_launches = phase_large_d_fused()
-    made_times, _ = phase_times_made_fused(ld_model)
+    made_times, _ = phase_times_made_fused(ld_model, made_res)
     del ld_model
     ablate_errs = phase_kernel_ablate()
     ablate_times = phase_times_ablate(resources)
     cp_model, cp_launches = phase_coupled_path()
     cp_train_launches = phase_coupled_train()
+    phase_coupled_float64()
     phase_times_coupled(cp_model)
     del cp_model
 
@@ -1943,6 +2411,11 @@ def main() -> int:
             "bf16": {k: t["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                     "library_ms")},
         })
+        if d == "backward":  # the issued operations' bound, the launches, ptxas
+            for dt, entry in (("float32", kernels[-1]), ("bfloat16", kernels[-1]["bf16"])):
+                entry.update({k: t[dt][k] for k in ("issued_bound_ms", "launch_us",
+                                                    "launches_recorded", "blocks_per_sm",
+                                                    "resources")})
     # the ablation's variants: the script's run on run_variant's inputs
     for mode, t in ablate_times.items():
         kernels.append({

@@ -20,15 +20,17 @@
 // call :209).  JAX recomputes each batch tile's forward in the kernel, pulls
 // it back, and carries the weight gradients across the sequential grid in
 // revisited output blocks (`_acc` :98).  Blocks of a CUDA grid run at once
-// and in no order, so the backward here is three launches of one C call:
+// and in no order, so the backward here is four launches of one C call:
 //
-//   1. `made_bwd_tile_kernel`, one block per 32-row tile: the forward again,
-//      then the pull-back to dx; it writes each layer's pre-activations and
-//      its output cotangent to a scratch buffer;
-//   2. `made_wgrad_kernel`: for every layer, dW = dC^T a and db = sum dC over
+//   1. `made_dh_kernel`: dh_R = g Wf, the final layer's input cotangent and
+//      the backward's largest product, on a grid of 64 x 64 output tiles;
+//   2. `made_bwd_tile_kernel`, one block per 16-row tile: the forward again,
+//      then the pull-back from dh_R to dx; it writes each layer's
+//      pre-activations and its output cotangent to a scratch buffer;
+//   3. `made_wgrad_kernel`: for every layer, dW = dC^T a and db = sum dC over
 //      one 512-row split of the batch, one 64 x 64 tile of dW a block, into
 //      a float32 partial buffer (no atomics);
-//   3. `made_reduce_kernel`: the sum of the partials in split order (skipped
+//   4. `made_reduce_kernel`: the sum of the partials in split order (skipped
 //      when the batch is one split).
 //
 // It is deterministic.  The bf16 rounding points of the input cotangents
@@ -39,35 +41,45 @@
 // tiles' sums cancel that rounding alone moves a gradient by an ulp of a
 // tile's sum (0.25 on values near 0.4 at the large-D shape, on an H100).
 //
-// Design.  One block of 256 threads owns 32 batch rows and keeps their
-// hidden activation h and the block's inner pre-activation z (two 32 x H
-// float32 tiles) in shared memory for the whole chain: no hidden activation
-// goes to device memory in the forward.  Each product is a block GEMM: the
+// Design of the forward.  One block of 256 threads owns 32 batch rows and
+// keeps their hidden activation h and the block's inner pre-activation z
+// (two 32 x H float32 tiles) in shared memory for the whole chain: no hidden
+// activation goes to device memory.  Each product is a block GEMM: the
 // activation operand is staged 16 columns at a time (transformed on the way
 // in: act, bf16 rounding), the weights 256 outputs x 16 inputs at a time
 // (widened to float32), the next chunk loaded into registers while the
 // current one is multiplied, and each thread holds an 8 x 4 tile of the
-// result in registers.  Edges in B, P and F are masked, not padded.  The
-// dW kernel stages 32 rows of a layer's cotangent and operand at a time,
-// prefetched the same way, and each thread holds a 4 x 4 tile of dW.
-// Shared memory: 2 x 32 x H x 4 bytes + 22.5 KB of staging, which caps H at
-// 768 (the gate `fusable` refuses more).
+// result in registers.  Edges in B, P and F are masked, not padded.  With
+// bfloat16 weights the forward's products run on the tensor cores: every
+// operand is bf16 there, each product exact
+// in float32, and mma.sync m16n8k16 sums in float32, so the numbers are the
+// SIMT kernel's up to the order of the sums.  There is no TF32.
 //
-// With bfloat16 weights the forward's products (and the backward's
-// recompute) run on the tensor cores: every operand is bf16 there, each
-// product exact in float32, and mma.sync m16n8k16 sums in float32, so the
-// numbers are the SIMT kernel's up to the order of the sums.  The backward's
-// other products multiply a float32 cotangent by bf16 weights or operands,
-// as JAX does in float32; they stay SIMT, since rounding the cotangent to
-// bf16 for the tensor cores would change the numbers.
+// Design of the backward.  Every product, the recompute's too, runs on the
+// tensor cores through a split (`split_gemm` below): the float32
+// cotangent is three bf16 terms that add back to it exactly, so with bf16
+// weights the products are JAX's float32 x bf16 ones up to the order of
+// the sums; with float32 weights both operands split and 6 of the 9 partial
+// products are taken.  The largest product, dh_R = g Wf (a third of the
+// backward's operations at the large-D shape), depends on nothing the tile
+// pass computes, so it runs first as a grid of 64 x 64 tiles.  The tile pass
+// owns 16 rows a block (B / 16 = 256 blocks, two an SM at H = 256).  The
+// weight gradients are 64 x 64 tiles over 512-row splits.  Operands reach
+// shared memory through a three-deep cp.async ring as they lie in device
+// memory, and each warp splits its fragments as it reads them: loads of
+// later chunks overlap the products of this one, and no thread waits on a
+// load it issued.  Shared
+// memory of the tile pass: 2 x 16 x H x 4 bytes and a ring of up to 77 KB
+// (forward products, f32), within 227 KB up to H = 768 (the gate `fusable`
+// refuses more).
 //
 // What bounds it on this card: at the large-D shape (B 4096, F 64, H 256,
 // R 1, P 1600) the forward does 4.56 GFLOP and moves ~29.5 MB (f32): in
 // float32 operations (68 us at 67 TFLOP/s), in bf16 bytes (8.5 us at
 // 3.35 TB/s, the tensor cores' 989 TFLOP/s being 4.6 us); the backward
-// 10.3 GFLOP (154 us in float32).  B / 32 = 128 blocks give one wave of one
-// block an SM, eight warps each, which is what holds these kernels at a
-// fraction of either bound (PERF.md).
+// 10.3 GFLOP, and the partial products its split issues 24 (bf16) and 62
+// (f32) GFLOP of tensor-core work.  B / 32 = 128 blocks give the forward one
+// wave of one block an SM, eight warps each (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,8 +103,6 @@ constexpr int kStageFloats =
         : ((kTB + kBN) * kMmaRow / 2);
 constexpr int kMaxHidden = 768;  // 2 x 32 x 768 x 4 + staging <= 227 KB
 constexpr int kSplit = 512;      // rows of one weight-gradient partial
-constexpr int kWT = 64;          // dW tile: 64 outputs x 64 inputs
-constexpr int kBM = 32;          // rows staged at a time in the dW kernel
 constexpr int kMaxLayers = 16;   // layers of one dW launch
 
 enum Act { kRelu = 0, kTanh = 1, kLeakyRelu = 2 };
@@ -416,31 +426,24 @@ __host__ __device__ inline Scratch carve(float* s, int B, int H, int R) {
   return out;
 }
 
-// The forward of one tile up to h[R] (left in Hs); with `save`, the
-// pre-activations go to the scratch as well.
+// The forward of one tile up to h[R] (left in Hs).
 template <bool kBf16>
-__device__ void forward_chain(const Made<kBf16>& p, int row0, int rows,
-                             float* stage, float* Hs, float* Zs,
-                             const Scratch* save) {
+__device__ void forward_chain(const Made<kBf16>& p, int row0, int rows, float* stage,
+                              float* Hs, float* Zs) {
   const int H = p.H;
-  const size_t slab = static_cast<size_t>(p.B) * H;
-  const size_t at = static_cast<size_t>(row0) * H;
   forward_gemm<kBf16>(p.x + static_cast<size_t>(row0) * p.F, p.F, rows, p.F,
                       kRound, p.act, p.w0, p.F, H, stage,
                       [&](int m, int n, float c) { Hs[m * H + n] = c + p.b0[n]; });
-  if (save) save_tile(Hs, save->h + at, rows * H);
   for (int r = 0; r < p.R; ++r) {
     const size_t wr = static_cast<size_t>(r) * H * H;
     const float* b1 = p.b1s + r * H;
     const float* b2 = p.b2s + r * H;
     forward_gemm<kBf16>(Hs, H, rows, H, kActRound, p.act, p.w1s + wr, H, H, stage,
                         [&](int m, int n, float c) { Zs[m * H + n] = c + b1[n]; });
-    if (save) save_tile(Zs, save->z + r * slab + at, rows * H);
     forward_gemm<kBf16>(Zs, H, rows, H, kActRound, p.act, p.w2s + wr, H, H, stage,
                         [&](int m, int n, float c) {
                           Hs[m * H + n] = Hs[m * H + n] + (c + b2[n]);
                         });
-    if (save) save_tile(Hs, save->h + (r + 1) * slab + at, rows * H);
   }
 }
 
@@ -453,7 +456,7 @@ made_fwd_kernel(Made<kBf16> p, float* __restrict__ out) {
   float* Zs = Hs + kTB * p.H;
   const int row0 = blockIdx.x * kTB;
   const int rows = min(kTB, p.B - row0);
-  forward_chain<kBf16>(p, row0, rows, stage, Hs, Zs, nullptr);
+  forward_chain<kBf16>(p, row0, rows, stage, Hs, Zs);
   float* o = out + static_cast<size_t>(row0) * p.P;
   const int P = p.P;
   forward_gemm<kBf16>(Hs, p.H, rows, p.H, kRound, p.act, p.wf, p.H, P, stage,
@@ -462,55 +465,430 @@ made_fwd_kernel(Made<kBf16> p, float* __restrict__ out) {
                       });
 }
 
-// Pass 1 of the backward: recompute, pull back to dx, write the scratch.
+// ---- the backward's products: split tensor-core products ----------------
+//
+// A float32 value c is the sum of three bfloat16 terms, exactly:
+//   c0 = bf16(c), c1 = bf16(c - c0), c2 = c - c0 - c1
+// (each subtraction is exact, and c2 needs at most 8 significant bits; this
+// holds for |c| >= 2^-110, where no term falls below bf16's subnormals).  A
+// product of a term and a bf16 value is exact in float32, and mma.sync
+// m16n8k16 sums such products in float32.  So with bf16 weights the three
+// products c0 w + c1 w + c2 w give JAX's float32 x bf16 product up to the
+// order of the sums; where the cotangent is bf16 already (relu's dz1, the
+// last block's dh = bf16(g Wf)) one term is all of it.  With float32
+// weights both operands split, and the products of terms i, j with
+// i + j < kOrder are taken: 6 of the 9, each left out below 2^-24 of the
+// product.  The smallest products go first into each sum.  The tensor
+// cores' own sums do not round to nearest (on an H100, with the running
+// sum kept in the mma accumulator, the f32 route's dW0 at B = 4096 missed
+// its 2e-4 bar by 8.3e-4 where the SIMT kernel passed it): each k16 step's
+// partial products go to a fresh register and join the running sum in a
+// float32 add.
+constexpr int kOrder = 3;
+constexpr int kMaxTerms = 3;
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The `terms` bf16 terms of (x, y), each as a pair in one register (x in
+// the low half, as an mma fragment wants the lower k).
+__device__ __forceinline__ void split_pair(float x, float y, int terms,
+                                           uint32_t (&u)[kMaxTerms]) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(x, y);
+  u[0] = bits(t);
+#pragma unroll
+  for (int q = 1; q < kMaxTerms; ++q) {
+    if (q >= terms) break;
+    const float2 f = __bfloat1622float2(t);
+    x -= f.x;
+    y -= f.y;
+    t = __floats2bfloat162_rn(x, y);
+    u[q] = bits(t);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One operand of split_gemm: a ROWS x K matrix in device memory, element
+// (r, k) at p[r * ld + k] (KFAST) or p[k * ld + r].
+template <class T, bool KFAST>
+struct Operand {
+  const T* p;
+  long long ld;
+};
+
+// Its tile of KC along k in shared memory, in the same layout: [ROWS][KC +
+// 8] (k fastest: float2 fragment reads meet no bank conflict) or [KC][ROWS
+// + pad] (rows fastest: 4 floats, 8 bf16 of padding, for the same).
+template <class T, bool KFAST, int ROWS, int KC>
+struct Tile {
+  static constexpr int stride = KFAST ? KC + 8 : ROWS + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int elems = KFAST ? ROWS * stride : KC * stride;
+  __device__ static int at(int r, int k) { return KFAST ? r * stride + k : k * stride + r; }
+};
+
+// Copies the tile at k0 (rows < rows_valid, k < K) into `dst`, zeros
+// elsewhere: 16-byte cp.async where every row of the operand starts 16
+// bytes apart, else element by element (an operand of a few columns).
+template <class T, bool KFAST, int ROWS, int KC, int THREADS>
+__device__ void stage_tile(Operand<T, KFAST> op, bool vec, int rows_valid, int k0, int K,
+                           T* dst) {
+  using TL = Tile<T, KFAST, ROWS, KC>;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kInner = KFAST ? KC : ROWS;  // the contiguous dimension
+  if (vec) {
+    for (int v = threadIdx.x; v < ROWS * KC / V; v += THREADS) {
+      const int outer = v / (kInner / V), c = (v % (kInner / V)) * V;
+      const int r = KFAST ? outer : c, k = KFAST ? c : outer;
+      const int limit = KFAST ? (r < rows_valid ? K - k0 : 0) : (k0 + k < K ? rows_valid : 0);
+      const int valid = max(0, min(V, limit - c));
+      const T* src = valid ? op.p + (KFAST ? r * op.ld + k0 + k : (k0 + k) * op.ld + r)
+                           : op.p;
+      cp_async16(dst + TL::at(r, k), src, valid * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * KC; i += THREADS) {
+      const int outer = i / kInner, c = i % kInner;
+      const int r = KFAST ? outer : c, k = KFAST ? c : outer;
+      dst[TL::at(r, k)] = r < rows_valid && k0 + k < K
+                              ? op.p[KFAST ? r * op.ld + k0 + k : (k0 + k) * op.ld + r]
+                              : T{};
+    }
+  }
+}
+
+template <class T, bool KFAST>
+__device__ bool vector_ok(Operand<T, KFAST> op) {
+  constexpr int V = 16 / sizeof(T);
+  return op.ld % V == 0 && reinterpret_cast<uintptr_t>(op.p) % 16 == 0;
+}
+
+// Shared memory of split_gemm: STAGES tiles of each operand (A's none when
+// it lies in shared memory already).
+template <int MT, int NT, int KC, int STAGES, bool A_SMEM, bool A_KFAST, class TB_RAW,
+          bool B_KFAST>
+__host__ __device__ constexpr size_t split_smem() {
+  return STAGES * ((A_SMEM ? 0 : sizeof(float) * Tile<float, A_KFAST, MT, KC>::elems) +
+                   sizeof(TB_RAW) * Tile<TB_RAW, B_KFAST, NT, KC>::elems);
+}
+
+// C (M x N, M <= MT, N <= NT) = sum_k A(m, k) B(k, n) over k < K on one
+// block of WM x WN warps, each warp an (MT / WM) x (NT / WN) tile of m16n8k16
+// products.  A is float32, `to_a` gives its value (the activation and
+// rounding of a forward product's operand, or the identity), and it splits
+// into `ta` terms; B is a bf16 weight (one term, used as it lies) or
+// float32, `to_b` giving its value from the raw one (the identity, or the
+// activation and rounding of a weight gradient's operand) and `tb` its
+// terms (1: bf16-valued already).  Both come through a ring of STAGES
+// tiles of KC along k, copied with cp.async as they lie (A_SMEM: A is a
+// float32 tile in shared memory already, k fastest, `a_smem_ld` apart), so
+// that the copies of later chunks overlap the products of this one; the
+// split happens as each warp reads its fragments.  `chunk(As, k0)` runs on
+// each staged A tile (k0 its first k); `epi(m, n, c)` takes each result.
+// Ends with a barrier.
+template <int MT, int NT, int WM, int WN, int KC, int STAGES, bool A_SMEM, bool A_KFAST,
+          bool B_KFAST, class TB_RAW, class ToA, class ToB, class Chunk, class Epi>
+__device__ void split_gemm(int M, int N, int K, int ta, int tb, Operand<float, A_KFAST> a,
+                           Operand<TB_RAW, B_KFAST> b, ToA to_a, ToB to_b, char* smem,
+                           Chunk chunk, Epi epi) {
+  using TA = Tile<float, A_KFAST, MT, KC>;
+  using TBt = Tile<TB_RAW, B_KFAST, NT, KC>;
+  constexpr int kThr = WM * WN * 32;
+  constexpr int kWarpM = MT / WM, kWarpN = NT / WN;
+  constexpr int kMT = kWarpM / 16, kNT = kWarpN / 8;
+  static_assert(kMT >= 1 && kNT >= 1 && kWarpM % 16 == 0 && kWarpN % 8 == 0, "warps");
+  static_assert(KC % 16 == 0 && STAGES >= 2, "chunks");
+  static_assert(!A_SMEM || A_KFAST, "a tile in shared memory lies k fastest");
+  float* As = reinterpret_cast<float*>(smem);
+  TB_RAW* Bs = reinterpret_cast<TB_RAW*>(smem + (A_SMEM ? 0 : STAGES * sizeof(float) * TA::elems));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t = lane & 3;
+  const bool a_vec = !A_SMEM && vector_ok(a), b_vec = vector_ok(b);
+  const int chunks = (K + KC - 1) / KC;
+  auto issue = [&](int c) {
+    if (c < chunks) {
+      const int s = c % STAGES;
+      if constexpr (!A_SMEM)
+        stage_tile<float, A_KFAST, MT, KC, kThr>(a, a_vec, M, c * KC, K, As + s * TA::elems);
+      stage_tile<TB_RAW, B_KFAST, NT, KC, kThr>(b, b_vec, N, c * KC, K, Bs + s * TBt::elems);
+    }
+    cp_async_commit();
+  };
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    issue(c + STAGES - 1);
+    const int k0 = c * KC;
+    const float* at = A_SMEM ? a.p : As + (c % STAGES) * TA::elems;
+    const TB_RAW* bt = Bs + (c % STAGES) * TBt::elems;
+    chunk(at, k0);
+    // A(r, k) of this chunk; in shared memory already, A starts at column k0
+    auto a_at = [&](int r, int k) -> const float* {
+      return A_SMEM ? at + r * a.ld + k0 + k : at + TA::at(r, k);
+    };
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 16) {
+      uint32_t af[kMT][4][kMaxTerms], bfr[kNT][2][kMaxTerms];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // (row, k): (g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8)
+          const int r = wm * kWarpM + mt * 16 + g + (q & 1) * 8, k = ks + 2 * t + (q >> 1) * 8;
+          float x, y;
+          if (A_KFAST) {
+            const float2 v = *reinterpret_cast<const float2*>(a_at(r, k));
+            x = v.x;
+            y = v.y;
+          } else {
+            x = *a_at(r, k);
+            y = *a_at(r, k + 1);
+          }
+          split_pair(to_a(x), to_a(y), ta, af[mt][q]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {  // (n, k): (g, 2t), (g, 2t + 8)
+          const int n = wn * kWarpN + nt * 8 + g, k = ks + 2 * t + q * 8;
+          TB_RAW x, y;
+          if (B_KFAST) {  // the pair in one read
+            using Pair = typename std::conditional<sizeof(TB_RAW) == 4, float2,
+                                                   __nv_bfloat162>::type;
+            const Pair v = *reinterpret_cast<const Pair*>(bt + TBt::at(n, k));
+            x = v.x;
+            y = v.y;
+          } else {
+            x = bt[TBt::at(n, k)];
+            y = bt[TBt::at(n, k + 1)];
+          }
+          if constexpr (sizeof(TB_RAW) == 2) {  // a bf16 weight is its own one term
+            bfr[nt][q][0] = bits(__nv_bfloat162{x, y});
+          } else {
+            split_pair(to_b(x), to_b(y), tb, bfr[nt][q]);
+          }
+        }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int s = kOrder - 1; s >= 0; --s)
+#pragma unroll
+            for (int i = 0; i <= s; ++i) {
+              const int j = s - i;
+              if (i < kMaxTerms && j < kMaxTerms && i < ta && j < tb) {
+                const uint32_t fa[4] = {af[mt][0][i], af[mt][1][i], af[mt][2][i], af[mt][3][i]};
+                mma_bf16(part, fa, bfr[nt][0][j], bfr[nt][1][j]);
+              }
+            }
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) acc[mt][nt][c4] += part[c4];
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = wm * kWarpM + mt * 16 + g + (c >= 2 ? 8 : 0);
+        const int n = wn * kWarpN + nt * 8 + 2 * t + (c & 1);
+        if (m < M && n < N) epi(m, n, acc[mt][nt][c]);
+      }
+  __syncthreads();
+}
+
+struct NoChunk {
+  __device__ void operator()(const float*, int) const {}
+};
+
+struct Identity {
+  __device__ float operator()(float v) const { return v; }
+};
+
+// The operand of a forward product: act (kActRound) and rounding, as
+// `transform`.
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-made_bwd_tile_kernel(Made<kBf16> p, const float* __restrict__ g,
-                     float* __restrict__ dx, float* scratch) {
+struct Transform {
+  int xform, act;
+  __device__ float operator()(float v) const { return transform<kBf16>(xform, act, v); }
+};
+
+// The tile pass: a block of 256 threads owns 16 batch rows, h and z of
+// those rows (two 16 x H float32 tiles) in shared memory, and runs every
+// product as split_gemm over 256 outputs a pass (8 warps of 16 x 32) at
+// depth 16: the recompute's products (A the activation operand, from x or
+// those tiles; W read in the (out, in) layout, k contiguous) and the
+// pull-back's (A the cotangent; W read as it lies, n contiguous).  At most
+// 128 registers a thread, so that two blocks share a multiprocessor at
+// H = 256 (B / 16 = 256 blocks at the large-D shape).
+template <bool kBf16>
+struct TilePass {
+  static constexpr int ROWS = 16, NT = 256, WM = 1, WN = 8, KC = 16, STAGES = 3;
+  static constexpr int terms = kBf16 ? 1 : kMaxTerms;  // of a weight, and of a forward operand
+  static constexpr size_t from_x =
+      split_smem<ROWS, NT, KC, STAGES, false, true, Weight<kBf16>, true>();
+  static constexpr size_t pull =
+      split_smem<ROWS, NT, KC, STAGES, true, true, Weight<kBf16>, false>();
+  static constexpr size_t ring = from_x > pull ? from_x : pull;
+};
+
+// C (rows x N) = to_a(A) W over K, 256 outputs at a time: W(k, n) at
+// W[n * K + k] (B_KFAST: a forward product) or W[k * N + n] (a pull-back).
+template <bool kBf16, bool A_SMEM, bool B_KFAST, class ToA, class Epi>
+__device__ void tile_gemm(Operand<float, true> a, ToA to_a, int ta, int rows, int K,
+                          const Weight<kBf16>* W, int N, char* ring, Epi epi) {
+  using TP = TilePass<kBf16>;
+  for (int n0 = 0; n0 < N; n0 += TP::NT) {
+    const Operand<Weight<kBf16>, B_KFAST> b{
+        B_KFAST ? W + static_cast<size_t>(n0) * K : W + n0, B_KFAST ? K : N};
+    split_gemm<TP::ROWS, TP::NT, TP::WM, TP::WN, TP::KC, TP::STAGES, A_SMEM, true, B_KFAST>(
+        rows, min(TP::NT, N - n0), K, ta, TP::terms, a, b, to_a, Identity{}, ring, NoChunk{},
+        [&](int m, int n, float c) { epi(m, n0 + n, c); });
+  }
+}
+
+size_t bwd_tile_smem(int H, bool bf16) {
+  return (bf16 ? TilePass<true>::ring : TilePass<false>::ring) +
+         sizeof(float) * 2 * TilePass<true>::ROWS * static_cast<size_t>(H);
+}
+
+constexpr int kGT = 64;         // output tile of the grid-wide products: 64 x 64
+constexpr int kGThreads = 128;  // 2 x 2 warps of 32 x 32
+constexpr int kGK = 32;         // their depth of a staged chunk
+constexpr int kGStages = 3;
+
+template <bool kBf16>
+constexpr size_t dh_smem() {
+  return split_smem<kGT, kGT, kGK, kGStages, false, true, Weight<kBf16>, false>();
+}
+
+constexpr size_t wgrad_smem() {
+  return split_smem<kGT, kGT, kGK, kGStages, false, false, float, false>();
+}
+
+// Pass 1: dh_R = bf16(g Wf) (B x H, over P), the final layer's input
+// cotangent, the largest product of the pull-back, on a grid of 64 x 64
+// tiles; it goes to the scratch's d2[R - 1], where the tile pass reads it.
+template <bool kBf16>
+__global__ void __launch_bounds__(kGThreads)
+made_dh_kernel(Made<kBf16> p, const float* __restrict__ g, float* __restrict__ dh) {
   extern __shared__ float4 smem4[];
-  float* stage = reinterpret_cast<float*>(smem4);
-  float* Hs = stage + kStageFloats;
-  float* Zs = Hs + kTB * p.H;
-  const int H = p.H, F = p.F, P = p.P;
-  const int row0 = blockIdx.x * kTB;
-  const int rows = min(kTB, p.B - row0);
-  const Scratch s = carve(scratch, p.B, H, p.R);
+  const int H = p.H, P = p.P;
+  const int n0 = blockIdx.x * kGT, m0 = blockIdx.y * kGT;
+  split_gemm<kGT, kGT, 2, 2, kGK, kGStages, false, true, false>(
+      min(kGT, p.B - m0), min(kGT, H - n0), P, kMaxTerms, kBf16 ? 1 : kMaxTerms,
+      Operand<float, true>{g + static_cast<size_t>(m0) * P, P},
+      Operand<Weight<kBf16>, false>{p.wf + n0, H}, Identity{}, Identity{},
+      reinterpret_cast<char*>(smem4),
+      NoChunk{}, [&](int m, int n, float c) {
+        dh[static_cast<size_t>(m0 + m) * H + n0 + n] = rnd<kBf16>(c);
+      });
+}
+
+// Pass 2, one block per 16-row tile: the forward again, then the pull-back
+// from dh_R to dx through the R blocks; it writes each layer's
+// pre-activations and output cotangent to the scratch.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+made_bwd_tile_kernel(Made<kBf16> p, float* __restrict__ dx, float* scratch) {
+  using TP = TilePass<kBf16>;
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+  const int H = p.H, F = p.F, R = p.R;
+  float* Hs = reinterpret_cast<float*>(ring + TP::ring);
+  float* Zs = Hs + TP::ROWS * H;
+  const int row0 = blockIdx.x * TP::ROWS;
+  const int rows = min(TP::ROWS, p.B - row0);
+  const Scratch s = carve(scratch, p.B, H, R);
   const size_t slab = static_cast<size_t>(p.B) * H;
   const size_t at = static_cast<size_t>(row0) * H;
-  forward_chain<kBf16>(p, row0, rows, stage, Hs, Zs, &s);
-  // dh = g Wf (the final layer's input cotangent)
-  block_gemm<kBf16>(g + static_cast<size_t>(row0) * P, P, rows, P, kNone, p.act,
-                    p.wf, 1, H, H, stage, [&](int m, int n, float c) {
-                      Hs[m * H + n] = rnd<kBf16>(c);
-                    });
-  for (int r = p.R - 1; r >= 0; --r) {
+  const Transform<kBf16> round_x{kRound, p.act}, act_round{kActRound, p.act};
+  // the recompute
+  tile_gemm<kBf16, false, true>(Operand<float, true>{p.x + static_cast<size_t>(row0) * F, F},
+                                round_x, TP::terms, rows, F, p.w0, H, ring,
+                                [&](int m, int n, float c) { Hs[m * H + n] = c + p.b0[n]; });
+  save_tile(Hs, s.h + at, rows * H);
+  for (int r = 0; r < R; ++r) {
+    const size_t wr = static_cast<size_t>(r) * H * H;
+    const float* b1 = p.b1s + r * H;
+    const float* b2 = p.b2s + r * H;
+    tile_gemm<kBf16, true, true>(Operand<float, true>{Hs, H}, act_round, TP::terms, rows, H,
+                                 p.w1s + wr, H, ring,
+                                 [&](int m, int n, float c) { Zs[m * H + n] = c + b1[n]; });
+    save_tile(Zs, s.z + r * slab + at, rows * H);
+    tile_gemm<kBf16, true, true>(Operand<float, true>{Zs, H}, act_round, TP::terms, rows, H,
+                                 p.w2s + wr, H, ring, [&](int m, int n, float c) {
+                                   Hs[m * H + n] = Hs[m * H + n] + (c + b2[n]);
+                                 });
+    save_tile(Hs, s.h + (r + 1) * slab + at, rows * H);
+  }
+  // the pull-back from dh_R (made_dh_kernel), which replaces h_R in Hs
+  __syncthreads();  // the last save_tile has read Hs
+  const float* dh_r = s.d2 + (R - 1) * slab + at;
+  for (int i = threadIdx.x; i < rows * H; i += kThreads) Hs[i] = dh_r[i];
+  __syncthreads();
+  // bf16: dh_R is bf16 (one term), and so is dz1 under relu (a bf16 value
+  // times 0 or 1); the rest are general float32 values
+  const int ta_dz1 = kBf16 && p.act == kRelu ? 1 : kMaxTerms;
+  for (int r = R - 1; r >= 0; --r) {
     const size_t wr = static_cast<size_t>(r) * H * H;
     const float* z = s.z + r * slab + at;
     const float* h = s.h + r * slab + at;
-    save_tile(Hs, s.d2 + r * slab + at, rows * H);  // dz2 = dh
-    block_gemm<kBf16>(Hs, H, rows, H, kNone, p.act, p.w2s + wr, 1, H, H, stage,
-                      [&](int m, int n, float c) {
-                        Zs[m * H + n] = rnd<kBf16>(c) * act_grad(p.act, z[m * H + n]);
-                      });
+    if (r < R - 1) save_tile(Hs, s.d2 + r * slab + at, rows * H);  // dz2 = dh
+    tile_gemm<kBf16, true, false>(Operand<float, true>{Hs, H}, Identity{},
+                                  kBf16 && r == R - 1 ? 1 : kMaxTerms, rows, H, p.w2s + wr, H,
+                                  ring, [&](int m, int n, float c) {
+                                    Zs[m * H + n] =
+                                        rnd<kBf16>(c) * act_grad(p.act, z[m * H + n]);
+                                  });
     save_tile(Zs, s.d1 + r * slab + at, rows * H);  // dz1
-    block_gemm<kBf16>(Zs, H, rows, H, kNone, p.act, p.w1s + wr, 1, H, H, stage,
-                      [&](int m, int n, float c) {
-                        Hs[m * H + n] += rnd<kBf16>(c) * act_grad(p.act, h[m * H + n]);
-                      });
+    tile_gemm<kBf16, true, false>(Operand<float, true>{Zs, H}, Identity{}, ta_dz1, rows, H,
+                                  p.w1s + wr, H, ring, [&](int m, int n, float c) {
+                                    Hs[m * H + n] += rnd<kBf16>(c) *
+                                                     act_grad(p.act, h[m * H + n]);
+                                  });
   }
   save_tile(Hs, s.d0 + at, rows * H);  // dh0
   float* d = dx + static_cast<size_t>(row0) * F;
-  block_gemm<kBf16>(Hs, H, rows, H, kNone, p.act, p.w0, 1, F, F, stage,
-                    [&](int m, int n, float c) {
-                      d[static_cast<size_t>(m) * F + n] = rnd<kBf16>(c);
-                    });
+  tile_gemm<kBf16, true, false>(Operand<float, true>{Hs, H}, Identity{}, kMaxTerms, rows, H,
+                                p.w0, F, ring, [&](int m, int n, float c) {
+                                  d[static_cast<size_t>(m) * F + n] = rnd<kBf16>(c);
+                                });
 }
 
-// One layer of pass 2: dW (N, K) += dC^T t(A) and db (N,) += sum dC.
+// One layer of pass 3: dW (N, K) += dC^T t(A) and db (N,) += sum dC, with
+// dC in `ta` terms (1: bf16 already).
 struct WgradLayer {
   const float* dc;
   const float* a;
-  int ldc, lda, xform, N, K;
+  int ldc, lda, xform, N, K, ta;
   long long w_off, b_off;  // into the flat gradient
   int tiles_k, tile0;      // dW tiles along K; the layer's first tile
 };
@@ -520,73 +898,38 @@ struct WgradTable {
   int count;
 };
 
-// Block (tile, split): one kWT x kWT tile of one layer's dW over the rows
-// of one split, written to part[split]; the tiles at k = 0 also write the
-// split's db.
+// Block (tile, split): one 64 x 64 tile of one layer's dW over the rows of
+// one split (the products' depth), written to part[split]; the tiles at
+// k = 0 also write the split's db, summed in row order from the staged dC.
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGThreads)
 made_wgrad_kernel(WgradTable t, int B, int act_kind, long long total,
                   float* __restrict__ part) {
-  __shared__ __align__(16) float Cs[kBM][kWT];
-  __shared__ __align__(16) float As[kBM][kWT];
+  extern __shared__ float4 smem4[];
+  using TC = Tile<float, false, kGT, kGK>;
   int li = 0;
   while (li + 1 < t.count && static_cast<int>(blockIdx.x) >= t.layer[li + 1].tile0) ++li;
   const WgradLayer L = t.layer[li];
   const int tile = blockIdx.x - L.tile0;
-  const int n0 = (tile / L.tiles_k) * kWT, k0 = (tile % L.tiles_k) * kWT;
+  const int n0 = (tile / L.tiles_k) * kGT, k0 = (tile % L.tiles_k) * kGT;
   const int lo = blockIdx.y * kSplit, hi = min(B, lo + kSplit);
-  const int tid = threadIdx.x, tn = tid / 16, tk = tid % 16;
-  constexpr int kPer = kBM * kWT / kThreads;  // values of each a thread stages
-  float cr[kPer], ar[kPer];
-  auto load = [&](int m0) {  // raw values; the transform waits for the store
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = tid + j * kThreads, m = i / kWT, c = i % kWT;
-      const bool row = m0 + m < hi;
-      const size_t rm = static_cast<size_t>(m0 + m);
-      cr[j] = row && n0 + c < L.N ? L.dc[rm * L.ldc + n0 + c] : 0.f;
-      ar[j] = row && k0 + c < L.K ? L.a[rm * L.lda + k0 + c] : 0.f;
-    }
-  };
-  float acc[4][4] = {};
+  const int tid = threadIdx.x;
   float bacc = 0.f;
-  load(lo);
-  for (int m0 = lo; m0 < hi; m0 += kBM) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = tid + j * kThreads, m = i / kWT, c = i % kWT;
-      Cs[m][c] = cr[j];
-      As[m][c] = transform<kBf16>(L.xform, act_kind, ar[j]);
-    }
-    __syncthreads();
-    if (m0 + kBM < hi) load(m0 + kBM);
-#pragma unroll 8
-    for (int m = 0; m < kBM; ++m) {
-      const float4 c = *reinterpret_cast<const float4*>(&Cs[m][tn * 4]);
-      const float4 a = *reinterpret_cast<const float4*>(&As[m][tk * 4]);
-      const float cv[4] = {c.x, c.y, c.z, c.w}, av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], av[j], acc[i][j]);
-    }
-    if (k0 == 0 && tid < kWT) {
-      for (int m = 0; m < kBM; ++m) bacc += Cs[m][tid];
-    }
-    __syncthreads();
-  }
   float* out = part + blockIdx.y * total;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + tn * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tk * 4 + j;
-      if (n < L.N && k < L.K)
-        out[L.w_off + static_cast<long long>(n) * L.K + k] = acc[i][j];
-    }
-  }
-  if (k0 == 0 && tid < kWT && n0 + tid < L.N) out[L.b_off + n0 + tid] = bacc;
+  split_gemm<kGT, kGT, 2, 2, kGK, kGStages, false, false, false>(
+      min(kGT, L.N - n0), min(kGT, L.K - k0), hi - lo, L.ta, kBf16 ? 1 : kMaxTerms,
+      Operand<float, false>{L.dc + static_cast<size_t>(lo) * L.ldc + n0, L.ldc},
+      Operand<float, false>{L.a + static_cast<size_t>(lo) * L.lda + k0, L.lda},
+      Identity{}, Transform<kBf16>{L.xform, act_kind},
+      reinterpret_cast<char*>(smem4),
+      [&](const float* Cs, int) {
+        if (k0 != 0 || tid >= kGT) return;
+        for (int m = 0; m < kGK; ++m) bacc += Cs[TC::at(tid, m)];
+      },
+      [&](int n, int k, float c) {
+        out[L.w_off + static_cast<long long>(n0 + n) * L.K + k0 + k] = c;
+      });
+  if (k0 == 0 && tid < kGT && n0 + tid < L.N) out[L.b_off + n0 + tid] = bacc;
 }
 
 // Pass 3: grads[i] = sum over the splits of part[s][i], in split order.
@@ -609,20 +952,20 @@ size_t chain_smem(int H) {
   return sizeof(float) * (kStageFloats + 2 * static_cast<size_t>(kTB) * H);
 }
 
-// Opts `kernel` in to the shared memory of the widest H, once per device
-// and process (not a stream operation, so a later call may be captured in a
-// CUDA graph).
+// Opts `kernel` in to `bytes` of dynamic shared memory (the widest H's),
+// once per device and process (not a stream operation, so a later call may
+// be captured in a CUDA graph).
 constexpr int kMaxDevices = 64;
 
 template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[device]) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(chain_smem(kMaxHidden)));
+                           static_cast<int>(bytes));
   done[device] = e == cudaSuccess;
   return e;
 }
@@ -642,7 +985,7 @@ Made<kBf16> made_of(const float* x, const void* w0, const float* b0,
 template <bool kBf16>
 int forward(const Made<kBf16>& p, float* out, cudaStream_t s) {
   static bool allowed[kMaxDevices] = {};
-  const cudaError_t e = allow_smem(made_fwd_kernel<kBf16>, allowed);
+  const cudaError_t e = allow_smem(made_fwd_kernel<kBf16>, chain_smem(kMaxHidden), allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t smem = chain_smem(p.H);
   made_fwd_kernel<kBf16><<<(p.B + kTB - 1) / kTB, kThreads, smem, s>>>(p, out);
@@ -653,12 +996,20 @@ template <bool kBf16>
 int backward(const Made<kBf16>& p, const float* g, float* dx, float* grads,
              float* scratch, float* part, cudaStream_t s) {
   const int B = p.B, F = p.F, H = p.H, R = p.R, P = p.P;
-  static bool allowed[kMaxDevices] = {};
-  cudaError_t e = allow_smem(made_bwd_tile_kernel<kBf16>, allowed);
+  const Scratch sc = carve(scratch, B, H, R);
+  const size_t slab = static_cast<size_t>(B) * H;
+  static bool allowed[3][kMaxDevices] = {};
+  cudaError_t e = allow_smem(made_bwd_tile_kernel<kBf16>, bwd_tile_smem(kMaxHidden, kBf16),
+                             allowed[0]);
+  if (e == cudaSuccess) e = allow_smem(made_dh_kernel<kBf16>, dh_smem<kBf16>(), allowed[1]);
+  if (e == cudaSuccess) e = allow_smem(made_wgrad_kernel<kBf16>, wgrad_smem(), allowed[2]);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = chain_smem(H);
-  made_bwd_tile_kernel<kBf16><<<(B + kTB - 1) / kTB, kThreads, smem, s>>>(
-      p, g, dx, scratch);
+  made_dh_kernel<kBf16><<<dim3((H + kGT - 1) / kGT, (B + kGT - 1) / kGT), kGThreads,
+                          dh_smem<kBf16>(), s>>>(p, g, sc.d2 + (R - 1) * slab);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  constexpr int kRows = TilePass<kBf16>::ROWS;
+  made_bwd_tile_kernel<kBf16><<<(B + kRows - 1) / kRows, kThreads, bwd_tile_smem(H, kBf16), s>>>(
+      p, dx, scratch);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
   // the flat gradient: dW0, dW1s, dW2s, dWf, then db0, db1s, db2s, dbf
@@ -666,19 +1017,20 @@ int backward(const Made<kBf16>& p, const float* g, float* dx, float* grads,
   const long long w1 = static_cast<long long>(H) * F, w2 = w1 + R * HH;
   const long long wfin = w2 + R * HH, wend = wfin + static_cast<long long>(P) * H;
   const long long total = wend + H + 2LL * R * H + P;
-  const Scratch sc = carve(scratch, B, H, R);
-  const size_t slab = static_cast<size_t>(B) * H;
   WgradLayer all[2 * 64 + 2];
   const int n_layers = 2 * R + 2;
   if (R > 64) return static_cast<int>(cudaErrorInvalidValue);
-  all[0] = {sc.d0, p.x, H, F, kRound, H, F, 0, wend, 0, 0};
+  // the terms of each cotangent: bf16-valued ones (see the tile pass) take one
+  const int t_dz1 = kBf16 && p.act == kRelu ? 1 : kMaxTerms;
+  all[0] = {sc.d0, p.x, H, F, kRound, H, F, kMaxTerms, 0, wend, 0, 0};
   for (int r = 0; r < R; ++r) {
-    all[1 + 2 * r] = {sc.d1 + r * slab, sc.h + r * slab, H, H, kActRound, H, H,
+    all[1 + 2 * r] = {sc.d1 + r * slab, sc.h + r * slab, H, H, kActRound, H, H, t_dz1,
                       w1 + r * HH, wend + H + static_cast<long long>(r) * H, 0, 0};
     all[2 + 2 * r] = {sc.d2 + r * slab, sc.z + r * slab, H, H, kActRound, H, H,
-                      w2 + r * HH, wend + H + static_cast<long long>(R + r) * H, 0, 0};
+                      kBf16 && r == R - 1 ? 1 : kMaxTerms, w2 + r * HH,
+                      wend + H + static_cast<long long>(R + r) * H, 0, 0};
   }
-  all[n_layers - 1] = {g, sc.h + R * slab, P, H, kRound, P, H, wfin,
+  all[n_layers - 1] = {g, sc.h + R * slab, P, H, kRound, P, H, kMaxTerms, wfin,
                        wend + H + 2LL * R * H, 0, 0};
   const int splits = (B + kSplit - 1) / kSplit;
   float* target = splits == 1 ? grads : part;
@@ -688,12 +1040,12 @@ int backward(const Made<kBf16>& p, const float* g, float* dx, float* grads,
     int tiles = 0;
     for (int i = first; i < n_layers && t.count < kMaxLayers; ++i) {
       WgradLayer L = all[i];
-      L.tiles_k = (L.K + kWT - 1) / kWT;
+      L.tiles_k = (L.K + kGT - 1) / kGT;
       L.tile0 = tiles;
-      tiles += ((L.N + kWT - 1) / kWT) * L.tiles_k;
+      tiles += ((L.N + kGT - 1) / kGT) * L.tiles_k;
       t.layer[t.count++] = L;
     }
-    made_wgrad_kernel<kBf16><<<dim3(tiles, splits), kThreads, 0, s>>>(
+    made_wgrad_kernel<kBf16><<<dim3(tiles, splits), kGThreads, wgrad_smem(), s>>>(
         t, B, p.act, total, target);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   }
@@ -750,4 +1102,31 @@ extern "C" int made_fused_backward(const float* x, const void* w0,
                                   H, R, P, act), g, dx, grads, scratch, part, s);
   return backward(made_of<false>(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, B, F, H,
                                  R, P, act), g, dx, grads, scratch, part, s);
+}
+
+// The backward kernels' theoretical occupancy at hidden width H: blocks a
+// multiprocessor holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of
+// the dh, tile and weight-gradient kernels, written to blocks[0..2].
+extern "C" int made_fused_backward_occupancy(int H, int bf16, int* blocks) {
+  if (H < 1 || H > kMaxHidden) return static_cast<int>(cudaErrorInvalidValue);
+  auto query = [&](auto dh, auto tile, auto wgrad, bool b16) {
+    static bool allowed[2][3][kMaxDevices] = {};
+    const size_t dh_bytes = b16 ? dh_smem<true>() : dh_smem<false>();
+    cudaError_t e = allow_smem(tile, bwd_tile_smem(kMaxHidden, b16), allowed[b16][0]);
+    if (e == cudaSuccess) e = allow_smem(dh, dh_bytes, allowed[b16][1]);
+    if (e == cudaSuccess) e = allow_smem(wgrad, wgrad_smem(), allowed[b16][2]);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dh, kGThreads, dh_bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, tile, kThreads,
+                                                        bwd_tile_smem(H, b16));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, wgrad, kGThreads,
+                                                        wgrad_smem());
+    return static_cast<int>(e);
+  };
+  if (bf16)
+    return query(made_dh_kernel<true>, made_bwd_tile_kernel<true>, made_wgrad_kernel<true>, true);
+  return query(made_dh_kernel<false>, made_bwd_tile_kernel<false>, made_wgrad_kernel<false>,
+               false);
 }

@@ -24,6 +24,11 @@ weight cotangents are summed in float32 over the whole batch and cast to
 bfloat16 once; JAX also rounds the sum of each 512-row tile (``TILE_B_BWD``)
 to bfloat16, which where the tiles' sums cancel costs up to an ulp of a
 tile's sum (see ``csrc/made_fused.cu``).
+
+The backward kernels run their products on the tensor cores, each float32
+operand split into three bfloat16 terms that add back to it exactly;
+:func:`split_bf16`, :func:`split_matmul` and
+:func:`fused_resmade_backward_split` model that arithmetic for the tests.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from . import backend, cuda_build
 SOURCE = cuda_build.CSRC / "made_fused.cu"
 
 # Kernel launches made by this module since the count was last set to 0: one
-# per forward call, one per backward call (the backward's three CUDA launches,
+# per forward call, one per backward call (the backward's four CUDA launches,
 # made by one C call, count once).
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
@@ -53,7 +58,8 @@ ACTIVATIONS = {"relu": 0, "tanh": 1, "leaky_relu": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"made_fused_forward": [_P] * 10 + [_I] * 7 + [_P],
-               "made_fused_backward": [_P] * 14 + [_I] * 7 + [_P]}
+               "made_fused_backward": [_P] * 14 + [_I] * 7 + [_P],
+               "made_fused_backward_occupancy": [_I, _I, _P]}
 
 
 def _library():
@@ -333,28 +339,83 @@ def fused_resmade_backward_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g,
     kernels' own (``fused_resmade_backward``'s ``scratch``), it takes their
     side of relu's step wherever a pre-activation lies within rounding of 0,
     where another order of the same sums may land on the other side."""
+    return _backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation, kinks,
+                     lambda a, b, bf16_valued: a @ b)
+
+
+# The kernels' split products (csrc/made_fused.cu): a float32 operand is the
+# sum of three bfloat16 terms, and the products of terms i and j with
+# i + j < SPLIT_ORDER are taken (with float32 weights 6 of the 9 partial
+# products; with bfloat16 weights, one term, all 3 of the cotangent's).
+SPLIT_ORDER = 3
+
+
+def split_bf16(c, terms=3):
+    """The kernels' split of a float32 tensor into ``terms`` bfloat16-valued
+    float32 tensors: c0 = bf16(c), c1 = bf16(c - c0), c2 = bf16(c - c0 - c1).
+    Each subtraction is exact, and for 2^-110 <= |c| < 2^127 (and c = 0)
+    the three terms sum back to c exactly."""
+    out, r = [], c.float()
+    for _ in range(terms):
+        t = r.to(torch.bfloat16).float()
+        out.append(t)
+        r = r - t
+    return out
+
+
+def split_matmul(a, b, a_terms=3, b_terms=3):
+    """``a @ b`` as the kernels compute it: ``a`` and ``b`` (float32 values)
+    split into terms, the partial products of terms i, j with
+    i + j < SPLIT_ORDER, each exact, summed in float64."""
+    ta, tb = split_bf16(a, a_terms), split_bf16(b, b_terms)
+    return sum(ta[i].double() @ tb[j].double() for i in range(a_terms)
+               for j in range(b_terms) if i + j < SPLIT_ORDER)
+
+
+def fused_resmade_backward_split(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g,
+                                 activation="relu", kinks=None):
+    """:func:`fused_resmade_backward_reference` with each product taken as
+    the kernels take it (:func:`split_matmul`): with bfloat16 weights the
+    float32 cotangent in three terms, one where it is bfloat16 already (the
+    last block's dh = bf16(g Wf), and dz1 under relu); with float32 weights
+    both operands in three.  Each product is rounded to ``x``'s dtype.  A
+    model of the kernels' arithmetic, for tests."""
+    bf16 = w0.dtype == torch.bfloat16
+
+    def mm(a, b, bf16_valued):
+        return split_matmul(a, b, 1 if bf16 and bf16_valued else 3, 1 if bf16 else 3).to(a.dtype)
+
+    return _backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation, kinks, mm)
+
+
+def _backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation, kinks, mm):
+    """The pull-back of the backward versions; ``mm(a, b, bf16_valued)``
+    takes every product, ``bf16_valued`` saying whether ``a`` is
+    bfloat16-valued with bfloat16 weights (``b`` always is then)."""
     dt = x.dtype
     bf16 = w0.dtype == torch.bfloat16
     rnd = _rounding(bf16, dt)
     W = lambda w: w.to(dt)  # noqa: E731
     R = w1s.shape[0]
     g = g.to(dt)
+    relu = activation == "relu"
 
-    def wgrad(dc, a):
-        return dc.T @ rnd(a)
+    def wgrad(dc, a, bf16_valued=False):
+        return mm(dc.T, rnd(a), bf16_valued)
 
     hs, zs, h = _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation)
     kh, kz = (hs, zs) if kinks is None else [[t.to(dt) for t in k] for k in kinks]
     dwf, dbf = wgrad(g, h), g.sum(0)
-    dh = rnd(g @ W(wf))
+    dh = rnd(mm(g, W(wf), False))
     dw1s, db1s, dw2s, db2s = [None] * R, [None] * R, [None] * R, [None] * R
     for r in reversed(range(R)):
-        dw2s[r], db2s[r] = wgrad(dh, _act(activation, zs[r])), dh.sum(0)
-        dz1 = rnd(dh @ W(w2s[r])) * _act_grad(activation, kz[r])
-        dw1s[r], db1s[r] = wgrad(dz1, _act(activation, hs[r])), dz1.sum(0)
-        dh = dh + rnd(dz1 @ W(w1s[r])) * _act_grad(activation, kh[r])
+        last = r == R - 1  # dh is bf16(g Wf) itself
+        dw2s[r], db2s[r] = wgrad(dh, _act(activation, zs[r]), last), dh.sum(0)
+        dz1 = rnd(mm(dh, W(w2s[r]), last)) * _act_grad(activation, kz[r])
+        dw1s[r], db1s[r] = wgrad(dz1, _act(activation, hs[r]), relu), dz1.sum(0)
+        dh = dh + rnd(mm(dz1, W(w1s[r]), relu)) * _act_grad(activation, kh[r])
     dw0, db0 = wgrad(dh, x), dh.sum(0)
-    dx = rnd(dh @ W(w0))
+    dx = rnd(mm(dh, W(w0), False))
     return (dx.to(x.dtype), dw0.to(w0.dtype), db0.to(b0.dtype),
             torch.stack(dw1s).to(w1s.dtype), torch.stack(db1s).to(b1s.dtype),
             torch.stack(dw2s).to(w2s.dtype), torch.stack(db2s).to(b2s.dtype),

@@ -221,13 +221,13 @@ def test_large_d_model_serves_through_the_flat_kernel(cuda):
         close(lp, cpu.log_prob(x.cpu()), 1e-3)
 
 
-def made_operands(B, F, H, R, mult, device, bf16=False, seed=0):
+def made_operands(B, F, H, R, mult, device, bf16=False, seed=0, activation="relu"):
     """x and the packed operands of a MADE with random weights (the residual
     blocks' second linear drawn like the others, not near zero), all drawn
     from ``seed``: the same operands whatever ran before."""
     gen = torch.Generator().manual_seed(seed)
     made = nft.nets.MADE(F, H, num_blocks=R, output_multiplier=mult, permute_mask=True,
-                         rng_seed=seed, generator=gen, device=device)
+                         rng_seed=seed, activation=activation, generator=gen, device=device)
     with torch.no_grad():
         for blk in made.blocks:
             for t in (blk.linear_1.weight, blk.linear_1.bias):
@@ -238,52 +238,71 @@ def made_operands(B, F, H, R, mult, device, bf16=False, seed=0):
     return x.to(device), [t.detach() for t in made_fused.pack(made)]
 
 
-MADE_SHAPES = [(4096, 64, 256, 1, 25), (300, 2, 512, 1, 31), (300, 2, 512, 2, 31)]
+# the large-D shape, the JAX package's test shapes, the same with tanh and
+# leaky_relu (where no cotangent is bf16 and the split takes all its
+# terms), and the gate's widest hidden layer
+MADE_SHAPES = [(4096, 64, 256, 1, 25, "relu"), (300, 2, 512, 1, 31, "relu"),
+               (300, 2, 512, 2, 31, "relu"), (300, 2, 512, 2, 31, "tanh"),
+               (300, 2, 512, 2, 31, "leaky_relu"), (1024, 8, 768, 1, 7, "relu")]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,F,H,R,mult", MADE_SHAPES)
-def test_made_fused_kernels_match_plain(cuda, B, F, H, R, mult, bf16):
+@pytest.mark.parametrize("B,F,H,R,mult,activation", MADE_SHAPES)
+def test_made_fused_kernels_match_plain(cuda, B, F, H, R, mult, activation, bf16):
     """Forward and backward kernels against the plain versions: in f32
     against them in float64 (1e-5 outputs, 2e-4 gradients, the JAX
     package's bars), in bf16 against the bf16 plain version (5e-2) and the
     forward against the f32 one (0.15 / 0.05)."""
-    x, ops = made_operands(B, F, H, R, mult, cuda, bf16)
+    x, ops = made_operands(B, F, H, R, mult, cuda, bf16, activation=activation)
     g = torch.randn(B, F * mult, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
     before = (made_fused.LAUNCHES, made_fused.BACKWARD_LAUNCHES)
-    out = made_fused.fused_resmade(x, *ops)
-    grads, kinks = made_backward_and_kinks(x, ops, g)
+    out = made_fused.fused_resmade(x, *ops, activation)
+    grads, kinks = made_backward_and_kinks(x, ops, g, activation)
     torch.cuda.synchronize()
     assert (made_fused.LAUNCHES, made_fused.BACKWARD_LAUNCHES) == (before[0] + 1,
                                                                  before[1] + 1)
     args = (x, *ops, g) if bf16 else [t.double() for t in (x, *ops, g)]
     if bf16:
-        close(out, made_fused.fused_resmade_reference(x, *ops), 5e-2)
+        close(out, made_fused.fused_resmade_reference(x, *ops, activation), 5e-2)
         f32_ops = [t.float() for t in ops]
         np.testing.assert_allclose(out.cpu().numpy(), made_fused.fused_resmade_reference(
-            x, *f32_ops).cpu().numpy(), atol=0.15, rtol=0.05)
+            x, *f32_ops, activation).cpu().numpy(), atol=0.15, rtol=0.05)
         tol = 5e-2
     else:
-        close(out, made_fused.fused_resmade_reference(*args[:-1]), 1e-5)
+        close(out, made_fused.fused_resmade_reference(*args[:-1], activation), 1e-5)
         tol = 2e-4
     # the kernels' pre-activations against the plain ones at the forward's
     # bar; the pull-back then takes the kernels' side of relu's step
-    for got, ref in zip(kinks, made_fused.preactivations_reference(*args[:-1])):
+    for got, ref in zip(kinks, made_fused.preactivations_reference(*args[:-1], activation)):
         close(got, ref, 5e-2 if bf16 else 1e-5)
-    want = made_fused.fused_resmade_backward_reference(*args, kinks=kinks)
+    want = made_fused.fused_resmade_backward_reference(*args, activation, kinks=kinks)
     for got, ref in zip(grads, want):
         assert got.dtype == (ref.dtype if bf16 else torch.float32) and torch.isfinite(got).all()
         close(got.float(), ref.float(), tol)
 
 
-def made_backward_and_kinks(x, ops, g):
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_made_fused_backward_is_deterministic(cuda, bf16):
+    """Two backward calls on the same inputs give the same bits: no atomics,
+    the weight gradients' splits added in order (large-D shape)."""
+    x, ops = made_operands(4096, 64, 256, 1, 25, cuda, bf16)
+    g = torch.randn(4096, 1600, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    first = made_fused.fused_resmade_backward(x, *ops, g)
+    second = made_fused.fused_resmade_backward(x, *ops, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def made_backward_and_kinks(x, ops, g, activation="relu"):
     """The backward kernels' gradients and, from their scratch, the
     pre-activations they took: (h before each block (R, B, H), each block's
     inner z (R, B, H))."""
     B, H, R = x.shape[0], ops[0].shape[0], ops[2].shape[0]
     scratch = torch.empty((4 * R + 2) * B * H, device=x.device)
-    grads = made_fused.fused_resmade_backward(x, *ops, g, scratch=scratch)
+    grads = made_fused.fused_resmade_backward(x, *ops, g, activation, scratch=scratch)
     slabs = scratch.view(4 * R + 2, B, H)
     return grads, (slabs[:R], slabs[R + 1:2 * R + 1])
 

@@ -343,3 +343,111 @@ def test_maf_layer_matches_jax_with_fusion(fusion, plain_calls):
     assert_close(ldt.numpy(), np.asarray(ldj), atol=MODEL_TOL, rtol=MODEL_TOL)
     assert_close(yt.numpy(), yu.numpy(), atol=Y_TOL, rtol=Y_TOL)
     assert_close(ldt.numpy(), ldu.numpy(), atol=Y_TOL, rtol=Y_TOL)
+
+
+# ---- the backward kernels' split products (ops/made_fused.py, plain model) ----
+
+def _float32_from_bits(bits):
+    return torch.from_numpy(np.asarray(bits, np.uint32).view(np.float32).copy())
+
+
+def _assert_split_exact(bits):
+    """Each of the three terms of the float32 values ``bits`` (and of 0) is
+    bfloat16-representable, and the terms sum back to the value exactly."""
+    c = torch.cat([_float32_from_bits(bits), torch.zeros(1)])
+    terms = made_fused.split_bf16(c)
+    for t in terms:
+        assert torch.equal(t, t.bfloat16().float())
+    assert torch.equal(terms[0].double() + terms[1].double() + terms[2].double(), c.double())
+
+
+def test_split_terms_cover_every_exponent():
+    """Every biased exponent 17 ... 253 (2^-110 <= |c| < 2^127), 64 seeded
+    random mantissas and signs each, and the extreme mantissas."""
+    rng = np.random.default_rng(20)
+    e = np.repeat(np.arange(17, 254, dtype=np.uint64), 66)
+    m = rng.integers(0, 2**23, size=e.size, dtype=np.uint64)
+    m[0::66], m[1::66] = 0, 2**23 - 1
+    s = rng.integers(0, 2, size=e.size, dtype=np.uint64)
+    _assert_split_exact((s << 31) | (e << 23) | m)
+
+
+def test_split_terms_are_bf16_and_sum_back_exactly():
+    """The same property on values hypothesis draws across the exponent
+    range, where hypothesis is installed."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=200, deadline=None)
+    @hypothesis.given(st.lists(st.tuples(st.integers(0, 1), st.integers(17, 253),
+                                         st.integers(0, 2**23 - 1)), min_size=1, max_size=64))
+    def check(values):
+        _assert_split_exact([(s << 31) | (e << 23) | m for s, e, m in values])
+
+    check()
+
+
+def test_split_matmul_matches_the_product():
+    """With a bf16 right operand the three terms' products are exact: the
+    float64 product up to float64 rounding; with both operands float32, the
+    6 partial products of the float32 route within 2^-22 of |a| |b|."""
+    rng = np.random.default_rng(30)
+    a = torch.from_numpy(rng.normal(size=(40, 300)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(300, 24)).astype(np.float32))
+    bb = b.bfloat16().float()
+    exact = a.double() @ bb.double()
+    assert_close(made_fused.split_matmul(a, bb, 3, 1).numpy(), exact.numpy(), atol=1e-12,
+                 rtol=1e-12)
+    six = made_fused.split_matmul(a, b, 3, 3)
+    scale = a.double().abs() @ b.double().abs()
+    assert float(((six - a.double() @ b.double()).abs() / scale).max()) <= 2.0 ** -22
+
+
+def _split_case(R, activation, bf16, seed):
+    B, F, H, mult = 300, 2, 512, 31
+    _, tm = made_pair(R, activation=activation, seed=seed)
+    with torch.no_grad():
+        for blk in tm.blocks:  # the second linear drawn like the others, not near zero
+            blk.linear_1.weight.uniform_(-H ** -0.5, H ** -0.5,
+                                         generator=torch.Generator().manual_seed(seed))
+    if bf16:
+        set_compute_dtype(tm, "bfloat16")
+    x = torch.from_numpy(inputs(seed=seed + 1, B=B, F=F))
+    g = torch.from_numpy(np.random.default_rng(seed + 2).normal(size=(B, F * mult))
+                         .astype(np.float32))
+    return x, [t.detach() for t in made_fused.pack(tm)], g
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,activation", [(1, "relu"), (2, "relu"), (1, "tanh"),
+                                          (1, "leaky_relu")])
+def test_split_backward_matches_float64(R, activation, bf16):
+    """The pull-back with every product split as the kernels split it
+    (float32 values, partial products summed in float64) against the plain
+    version in float64, on the same side of each activation's kink: within
+    the kernels' bars, 2e-4 in f32 and 5e-2 in bf16 (where each input
+    cotangent rounds to bf16 at another point of its float32 sum)."""
+    x, ops, g = _split_case(R, activation, bf16, seed=40 + R)
+    kinks = made_fused.preactivations_reference(x, *ops, activation=activation)
+    got = made_fused.fused_resmade_backward_split(x, *ops, g, activation, kinks=kinks)
+    want = made_fused.fused_resmade_backward_reference(
+        *[t.double() if t.dtype == torch.float32 else t for t in (x, *ops, g)], activation,
+        kinks=kinks)
+    tol = BF16_G_TOL if bf16 else G_TOL
+    for a, b in zip(got, want):
+        assert_close(a.double().numpy(), b.double().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("activation", ["relu", "tanh", "leaky_relu"])
+def test_split_skips_terms_only_of_bf16_cotangents(activation):
+    """With bf16 weights the kernels split two cotangents into one term:
+    the last block's dh = bf16(g Wf), and dz1 = bf16(dh W2) act'(z) under
+    relu, whose derivative is 0 or 1.  Under tanh and leaky_relu dz1 is a
+    general float32 value and takes all three."""
+    x, ops, g = _split_case(1, activation, True, seed=50)
+    rnd = lambda a: a.bfloat16().float()  # noqa: E731
+    hs, zs = made_fused.preactivations_reference(x, *ops, activation=activation)
+    dh = rnd(g @ ops[6].float())
+    dz1 = rnd(dh @ ops[4][0].float()) * made_fused._act_grad(activation, zs[0])
+    assert torch.equal(dh, rnd(dh))
+    assert torch.equal(dz1, rnd(dz1)) == (activation == "relu")
