@@ -278,13 +278,15 @@ def phase_build():
                              spline_ablate.SOURCE], force=True)
     resources = ablate_resources(info[spline_ablate.SOURCE]["ptxas"])
     made = made_resources(info[made_fused.SOURCE]["ptxas"])
+    flat = flat_resources(info[spline_flat.SOURCE]["ptxas"])
     emit("build", sources={
         str(src.relative_to(REPO)): {
             "seconds": i["seconds"],
             "ptxas": [line for line in i["ptxas"].splitlines()
                       if "registers" in line or "spill" in line or "smem" in line]}
-        for src, i in info.items()}, ablate_resources=resources, made_resources=made)
-    return resources, made
+        for src, i in info.items()}, ablate_resources=resources, made_resources=made,
+        flat_resources=flat)
+    return resources, made, flat
 
 
 def kernel_resources(ptxas, name_of):
@@ -336,17 +338,41 @@ def ablate_resources(ptxas):
     return out
 
 
-def made_resources(ptxas):
-    """The fused MADE's kernels: ``{"<kernel>_<f32|bf16>[_<second flag>]":
-    {...}}`` (the template's bool arguments are in the mangled name as
-    Lb<0|1>E, kBf16 first)."""
+def flat_resources(ptxas):
+    """The flat kernels' instantiations: ``{"forward_<bins>", "inverse_<bins>",
+    "backward_<direction>": {...}}``, <bins> being the forward's compile-time
+    bin count (``8``, ``10``), ``16_masked`` (K <= 16) or ``runtime`` (the
+    loops over a runtime K above 16).  The forward's template arguments
+    <inverse, bins, exact> are in its mangled name as ILb<0|1>ELi<n>ELb<0|1>E."""
     import re
 
     def name_of(mangled):
-        m = re.search(r"(made_[a-z_]+?_kernel)(I(?:Lb[01]E)+E)?", mangled)
+        m = re.search(r"rqs_flat_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
+        if m:
+            bins = m.group(2) if m.group(3) == "1" else (
+                "runtime" if m.group(2) == "0" else f"{m.group(2)}_masked")
+            return f"{'inverse' if m.group(1) == '1' else 'forward'}_{bins}"
+        m = re.search(r"rqs_flat_backward_kernelILb([01])E", mangled)
+        return m and f"backward_{'inverse' if m.group(1) == '1' else 'forward'}"
+
+    out = kernel_resources(ptxas, name_of)
+    if not out or any("registers" not in r or "spill_store_bytes" not in r
+                      for r in out.values()):
+        raise SystemExit(f"build: no full ptxas report of the flat kernels: {out}")
+    return out
+
+
+def made_resources(ptxas):
+    """The fused MADE's kernels: ``{"<kernel>_<f32|bf16>[_<argument>]":
+    {...}}`` (the template's arguments are in the mangled name as Lb<0|1>E
+    or Li<n>E, kBf16 first; the chain kernel's second is its tile's rows)."""
+    import re
+
+    def name_of(mangled):
+        m = re.search(r"(made_[a-z_]+?_kernel)(I(?:L[bi]\d+E)+E)?", mangled)
         if not m:
             return None
-        flags = re.findall(r"Lb([01])E", m.group(2) or "")
+        flags = re.findall(r"L[bi](\d+)E", m.group(2) or "")
         if not flags:
             return m.group(1)
         return (m.group(1) + ("_bf16" if flags[0] == "1" else "_f32") +
@@ -796,13 +822,13 @@ def phase_times_train():
 
 # ---- large-D autoregressive NSF: the flat spline kernels ---------------------
 
-def flat_inputs(rng, N, slab):
+def flat_inputs(rng, N, slab, K=LD_BINS):
     """Inputs of the flat kernel, from the numpy generator: x (N,) with ~20%
     outside +-bound, codes mixing linear and circular tails per element,
     bounds, and the parameter rows uw_t, uh_t (K, N), ud_t (K+1, N).  With
     ``slab`` the rows are one feature's slab of a (D(3K+1), N) tensor, as
     the sliced inverse hands them over; else a packed (3K+1, N) tensor."""
-    K, S = LD_BINS, 3 * LD_BINS + 1
+    S = 3 * K + 1
     codes = rng.choice([1, 2], size=N).astype(np.int32)
     bounds = np.where(codes == 1, LD_TAIL_BOUND, math.pi).astype(np.float32)
     x = (rng.uniform(-1.25, 1.25, N) * bounds).astype(np.float32)
@@ -817,13 +843,39 @@ def flat_inputs(rng, N, slab):
 
 
 FLAT_CASES = ((LD_BATCH, True), (LD_BATCH + 37, True), (LD_BATCH * LD_D, False))
+# the forward's bin counts: 2, the models' 8 and 10, the register path's
+# largest (16, bins above K masked below it) and one above it (the loops
+# over a runtime K), on the sliced inverse's slab.  The runtime-tail bars
+# are the JAX package's for its own kernel on its own inputs
+# (tests/test_pallas.py:408-429: x ~ U(-4, 4), logits N(0, 0.3^2), linear
+# tails at 4 and circular at pi in turn), and the sweep draws those: at
+# PARAM_STD = 0.5 and K >= 10 float32 rounding of the knot sums, amplified
+# by the inverse's steep bins, takes a few elements past them in every
+# float32 evaluation, JAX's interpret-mode kernel included (PERF.md).
+FLAT_BINS = (2, 8, 10, 16, 20)
+SWEEP_STD = 0.3
+
+
+def flat_sweep_inputs(rng, N, K):
+    """The flat kernel's inputs as the JAX package's dyncodes test draws
+    them, on one feature's slab of a (D(3K+1), N) tensor."""
+    S = 3 * K + 1
+    codes = np.where(np.arange(N) % 2 == 0, 1, 2).astype(np.int32)
+    bounds = np.where(codes == 1, 4.0, math.pi).astype(np.float32)
+    x = rng.uniform(-4, 4, N).astype(np.float32)
+    params = torch.from_numpy((SWEEP_STD * rng.normal(size=(S * LD_D, N))).astype(np.float32))
+    f = int(rng.integers(LD_D))
+    params = params.to(DEVICE)[f * S:(f + 1) * S]
+    to = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    return to(x), params[:K], params[K:2 * K], params[2 * K:], to(codes), to(bounds)
 
 
 def phase_kernel_flat():
     """The flat kernel against its plain version (in float64) on the same
     CUDA tensors: the sliced inverse's slab at N = 4096 and 4096 + 37
     (runtime-tail bars) and packed rows at N = 262,144, the density
-    direction's size (static-tail bars), both directions; then the
+    direction's size (static-tail bars), both directions; the forward at
+    every bin count of FLAT_BINS on the slab (flat_sweep_inputs); then the
     static-tail entry on the (B, D, 3K+1) view of a net's output, with mixed
     per-dim tails."""
     from normflows_tpu_torch.ops import splines
@@ -843,6 +895,25 @@ def phase_kernel_flat():
             e["plain_f32_excess"] = [excess(a, b, t, t)
                                      for a, b, t in zip(plain, want, (y_tol, ld_tol))]
             errs[f"{'inverse' if inverse else 'forward'}_N{N}"] = e
+    # every instantiation of the forward: the bin sweep on the slab
+    for K, (N, _), inverse in itertools.product(FLAT_BINS, FLAT_CASES[:2], (False, True)):
+        args = flat_sweep_inputs(rng, N, K)
+        y, ld = sf.unconstrained_rqs_dyncodes(*args, inverse)
+        sync()
+        want = sf.unconstrained_rqs_dyncodes_reference(*as_f64(args), inverse)
+        errs[f"{'inverse' if inverse else 'forward'}_N{N}_K{K}"] = check_pair(
+            "kernel_flat", errs, (y, ld), want, (FLAT_Y_TOL, FLAT_LD_TOL), ("y", "ld"))
+    # a reading, not a bar: the same sweep at PARAM_STD (the inputs above),
+    # the kernel's and the float32 plain version's excess over the bars
+    reading = {}
+    for K, (N, slab), inverse in itertools.product(FLAT_BINS, FLAT_CASES[:2], (False, True)):
+        args = flat_inputs(rng, N, slab, K)
+        got = sf.unconstrained_rqs_dyncodes(*args, inverse)
+        want = sf.unconstrained_rqs_dyncodes_reference(*as_f64(args), inverse)
+        plain = sf.unconstrained_rqs_dyncodes_reference(*args, inverse)
+        reading[f"{'inverse' if inverse else 'forward'}_N{N}_K{K}"] = {
+            name: [excess(a, b, t, t) for a, b, t in zip(out, want, (FLAT_Y_TOL, FLAT_LD_TOL))]
+            for name, out in (("kernel", got), ("plain_f32", plain))}
     # the static-tail entry: x (B, D), params (D(3K+1), B) viewed (B, D, 3K+1)
     K, S = LD_BINS, 3 * LD_BINS + 1
     codes = tuple(1 + (d % 3 == 0) for d in range(LD_D))
@@ -865,7 +936,11 @@ def phase_kernel_flat():
             check_pair("kernel_flat", errs, out, ref, (Y_TOL, LD_TOL), ("y", "ld"))
     emit("kernel_flat", ok=True, errors=errs, bars={
         "runtime_tails": [FLAT_Y_TOL, FLAT_LD_TOL], "static_tails": [Y_TOL, LD_TOL],
-        "param_std": PARAM_STD})
+        "param_std": PARAM_STD, "sweep_std": SWEEP_STD},
+        sweep_at_param_std=reading,
+        note="sweep_at_param_std: [y, ld] excess over the runtime-tail bars (> 0 misses) of "
+        "the kernel and of the float32 plain version, each against float64, on the slab "
+        "inputs at param_std; a reading, not a bar")
     return errs
 
 
@@ -1097,23 +1172,34 @@ def flat_bound(N, backward):
         words * 4 * N
 
 
-def phase_times_large_d(model):
+# the flat kernels' timed sizes: the sliced inverse's slab, the coupled
+# model's request (the static-tail entry's packed rows; forward only) and
+# the large-D density direction
+FLAT_TIMED = ((LD_BATCH, True), (2**14, False), (LD_BATCH * LD_D, False))
+
+
+def phase_times_large_d(model, flat_res):
     """The flat kernels' device time (CUDA graph) and call time at the sizes
-    the path gives them, with their bounds and plain versions' times; the
-    static-tail entry's call with its relayout; request and step times."""
+    the paths give them, with their bounds, their plain versions' times and,
+    beside each, the launch floor: one elementwise torch operation on the
+    same N floats (x -> -x) in the same kind of graph; the registers of each
+    instantiation; the static-tail entry's call with its relayout; request
+    and step times."""
     from normflows_tpu_torch.ops import spline_flat as sf
 
     rng = np.random.default_rng(SEED + 14)
-    kernels = {}
-    for N, slab in (FLAT_CASES[0], FLAT_CASES[2]):
+    kernels, floor = {}, {}
+    for N, slab in FLAT_TIMED:
         # 16 input sets: 7.7 MB at N = 4096 (L2-resident, as the slab is right
         # after the MADE wrote it), 503 MB at N = 262,144 (from device memory)
         sets = [(*flat_inputs(rng, N, slab),
                  *(torch.from_numpy(a).to(DEVICE) for a in rng.normal(size=(2, N))
                    .astype(np.float32))) for _ in range(16)]
+        rotation, y = itertools.cycle(sets), torch.empty(N, device=DEVICE)
+        floor[N] = graph_ms(lambda: torch.neg(next(rotation)[0], out=y), reps=64)
         for inverse in (False, True):
             d = "inverse" if inverse else "forward"
-            for backward in (False, True):
+            for backward in (False, True) if N != 2**14 else (False,):
                 name = f"rqs_flat_{'backward_' if backward else ''}{d}"
                 fn = sf.unconstrained_rqs_dyncodes_backward if backward else \
                     sf.unconstrained_rqs_dyncodes
@@ -1127,6 +1213,7 @@ def phase_times_large_d(model):
                     rotation = itertools.cycle(sets)
                     r[key] = timer(lambda: f(*next(rotation)[:n_args], inverse), reps=reps)
                 r["bound_ms"], r["bound_by"], r["bytes"] = flat_bound(N, backward)
+                r["floor_ms"] = floor[N]
                 kernels.setdefault(name, {})[N] = r
     # the static-tail entry with its relayout of (B, D, 3K+1) views into rows
     K, S = LD_BINS, 3 * LD_BINS + 1
@@ -1144,9 +1231,14 @@ def phase_times_large_d(model):
                      "parameters, the flat input's copy, the code and bound rows, and "
                      "the kernel"}
     emit("times_large_d_kernels", kernels=kernels, static_tail_entry=entry,
+         floor_ms=floor, resources=flat_res,
          note="ms: device time, 64 launches in one CUDA graph, 16 input sets rotated; "
          "call_ms and plain_ms: CUDA events over a loop of calls (the wrapper's host "
-         "work included); bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s")
+         "work included); bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s; "
+         "floor_ms: torch.neg on the same N floats, 64 launches in one CUDA graph, a "
+         "reading of the launch cost, not a bound; resources: ptxas -v, per thread, "
+         "by instantiation (forward_<bins>: the forward at that compile-time bin count; "
+         "16_masked: K <= 16; runtime: K > 16)")
     return kernels, large_d_request_and_step_times(model)
 
 
@@ -1215,9 +1307,10 @@ def made_key(case, bf16):
 
 
 def phase_kernel_made_fused():
-    """The fused forward kernel against its plain version on the same CUDA
-    tensors: f32 against it in float64, bf16 against the bf16 plain version
-    and against the f32 one."""
+    """The fused forward kernels against their plain version on the same
+    CUDA tensors: f32 against it in float64, bf16 against the bf16 plain
+    version (in float32, and in float64 beside) and against the f32 one;
+    two calls on the same inputs give the same bits."""
     from normflows_tpu_torch.ops import made_fused as mf
 
     errs = {}
@@ -1225,11 +1318,13 @@ def phase_kernel_made_fused():
         for bf16 in (False, True):
             x, ops, _ = made_case(*case, bf16, SEED + 20 + i)
             out = mf.fused_resmade(x, *ops)
+            again = mf.fused_resmade(x, *ops)
             sync()
             if bf16:
-                e = check_pair("kernel_made_fused", errs, (out,),
-                               (mf.fused_resmade_reference(x, *ops),), (MADE_BF16_TOL,),
-                               ("out",))
+                e = check_pair("kernel_made_fused", errs, (out, out),
+                               (mf.fused_resmade_reference(x, *ops),
+                                mf.fused_resmade_reference(x.double(), *ops)),
+                               (MADE_BF16_TOL,) * 2, ("out", "out_vs_float64"))
                 f32 = mf.fused_resmade_reference(x, *[t.float() for t in ops])
                 e["max_abs_vs_f32"] = float((out - f32).abs().max())
                 e["excess_vs_f32"] = excess(out, f32, *MADE_BF16_F32)
@@ -1240,10 +1335,15 @@ def phase_kernel_made_fused():
                 e = check_pair("kernel_made_fused", errs, (out,),
                                (mf.fused_resmade_reference(*[t.double() for t in (x, *ops)]),),
                                (MADE_Y_TOL,), ("out",))
+            e["deterministic"] = torch.equal(out, again)
             errs[made_key(case, bf16)] = e
+            if not e["deterministic"]:
+                emit("kernel_made_fused", ok=False, errors=errs)
+                raise SystemExit("kernel_made_fused: two calls on the same inputs differ")
     emit("kernel_made_fused", ok=True, errors=errs,
          bars={"f32_vs_float64": MADE_Y_TOL, "bf16_vs_bf16_plain": MADE_BF16_TOL,
-               "bf16_vs_f32_plain": MADE_BF16_F32})
+               "bf16_vs_f32_plain": MADE_BF16_F32},
+         note="deterministic: a second call on the same inputs gives the same bits")
     return errs
 
 
@@ -1492,20 +1592,23 @@ def made_bound(case, bf16, backward):
         moved, ops
 
 
-# Partial products of the backward's split tensor-core products
+# Partial products of the fused MADE's split tensor-core products
 # (csrc/made_fused.cu): a float32 operand is three bf16 terms; bf16 weights
-# take 3 products (one per term of the cotangent), 1 where the cotangent is
-# bf16 already; float32 weights take the products of terms i, j with
-# i + j < 3 (6 of the 9)
+# take 3 products (one per term of the cotangent), 1 where the cotangent or
+# the forward's rounded operand is bf16 already; float32 weights take the
+# products of terms i, j with i + j < 3 (6 of the 9)
 F32_PAIRS = 6
 
 
-def made_issued_bound(case, bf16, activation="relu"):
-    """The backward's least time from the operations its kernels really
-    issue: every product on the tensor cores, each partial product of the
-    split counted, at 989 TFLOP/s: ``(ms, tensor_ops)``."""
+def made_issued_bound(case, bf16, activation="relu", backward=True):
+    """The least time of the forward or the backward from the operations its
+    kernels really issue: every product on the tensor cores, each partial
+    product of the split counted, at 989 TFLOP/s: ``(ms, tensor_ops)``."""
     B, F, H, R, mult = case
     P = F * mult
+    if not backward:
+        tensor = 2 * B * (F * H + 2 * R * H * H + H * P) * (1 if bf16 else F32_PAIRS)
+        return tensor / BF16_OPS_PER_S * 1e3, tensor
     wide = F32_PAIRS if not bf16 else 3  # a float32 cotangent
     last = F32_PAIRS if not bf16 else 1  # the last block's dh: bf16 in bf16
     inner = F32_PAIRS if not bf16 else (1 if activation == "relu" else 3)  # dz1
@@ -1518,25 +1621,27 @@ def made_issued_bound(case, bf16, activation="relu"):
     return tensor / BF16_OPS_PER_S * 1e3, tensor
 
 
+FORWARD_KERNELS = ("made_chain_kernel", "made_final_kernel")
 BACKWARD_KERNELS = ("made_dh_kernel", "made_bwd_tile_kernel", "made_wgrad_kernel",
                     "made_reduce_kernel")
 
 
-def backward_occupancy(H, bf16):
-    """Blocks of each backward kernel one multiprocessor holds at hidden
-    width H (the CUDA occupancy calculator, from registers and shared
+def made_occupancy(H, bf16, backward):
+    """Blocks of each forward or backward kernel one multiprocessor holds at
+    hidden width H (the CUDA occupancy calculator, from registers and shared
     memory): the theoretical occupancy; the achieved one needs a counter
     profiler this machine lacks."""
     import ctypes
 
     from normflows_tpu_torch.ops import made_fused as mf
 
-    query = mf._library().made_fused_backward_occupancy
-    blocks = (ctypes.c_int * 3)()
-    rc = query(H, int(bf16), ctypes.addressof(blocks))
+    name = f"made_fused_{'backward' if backward else 'forward'}_occupancy"
+    kernels = BACKWARD_KERNELS[:3] if backward else FORWARD_KERNELS
+    blocks = (ctypes.c_int * len(kernels))()
+    rc = getattr(mf._library(), name)(H, int(bf16), ctypes.addressof(blocks))
     if rc != 0:
-        raise SystemExit(f"made_fused_backward_occupancy: CUDA error {rc}")
-    return dict(zip(BACKWARD_KERNELS, blocks))
+        raise SystemExit(f"{name}: CUDA error {rc}")
+    return dict(zip(kernels, blocks))
 
 
 def kernel_us(fn, calls=10):
@@ -1579,9 +1684,10 @@ def phase_times_made_fused(model, resources):
     f32 and bf16, forward and backward; the wrapper's call time with the
     packing; the plain versions; the library yardstick: the unfused MADE
     pass (torch GEMMs and elementwise kernels) and its autograd backward,
-    the same way at the same shape; the bounds; the backward's split by
-    launch (profiled calls) with each kernel's registers and spills; then
-    log_prob(4096) and the forward-KL step, fusion off against on."""
+    the same way at the same shape; the bounds; each direction's split by
+    launch (profiled calls) with each kernel's registers, spills and blocks
+    an SM; then log_prob(4096) and the forward-KL step, fusion off against
+    on."""
     from normflows_tpu_torch.ops import backend
     from normflows_tpu_torch.ops import made_fused as mf
 
@@ -1615,21 +1721,28 @@ def phase_times_made_fused(model, resources):
                               lambda: mf.fused_resmade_backward_reference(x, *ops, g), reps=5),
                           "library_ms": lib_both - lib_fwd,
                           "library_forward_and_backward_ms": lib_both}}
-        for d in ("forward", "backward"):
-            bound, by, moved, n_ops = made_bound(case, bf16, d == "backward")
-            r[d].update(bound_ms=bound, bound_by=by, bytes=moved, ops=n_ops)
-        issued_ms, tensor_ops = made_issued_bound(case, bf16)
         suffix = "_bf16" if bf16 else "_f32"
-        launch_us, recorded = kernel_us(lambda: mf.fused_resmade_backward(x, *ops, g))
-        unseen = [k for k in BACKWARD_KERNELS if not any(n.startswith(k) for n in recorded)]
-        if unseen:
-            raise SystemExit(f"times_made_fused: the profiler recorded no launch of {unseen}")
-        r["backward"].update(
-            issued_bound_ms=issued_ms, issued_tensor_ops=tensor_ops,
-            launch_us=launch_us, launches_recorded=recorded,
-            blocks_per_sm=backward_occupancy(case[2], bf16),
-            resources={k: v for k, v in resources.items()
-                       if suffix + "_" in k + "_" or not ("_f32" in k or "_bf16" in k)})
+        for d, names, call in (("forward", FORWARD_KERNELS, lambda: mf.fused_resmade(x, *ops)),
+                               ("backward", BACKWARD_KERNELS,
+                                lambda: mf.fused_resmade_backward(x, *ops, g))):
+            bound, by, moved, n_ops = made_bound(case, bf16, d == "backward")
+            issued_ms, tensor_ops = made_issued_bound(case, bf16, backward=d == "backward")
+            launch_us, recorded = kernel_us(call)
+            unseen = [k for k in names if not any(n.startswith(k) for n in recorded)]
+            if unseen:
+                raise SystemExit(f"times_made_fused: the profiler recorded no launch of {unseen}")
+            r[d].update(bound_ms=bound, bound_by=by, bytes=moved, ops=n_ops,
+                        issued_bound_ms=issued_ms, issued_tensor_ops=tensor_ops,
+                        launch_us=launch_us, launches_recorded=recorded,
+                        blocks_per_sm=made_occupancy(case[2], bf16, d == "backward"),
+                        resources={k: v for k, v in resources.items()
+                                   if k.startswith(names) and (suffix + "_" in k + "_" or not (
+                                       "_f32" in k or "_bf16" in k))})
+            shares = {"bound": bound / r[d]["ms"], "issued_bound": issued_ms / r[d]["ms"]}
+            r[d]["shares"] = shares
+            if max(shares.values()) > 1:
+                raise SystemExit(f"times_made_fused: a {d} bound above its measured time: "
+                                 f"{shares}")
         kernels["bfloat16" if bf16 else "float32"] = r
     emit("times_made_fused_kernels", kernels=kernels, shape=made_key(case, False)[:-4],
          note="ms: device time, calls in one CUDA graph; call_ms: CUDA events over a loop "
@@ -1639,7 +1752,8 @@ def phase_times_made_fused(model, resources):
          "autograd backward less its forward; bound_ms: bytes over 3.35 TB/s or "
          "operations over 67 TFLOP/s (f32) / 989 TFLOP/s (bf16); issued_bound_ms: the "
          "partial products the split route issues over 989 TFLOP/s; launch_us: device us "
-         "a launch by kernel, over the launches_recorded of 10 profiled backward calls; "
+         "a launch by kernel, over the launches_recorded of 10 profiled calls; shares: "
+         "each bound over ms; "
          "blocks_per_sm: the occupancy "
          "calculator's; resources: ptxas -v, per thread")
     return kernels, fused_request_and_step_times(model)
@@ -2296,7 +2410,7 @@ def main() -> int:
     torch.manual_seed(SEED)
 
     smi = phase_device()
-    resources, made_res = phase_build()
+    resources, made_res, flat_res = phase_build()
     errs = phase_kernel()
     model, launches = phase_main_path()
     kernel_ms, plain_ms, bound_ms, bound_by = phase_times(model)
@@ -2309,7 +2423,7 @@ def main() -> int:
     flat_bwd_errs = phase_kernel_flat_backward()
     ld_model, ld_launches = phase_large_d_path()
     ld_train_launches = phase_large_d_train()
-    flat_times, _ = phase_times_large_d(ld_model)
+    flat_times, _ = phase_times_large_d(ld_model, flat_res)
     made_errs = phase_kernel_made_fused()
     made_bwd_errs = phase_kernel_made_fused_backward()
     made_launches = phase_large_d_fused()
@@ -2388,8 +2502,11 @@ def main() -> int:
                 "bound_by": t[n_path]["bound_by"],
                 "library_ms": None,
                 "n": n_path,
+                "floor_ms": t[n_path]["floor_ms"],
                 "by_n": {str(n): {k: v for k, v in r.items() if k != "bytes"}
                          for n, r in t.items()},
+                "resources": {k: v for k, v in flat_res.items()
+                              if k.startswith("backward_" + d if backward else d)},
             })
     # the fused MADE: times at the large-D shape, f32 (bf16 beside)
     for d, errs_of in (("forward", made_errs), ("backward", made_bwd_errs)):
@@ -2411,11 +2528,11 @@ def main() -> int:
             "bf16": {k: t["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                     "library_ms")},
         })
-        if d == "backward":  # the issued operations' bound, the launches, ptxas
-            for dt, entry in (("float32", kernels[-1]), ("bfloat16", kernels[-1]["bf16"])):
-                entry.update({k: t[dt][k] for k in ("issued_bound_ms", "launch_us",
-                                                    "launches_recorded", "blocks_per_sm",
-                                                    "resources")})
+        # the issued operations' bound, the launches, ptxas
+        for dt, entry in (("float32", kernels[-1]), ("bfloat16", kernels[-1]["bf16"])):
+            entry.update({k: t[dt][k] for k in ("issued_bound_ms", "launch_us",
+                                                "launches_recorded", "blocks_per_sm",
+                                                "resources", "shares")})
     # the ablation's variants: the script's run on run_variant's inputs
     for mode, t in ablate_times.items():
         kernels.append({

@@ -1,7 +1,7 @@
 // Fused residual MADE (context-free, masks pre-multiplied into the weights),
 // forward and backward, for Hopper, sm_90a.
 //
-// `made_fwd_kernel` replaces the TPU kernel `_fwd_kernel`
+// The forward replaces the TPU kernel `_fwd_kernel`
 // (normflows_tpu/ops/made_pallas.py:89, math `_mlp_block` :60), launched by
 // `_fwd_impl` (:168, call :177).  For a (B, F) input it computes
 //
@@ -13,8 +13,7 @@
 // Wf (P, H), float32 or bfloat16; biases float32.  mm(a, W) rounds its
 // activation operand to bfloat16 when the weights are bfloat16 (JAX's `mm`,
 // :74-77) and sums in float32; biases, activations and the residual stay
-// float32.  A bf16 x bf16 product is exact in float32, so these SIMT FMAs
-// give JAX's numbers up to the order of the sums.  There is no TF32.
+// float32.  There is no TF32.
 //
 // The backward replaces `_bwd_kernel` (:117), launched by `_vjp_bwd` (:194,
 // call :209).  JAX recomputes each batch tile's forward in the kernel, pulls
@@ -41,26 +40,36 @@
 // tiles' sums cancel that rounding alone moves a gradient by an ulp of a
 // tile's sum (0.25 on values near 0.4 at the large-D shape, on an H100).
 //
-// Design of the forward.  One block of 256 threads owns 32 batch rows and
-// keeps their hidden activation h and the block's inner pre-activation z
-// (two 32 x H float32 tiles) in shared memory for the whole chain: no hidden
-// activation goes to device memory.  Each product is a block GEMM: the
-// activation operand is staged 16 columns at a time (transformed on the way
-// in: act, bf16 rounding), the weights 256 outputs x 16 inputs at a time
-// (widened to float32), the next chunk loaded into registers while the
-// current one is multiplied, and each thread holds an 8 x 4 tile of the
-// result in registers.  Edges in B, P and F are masked, not padded.  With
-// bfloat16 weights the forward's products run on the tensor cores: every
-// operand is bf16 there, each product exact
-// in float32, and mma.sync m16n8k16 sums in float32, so the numbers are the
-// SIMT kernel's up to the order of the sums.  There is no TF32.
+// Every product runs on the tensor cores through a split (`split_gemm`
+// below): a float32 operand is three bf16 terms that add back to it
+// exactly, so with bf16 weights the products are JAX's float32 x bf16 ones
+// up to the order of the sums; with float32 weights both operands split and
+// 6 of the 9 partial products are taken, each left out below 2^-24 of the
+// product.  So the fused float32 forward is not bit-equal to the unfused
+// (cuBLAS, SIMT float32) pass; it lies as close to float64.
 //
-// Design of the backward.  Every product, the recompute's too, runs on the
-// tensor cores through a split (`split_gemm` below): the float32
-// cotangent is three bf16 terms that add back to it exactly, so with bf16
-// weights the products are JAX's float32 x bf16 ones up to the order of
-// the sums; with float32 weights both operands split and 6 of the 9 partial
-// products are taken.  The largest product, dh_R = g Wf (a third of the
+// Design of the forward: two launches of one C call.
+//   1. `made_chain_kernel`, one block per tile of rows (16 with float32
+//      weights; 32 with bf16 up to H = 512, half the weight reads): the
+//      chain up to h_R, which is the backward tile pass's recompute
+//      (`tile_chain`), h and z of the tile in shared memory.  It writes
+//      h_R, rounded as the final layer's operand, to a workspace as bf16
+//      term planes (three with float32 weights, one with bf16 weights), and
+//      with float32 weights splits its share of Wf into three planes beside
+//      them.
+//   2. `made_final_kernel`: out = h_R Wf^T + bf, three quarters of the
+//      forward's operations at the large-D shape, on a grid of output tiles
+//      (64 x 64 with float32 weights, 128 x 128 with bf16) read from those
+//      planes (`plane_gemm`): a tile reads only its rows of h_R and of Wf
+//      (not all of Wf, as a row block would), through a cp.async ring, and
+//      its warps read ready bf16 fragments with ldmatrix: the split was
+//      done once a call, not as each warp reads a fragment.  With bf16
+//      weights the products are bf16 x bf16, exact, and the tensor cores
+//      keep the sums over K = H; with float32 weights each k16 step's six
+//      partial products are promoted into a float32 running sum, as the
+//      backward's.
+//
+// Design of the backward.  The largest product, dh_R = g Wf (a third of the
 // backward's operations at the large-D shape), depends on nothing the tile
 // pass computes, so it runs first as a grid of 64 x 64 tiles.  The tile pass
 // owns 16 rows a block (B / 16 = 256 blocks, two an SM at H = 256).  The
@@ -68,18 +77,19 @@
 // shared memory through a three-deep cp.async ring as they lie in device
 // memory, and each warp splits its fragments as it reads them: loads of
 // later chunks overlap the products of this one, and no thread waits on a
-// load it issued.  Shared
-// memory of the tile pass: 2 x 16 x H x 4 bytes and a ring of up to 77 KB
-// (forward products, f32), within 227 KB up to H = 768 (the gate `fusable`
-// refuses more).
+// load it issued.  Shared memory of the tile pass: 2 x 16 x H x 4 bytes and
+// a ring of up to 77 KB (forward products, f32), within 227 KB up to
+// H = 768 (the gate `fusable` refuses more).
 //
 // What bounds it on this card: at the large-D shape (B 4096, F 64, H 256,
 // R 1, P 1600) the forward does 4.56 GFLOP and moves ~29.5 MB (f32): in
 // float32 operations (68 us at 67 TFLOP/s), in bf16 bytes (8.5 us at
-// 3.35 TB/s, the tensor cores' 989 TFLOP/s being 4.6 us); the backward
-// 10.3 GFLOP, and the partial products its split issues 24 (bf16) and 62
-// (f32) GFLOP of tensor-core work.  B / 32 = 128 blocks give the forward one
-// wave of one block an SM, eight warps each (PERF.md).
+// 3.35 TB/s, the tensor cores' 989 TFLOP/s being 4.6 us); the split's
+// partial products issue 27.4 GFLOP of tensor-core work in f32 (28 us at
+// 989 TFLOP/s).  The final layer re-reads h_R's and Wf's planes from L2,
+// once for each tile across and down (~310 MB in f32, ~50 MB in bf16).
+// The backward does 10.3 GFLOP, and its partial products issue 24 (bf16)
+// and 62 (f32) GFLOP.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,18 +100,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTB = 32;          // batch rows of a block
-constexpr int kBN = 256;         // outputs of one GEMM pass: 32 lanes x 8
-constexpr int kBK = 16;          // reduction depth of one staged chunk
-constexpr int kAPad = kTB + 4;   // staged operand row (k-major), 16-byte rows
-constexpr int kWPad = kBN + 1;   // staged weight row, no bank conflicts
-constexpr int kMmaK = 32;          // depth of a staged chunk, tensor-core path
-constexpr int kMmaRow = kMmaK + 8;  // its staged bf16 rows: 80 bytes, no conflicts
-constexpr int kStageFloats =
-    (kBK * kAPad + kBK * kWPad) > ((kTB + kBN) * kMmaRow / 2)
-        ? (kBK * kAPad + kBK * kWPad)
-        : ((kTB + kBN) * kMmaRow / 2);
-constexpr int kMaxHidden = 768;  // 2 x 32 x 768 x 4 + staging <= 227 KB
+constexpr int kMaxHidden = 768;  // 2 x 16 x 768 x 4 + the tile pass's ring <= 227 KB
 constexpr int kSplit = 512;      // rows of one weight-gradient partial
 constexpr int kMaxLayers = 16;   // layers of one dW launch
 
@@ -134,11 +133,6 @@ __device__ __forceinline__ float rnd(float x) {
   }
 }
 
-__device__ __forceinline__ float widen(float w) { return w; }
-__device__ __forceinline__ float widen(__nv_bfloat16 w) {
-  return __bfloat162float(w);
-}
-
 template <bool kBf16>
 __device__ __forceinline__ float transform(int xform, int a, float v) {
   if (xform == kActRound) v = act(a, v);
@@ -147,106 +141,6 @@ __device__ __forceinline__ float transform(int xform, int a, float v) {
 
 template <bool kBf16>
 using Weight = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
-
-// C[m][n] = sum_k t(A[m][k]) W(n, k) for m < rows, n < N, on one block;
-// W(n, k) = W[n * sn + k * sk] (sk = 1: the (out, in) layout read forward;
-// sn = 1: read transposed, for an input cotangent).  `epi(m, n, c)` takes
-// each result.  A may lie in shared or device memory.  The next chunk's
-// operands are loaded into registers while the current one is multiplied
-// (the transform t and the widening happen at the store, so that nothing
-// waits on the loads early).  Ends with a barrier, so that the next call
-// sees what `epi` wrote.
-template <bool kBf16, class Epi>
-__device__ void block_gemm(const float* A, int lda, int rows, int K, int xform,
-                           int act_kind, const Weight<kBf16>* W, long long sn,
-                           long long sk, int N, float* stage, Epi epi) {
-  constexpr int kAPer = kTB * kBK / kThreads;  // operand values a thread stages
-  constexpr int kWPer = kBN * kBK / kThreads;  // weight values a thread stages
-  float* As = stage;                // [kBK][kAPad], k-major
-  float* Ws = stage + kBK * kAPad;  // [kBK][kWPad]
-  // thread tile: rows ty * 8 ... + 7 (a broadcast across the warp), outputs
-  // tx + 64 j: 2 + 4 shared-memory reads a k for 32 FMAs
-  const int tid = threadIdx.x, tx = tid & 63, ty = tid >> 6;
-  const bool along_k = sk == 1;  // coalesce the weight loads along k, else n
-  float ar[kAPer];
-  Weight<kBf16> wr[kWPer];
-  // the (row or output, k) a thread stages as its j-th operand / weight value
-  auto a_at = [&](int j, int& m, int& k) {
-    const int i = tid + j * kThreads;
-    m = i / kBK;
-    k = i % kBK;
-  };
-  auto w_at = [&](int j, int& n, int& k) {
-    const int i = tid + j * kThreads;
-    n = along_k ? i / kBK : i % kBN;
-    k = along_k ? i % kBK : i / kBN;
-  };
-  for (int n0 = 0; n0 < N; n0 += kBN) {
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int j = 0; j < kAPer; ++j) {
-        int m, k;
-        a_at(j, m, k);
-        ar[j] = m < rows && k0 + k < K ? A[static_cast<size_t>(m) * lda + k0 + k] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kWPer; ++j) {
-        int n, k;
-        w_at(j, n, k);
-        wr[j] = n0 + n < N && k0 + k < K
-                    ? W[static_cast<size_t>(n0 + n) * sn + static_cast<size_t>(k0 + k) * sk]
-                    : Weight<kBf16>{};
-      }
-    };
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    load(0);
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-      // t(0) = 0 for every transform, so the masked zeros stay zeros
-#pragma unroll
-      for (int j = 0; j < kAPer; ++j) {
-        int m, k;
-        a_at(j, m, k);
-        As[k * kAPad + m] = transform<kBf16>(xform, act_kind, ar[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kWPer; ++j) {
-        int n, k;
-        w_at(j, n, k);
-        Ws[k * kWPad + n] = widen(wr[j]);
-      }
-      __syncthreads();
-      if (k0 + kBK < K) load(k0 + kBK);
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(As + kk * kAPad + ty * 8);
-        const float4 a1 = *reinterpret_cast<const float4*>(As + kk * kAPad + ty * 8 + 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = Ws[kk * kWPad + tx + 64 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = ty * 8 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 64 * j;
-        if (m < rows && n < N) epi(m, n, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // D += A B on the tensor cores: A 16 x 16 (row-major) and B 16 x 8 (k
 // fastest, "col") bfloat16 fragments, D 16 x 8 float32.
@@ -257,136 +151,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pair_at(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// block_gemm for a product of the forward with bfloat16 weights read in the
-// (out, in) layout (sk = 1): the operand rounded to bfloat16 (xform kRound
-// or kActRound), so every product is bf16 x bf16, exact in float32, and the
-// tensor cores' float32 sums give the SIMT kernel's numbers up to their
-// order.  Warp w computes outputs w * 32 ... w * 32 + 31 of a 256-wide pass
-// for all 32 rows: 2 x 4 m16n8k16 tiles, 32 float32 sums a thread.
-template <class Epi>
-__device__ void block_gemm_mma(const float* A, int lda, int rows, int K, int xform,
-                               int act_kind, const __nv_bfloat16* W, long long sn,
-                               int N, float* stage, Epi epi) {
-  constexpr int kAPer = kTB * kMmaK / kThreads;       // operand values a thread stages
-  constexpr int kWVec = kBN * kMmaK / (8 * kThreads);  // 8-weight vectors a thread stages
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(stage);  // [kTB][kMmaRow]
-  __nv_bfloat16* Ws = As + kTB * kMmaRow;                          // [kBN][kMmaRow]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread
-  // 16-byte weight loads where every row starts 16 bytes apart and no vector
-  // straddles K; else two bf16 at a time into the same registers
-  const bool vec = sn % 8 == 0 && K % 8 == 0;
-  float ar[kAPer];
-  uint4 wr[kWVec];  // vector j: weights (n, k ... k + 7) of one output row
-  auto w_at = [&](int j, int& n, int& k) {
-    const int i = tid + j * kThreads;
-    n = i / (kMmaK / 8);
-    k = (i % (kMmaK / 8)) * 8;
-  };
-  for (int n0 = 0; n0 < N; n0 += kBN) {
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int j = 0; j < kAPer; ++j) {  // a warp reads 32 consecutive k of one row
-        const int i = tid + j * kThreads, m = i / kMmaK, k = i % kMmaK;
-        ar[j] = m < rows && k0 + k < K ? A[static_cast<size_t>(m) * lda + k0 + k] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kWVec; ++j) {
-        int n, k;
-        w_at(j, n, k);
-        const __nv_bfloat16* src = W + static_cast<size_t>(n0 + n) * sn + k0 + k;
-        const bool row = n0 + n < N;
-        if (vec) {
-          wr[j] = row && k0 + k < K ? *reinterpret_cast<const uint4*>(src)
-                                    : make_uint4(0, 0, 0, 0);
-        } else {
-          uint32_t w[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int kq = k0 + k + 2 * q;
-            const uint32_t lo = row && kq < K ? __bfloat16_as_ushort(src[2 * q]) : 0u;
-            const uint32_t hi = row && kq + 1 < K ? __bfloat16_as_ushort(src[2 * q + 1]) : 0u;
-            w[q] = lo | (hi << 16);
-          }
-          wr[j] = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-      }
-    };
-    float acc[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
-    load(0);
-    for (int k0 = 0; k0 < K; k0 += kMmaK) {
-#pragma unroll
-      for (int j = 0; j < kAPer; ++j) {
-        const int i = tid + j * kThreads;
-        As[(i / kMmaK) * kMmaRow + i % kMmaK] =
-            __float2bfloat16_rn(transform<true>(xform, act_kind, ar[j]));
-      }
-#pragma unroll
-      for (int j = 0; j < kWVec; ++j) {
-        int n, k;
-        w_at(j, n, k);
-        *reinterpret_cast<uint4*>(Ws + n * kMmaRow + k) = wr[j];
-      }
-      __syncthreads();
-      if (k0 + kMmaK < K) load(k0 + kMmaK);
-#pragma unroll
-      for (int ks = 0; ks < kMmaK; ks += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const __nv_bfloat16* r = As + (mt * 16 + g) * kMmaRow + ks + 2 * t;
-          a[mt][0] = pair_at(r);
-          a[mt][1] = pair_at(r + 8 * kMmaRow);
-          a[mt][2] = pair_at(r + 8);
-          a[mt][3] = pair_at(r + 8 * kMmaRow + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const __nv_bfloat16* c = Ws + (warp * 32 + nt * 8 + g) * kMmaRow + ks + 2 * t;
-          const uint32_t b0 = pair_at(c), b1 = pair_at(c + 8);
-          mma_bf16(acc[0][nt], a[0], b0, b1);
-          mma_bf16(acc[1][nt], a[1], b0, b1);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int m = mt * 16 + g + (c >= 2 ? 8 : 0);
-          const int n = n0 + warp * 32 + nt * 8 + 2 * t + (c & 1);
-          if (m < rows && n < N) epi(m, n, acc[mt][nt][c]);
-        }
-  }
-  __syncthreads();
-}
-
-// A product of the forward: weights in the (out, in) layout and the operand
-// rounded (xform kRound or kActRound); bf16 weights take the tensor cores.
-template <bool kBf16, class Epi>
-__device__ void forward_gemm(const float* A, int lda, int rows, int K, int xform,
-                             int act_kind, const Weight<kBf16>* W, long long sn, int N,
-                             float* stage, Epi epi) {
-  if constexpr (kBf16) {
-    block_gemm_mma(A, lda, rows, K, xform, act_kind, W, sn, N, stage, epi);
-  } else {
-    block_gemm<false>(A, lda, rows, K, xform, act_kind, W, sn, 1, N, stage, epi);
-  }
 }
 
 __device__ void save_tile(const float* S, float* dst, int count) {
@@ -426,46 +190,7 @@ __host__ __device__ inline Scratch carve(float* s, int B, int H, int R) {
   return out;
 }
 
-// The forward of one tile up to h[R] (left in Hs).
-template <bool kBf16>
-__device__ void forward_chain(const Made<kBf16>& p, int row0, int rows, float* stage,
-                              float* Hs, float* Zs) {
-  const int H = p.H;
-  forward_gemm<kBf16>(p.x + static_cast<size_t>(row0) * p.F, p.F, rows, p.F,
-                      kRound, p.act, p.w0, p.F, H, stage,
-                      [&](int m, int n, float c) { Hs[m * H + n] = c + p.b0[n]; });
-  for (int r = 0; r < p.R; ++r) {
-    const size_t wr = static_cast<size_t>(r) * H * H;
-    const float* b1 = p.b1s + r * H;
-    const float* b2 = p.b2s + r * H;
-    forward_gemm<kBf16>(Hs, H, rows, H, kActRound, p.act, p.w1s + wr, H, H, stage,
-                        [&](int m, int n, float c) { Zs[m * H + n] = c + b1[n]; });
-    forward_gemm<kBf16>(Zs, H, rows, H, kActRound, p.act, p.w2s + wr, H, H, stage,
-                        [&](int m, int n, float c) {
-                          Hs[m * H + n] = Hs[m * H + n] + (c + b2[n]);
-                        });
-  }
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-made_fwd_kernel(Made<kBf16> p, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* stage = reinterpret_cast<float*>(smem4);
-  float* Hs = stage + kStageFloats;
-  float* Zs = Hs + kTB * p.H;
-  const int row0 = blockIdx.x * kTB;
-  const int rows = min(kTB, p.B - row0);
-  forward_chain<kBf16>(p, row0, rows, stage, Hs, Zs);
-  float* o = out + static_cast<size_t>(row0) * p.P;
-  const int P = p.P;
-  forward_gemm<kBf16>(Hs, p.H, rows, p.H, kRound, p.act, p.wf, p.H, P, stage,
-                      [&](int m, int n, float c) {
-                        o[static_cast<size_t>(m) * P + n] = c + p.bf[n];
-                      });
-}
-
-// ---- the backward's products: split tensor-core products ----------------
+// ---- split tensor-core products ------------------------------------------
 //
 // A float32 value c is the sum of three bfloat16 terms, exactly:
 //   c0 = bf16(c), c1 = bf16(c - c0), c2 = c - c0 - c1
@@ -740,17 +465,18 @@ struct Transform {
   __device__ float operator()(float v) const { return transform<kBf16>(xform, act, v); }
 };
 
-// The tile pass: a block of 256 threads owns 16 batch rows, h and z of
-// those rows (two 16 x H float32 tiles) in shared memory, and runs every
-// product as split_gemm over 256 outputs a pass (8 warps of 16 x 32) at
-// depth 16: the recompute's products (A the activation operand, from x or
-// those tiles; W read in the (out, in) layout, k contiguous) and the
-// pull-back's (A the cotangent; W read as it lies, n contiguous).  At most
-// 128 registers a thread, so that two blocks share a multiprocessor at
-// H = 256 (B / 16 = 256 blocks at the large-D shape).
-template <bool kBf16>
+// The tile pass: a block of 256 threads owns ROWS batch rows (16 in the
+// backward), h and z of those rows (two ROWS x H float32 tiles) in shared
+// memory, and runs every product as split_gemm over 256 outputs a pass (8
+// warps of 16 x 32 at 16 rows) at depth 16: the recompute's products (A the
+// activation operand, from x or those tiles; W read in the (out, in)
+// layout, k contiguous) and the pull-back's (A the cotangent; W read as it
+// lies, n contiguous).  The backward's keeps to 128 registers a thread, so
+// that two blocks share a multiprocessor at H = 256 (B / 16 = 256 blocks at
+// the large-D shape).
+template <bool kBf16, int ROWS_ = 16>
 struct TilePass {
-  static constexpr int ROWS = 16, NT = 256, WM = 1, WN = 8, KC = 16, STAGES = 3;
+  static constexpr int ROWS = ROWS_, NT = 256, WM = ROWS / 16, WN = 8 / WM, KC = 16, STAGES = 3;
   static constexpr int terms = kBf16 ? 1 : kMaxTerms;  // of a weight, and of a forward operand
   static constexpr size_t from_x =
       split_smem<ROWS, NT, KC, STAGES, false, true, Weight<kBf16>, true>();
@@ -761,10 +487,10 @@ struct TilePass {
 
 // C (rows x N) = to_a(A) W over K, 256 outputs at a time: W(k, n) at
 // W[n * K + k] (B_KFAST: a forward product) or W[k * N + n] (a pull-back).
-template <bool kBf16, bool A_SMEM, bool B_KFAST, class ToA, class Epi>
+template <bool kBf16, bool A_SMEM, bool B_KFAST, int ROWS = 16, class ToA, class Epi>
 __device__ void tile_gemm(Operand<float, true> a, ToA to_a, int ta, int rows, int K,
                           const Weight<kBf16>* W, int N, char* ring, Epi epi) {
-  using TP = TilePass<kBf16>;
+  using TP = TilePass<kBf16, ROWS>;
   for (int n0 = 0; n0 < N; n0 += TP::NT) {
     const Operand<Weight<kBf16>, B_KFAST> b{
         B_KFAST ? W + static_cast<size_t>(n0) * K : W + n0, B_KFAST ? K : N};
@@ -774,10 +500,312 @@ __device__ void tile_gemm(Operand<float, true> a, ToA to_a, int ta, int rows, in
   }
 }
 
-size_t bwd_tile_smem(int H, bool bf16) {
-  return (bf16 ? TilePass<true>::ring : TilePass<false>::ring) +
-         sizeof(float) * 2 * TilePass<true>::ROWS * static_cast<size_t>(H);
+template <int ROWS>
+size_t tile_smem(int H, bool bf16) {
+  return (bf16 ? TilePass<true, ROWS>::ring : TilePass<false, ROWS>::ring) +
+         sizeof(float) * 2 * ROWS * static_cast<size_t>(H);
 }
+
+// Rows of the forward chain's tiles: with bf16 weights 32 (half the weight
+// reads of 16-row tiles) where two 32 x H tiles and the ring fit in shared
+// memory, H <= 512; with float32 16 (at 32 rows its 210 registers a thread
+// left one block an SM, and it ran slower: PERF.md).
+template <bool kBf16>
+constexpr int kChainRows = kBf16 ? 32 : 16;
+constexpr int kChainRowsMaxHidden = 512;
+
+// The shared memory a chain kernel of ROWS-row tiles opts in to: the
+// widest H it is launched at.
+template <int ROWS>
+size_t chain_smem_max(bool bf16) {
+  return tile_smem<ROWS>(ROWS == 16 ? kMaxHidden : kChainRowsMaxHidden, bf16);
+}
+
+// The chain of one tile of the tile pass (TilePass::ROWS rows from row0)
+// up to h_R, left in Hs: the forward's first launch and the backward's
+// recompute.  `save(tile, r, is_z)` runs after each of h[r] (r <= R) and
+// z[r] is complete in shared memory.
+template <bool kBf16, int ROWS = 16, class Save>
+__device__ void tile_chain(const Made<kBf16>& p, int row0, int rows, char* ring, float* Hs,
+                           float* Zs, Save save) {
+  using TP = TilePass<kBf16, ROWS>;
+  const int H = p.H, F = p.F;
+  const Transform<kBf16> round_x{kRound, p.act}, act_round{kActRound, p.act};
+  const Operand<float, true> x{p.x + static_cast<size_t>(row0) * F, F};
+  tile_gemm<kBf16, false, true, ROWS>(x, round_x, TP::terms, rows, F, p.w0, H, ring,
+                                      [&](int m, int n, float c) { Hs[m * H + n] = c + p.b0[n]; });
+  save(Hs, 0, false);
+  for (int r = 0; r < p.R; ++r) {
+    const size_t wr = static_cast<size_t>(r) * H * H;
+    const float* b1 = p.b1s + r * H;
+    const float* b2 = p.b2s + r * H;
+    tile_gemm<kBf16, true, true, ROWS>(Operand<float, true>{Hs, H}, act_round, TP::terms, rows,
+                                       H, p.w1s + wr, H, ring,
+                                       [&](int m, int n, float c) { Zs[m * H + n] = c + b1[n]; });
+    save(Zs, r, true);
+    tile_gemm<kBf16, true, true, ROWS>(Operand<float, true>{Zs, H}, act_round, TP::terms, rows,
+                                       H, p.w2s + wr, H, ring, [&](int m, int n, float c) {
+                                         Hs[m * H + n] = Hs[m * H + n] + (c + b2[n]);
+                                       });
+    save(Hs, r + 1, false);
+  }
+}
+
+// ---- the forward: the chain, then the final layer from bf16 term planes ----
+
+// `terms` bf16 planes of a matrix, element (r, k) of plane t at
+// p[t * plane + r * ld + k].  The forward's workspace holds h_R's planes
+// ((B, H), plane = B H rounded up to 8) and, with float32 weights, Wf's
+// three ((P, H), plane = P H rounded up to 8) after them
+// (ops/made_fused.py `forward_workspace` computes the same size).
+struct Planes {
+  const __nv_bfloat16* p;
+  long long ld, plane;
+};
+
+__host__ __device__ inline long long plane_of(long long elems) { return (elems + 7) / 8 * 8; }
+
+// The bf16 terms of c that add back to it (as split_pair): c0 = bf16(c),
+// c1 = bf16(c - c0), c2 = bf16(c - c0 - c1), written to dst[t * plane].
+template <int TERMS>
+__device__ __forceinline__ void split_store(float c, __nv_bfloat16* dst, long long plane) {
+#pragma unroll
+  for (int t = 0; t < TERMS; ++t) {
+    const __nv_bfloat16 b = __float2bfloat16_rn(c);
+    dst[t * plane] = b;
+    c -= __bfloat162float(b);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* at) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(at));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The final layer's tiles: MT x NT outputs a block of WM x WN warps, chunks
+// of KC along k through a ring of STAGES, TERMS bf16 planes of each
+// operand.  kPromote: each k16 step's partial products go to a fresh
+// register and join the float32 running sum in a float32 add (the split's
+// rule, above); without it (one term each: exact bf16 x bf16 products over
+// K <= 768) the tensor cores keep the sum.
+template <int TERMS, int MT_, int NT_, int WM_, int WN_, int STAGES_>
+struct PlaneTile {
+  static constexpr int TA = TERMS, TB = TERMS;
+  static constexpr int MT = MT_, NT = NT_, WM = WM_, WN = WN_, KC = 32, STAGES = STAGES_;
+  static constexpr bool kPromote = TERMS > 1;
+  static constexpr int kThreads = WM * WN * 32;
+  using TAt = Tile<__nv_bfloat16, true, MT, KC>;
+  using TBt = Tile<__nv_bfloat16, true, NT, KC>;
+  static constexpr int stage_elems = TA * TAt::elems + TB * TBt::elems;
+  static constexpr size_t smem = sizeof(__nv_bfloat16) * STAGES * stage_elems;
+};
+
+// f32: 64 x 64 tiles of 4 warps, 2 stages (61 KB); bf16: 128 x 128 tiles
+// of 8 warps, 3 stages (61 KB): the fastest of the shapes measured
+// (PERF.md)
+template <bool kBf16>
+using FinalTile = typename std::conditional<kBf16, PlaneTile<1, 128, 128, 2, 4, 3>,
+                                            PlaneTile<kMaxTerms, 64, 64, 2, 2, 2>>::type;
+
+// A thread's share of one chunk's copy: its 16-byte vectors of a ROWS x KC
+// tile, the same rows and columns every chunk, each term's plane copied to
+// `dst` + term * stride (zeros past rows_valid and K).
+template <int ROWS, int KC, int THREADS, int TERMS>
+__device__ __forceinline__ void copy_planes(const Planes& op, int rows_valid, int k0, int K,
+                                            __nv_bfloat16* dst, int stride) {
+  using TL = Tile<__nv_bfloat16, true, ROWS, KC>;
+  constexpr int kRowVecs = KC / 8, kVecs = ROWS * kRowVecs / THREADS;
+  static_assert(kVecs * THREADS == ROWS * kRowVecs, "whole vectors a thread");
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int v = threadIdx.x + i * THREADS, r = v / kRowVecs, col = v % kRowVecs * 8;
+    const int bytes = r < rows_valid ? max(0, min(16, 2 * (K - k0 - col))) : 0;
+    const __nv_bfloat16* src = op.p + (bytes ? r * op.ld + k0 + col : 0);
+#pragma unroll
+    for (int q = 0; q < TERMS; ++q)
+      cp_async16(dst + q * stride + TL::at(r, col), src + (bytes ? q * op.plane : 0), bytes);
+  }
+}
+
+// C (M x N, M <= MT, N <= NT) = sum_k A(m, k) B(n, k) over k < K on one
+// block of FT's shape, A and B given as FT::TA and FT::TB bf16 term planes,
+// k fastest.  Each k16 step takes the products of terms i, j with
+// i + j < kOrder, smallest first (as split_gemm).  `epi(m, n, c0, c1)`
+// takes the results (m, n) and (m, n + 1) (n even; the caller masks n + 1
+// against N).  Ends with a barrier.
+template <class FT, class Epi>
+__device__ void plane_gemm(int M, int N, int K, Planes a, Planes b, char* smem, Epi epi) {
+  constexpr int TA = FT::TA, TB = FT::TB, KC = FT::KC;
+  constexpr int kWarpM = FT::MT / FT::WM, kWarpN = FT::NT / FT::WN;
+  constexpr int kMT = kWarpM / 16, kNT = kWarpN / 8;
+  static_assert(kWarpM % 16 == 0 && kWarpN % 16 == 0 && KC % 16 == 0, "tiles");
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / FT::WN, wn = warp % FT::WN;
+  const int g = lane >> 2, t = lane & 3;
+  const bool vec = a.plane % 8 == 0 && b.plane % 8 == 0 &&
+                   vector_ok(Operand<__nv_bfloat16, true>{a.p, a.ld}) &&
+                   vector_ok(Operand<__nv_bfloat16, true>{b.p, b.ld});
+  const int chunks = (K + KC - 1) / KC;
+  auto a_tile = [&](int s, int q) { return ring + s * FT::stage_elems + q * FT::TAt::elems; };
+  auto b_tile = [&](int s, int q) {
+    return ring + s * FT::stage_elems + TA * FT::TAt::elems + q * FT::TBt::elems;
+  };
+  auto issue = [&](int c) {
+    if (c < chunks) {
+      const int s = c % FT::STAGES, k0 = c * KC;
+      if (vec) {
+        copy_planes<FT::MT, KC, FT::kThreads, TA>(a, M, k0, K, a_tile(s, 0), FT::TAt::elems);
+        copy_planes<FT::NT, KC, FT::kThreads, TB>(b, N, k0, K, b_tile(s, 0), FT::TBt::elems);
+      } else {
+#pragma unroll
+        for (int q = 0; q < TA; ++q)
+          stage_tile<__nv_bfloat16, true, FT::MT, KC, FT::kThreads>(
+              Operand<__nv_bfloat16, true>{a.p + q * a.plane, a.ld}, false, M, k0, K,
+              a_tile(s, q));
+#pragma unroll
+        for (int q = 0; q < TB; ++q)
+          stage_tile<__nv_bfloat16, true, FT::NT, KC, FT::kThreads>(
+              Operand<__nv_bfloat16, true>{b.p + q * b.plane, b.ld}, false, N, k0, K,
+              b_tile(s, q));
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+#pragma unroll
+  for (int s = 0; s < FT::STAGES - 1; ++s) issue(s);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<FT::STAGES - 2>();
+    __syncthreads();
+    issue(c + FT::STAGES - 1);
+    const int s = c % FT::STAGES;
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 16) {
+      // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+      // of each 16 x 16 fragment, lane l giving row l % 16 at k (l / 16) 8;
+      // B: (n 0-7, k 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of two
+      // 8-wide fragments, lane l giving n l % 8 + (l / 16) 8 at k (l / 8 % 2) 8
+      uint32_t af[TA][kMT][4], bfr[TB][kNT][2];
+#pragma unroll
+      for (int q = 0; q < TA; ++q)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          ldmatrix_x4(af[q][mt], a_tile(s, q) + FT::TAt::at(wm * kWarpM + mt * 16 + (lane & 15),
+                                                            ks + (lane >> 4) * 8));
+#pragma unroll
+      for (int q = 0; q < TB; ++q)
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t r[4];
+          ldmatrix_x4(r, b_tile(s, q) + FT::TBt::at(wn * kWarpN + np * 16 + (lane & 7) +
+                                                        (lane >> 4) * 8,
+                                                    ks + ((lane >> 3) & 1) * 8));
+          bfr[q][2 * np][0] = r[0];
+          bfr[q][2 * np][1] = r[1];
+          bfr[q][2 * np + 1][0] = r[2];
+          bfr[q][2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          if constexpr (FT::kPromote) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int o = kOrder - 1; o >= 0; --o)
+#pragma unroll
+              for (int i = 0; i <= o; ++i) {
+                const int j = o - i;
+                if (i < TA && j < TB) mma_bf16(part, af[i][mt], bfr[j][nt][0], bfr[j][nt][1]);
+              }
+#pragma unroll
+            for (int c4 = 0; c4 < 4; ++c4) acc[mt][nt][c4] += part[c4];
+          } else {
+            mma_bf16(acc[mt][nt], af[0][mt], bfr[0][nt][0], bfr[0][nt][1]);
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm * kWarpM + mt * 16 + g + h * 8;
+        const int n = wn * kWarpN + nt * 8 + 2 * t;
+        if (m < M && n < N) epi(m, n, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+  __syncthreads();
+}
+
+// Launch 1, one block per tile of ROWS rows: h_R of the tile through
+// `tile_chain`, written as its `terms` bf16 planes (the final layer's
+// operand: rounded to bf16 with bf16 weights); with float32 weights each
+// block also splits its share of Wf into `wf_planes`.
+template <bool kBf16, int ROWS>
+__global__ void __launch_bounds__(kThreads, ROWS == 16 ? 2 : 1)
+made_chain_kernel(Made<kBf16> p, __nv_bfloat16* __restrict__ h_planes, long long h_plane,
+                  __nv_bfloat16* __restrict__ wf_planes, long long wf_plane) {
+  using TP = TilePass<kBf16, ROWS>;
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+  const int H = p.H;
+  float* Hs = reinterpret_cast<float*>(ring + TP::ring);
+  float* Zs = Hs + TP::ROWS * H;
+  const int row0 = blockIdx.x * TP::ROWS;
+  const int rows = min(TP::ROWS, p.B - row0);
+  if constexpr (!kBf16) {
+    const long long total = static_cast<long long>(p.P) * H;
+    const long long share = (total + gridDim.x - 1) / gridDim.x;
+    const long long end = min(total, (blockIdx.x + 1) * share);
+    for (long long i = blockIdx.x * share + threadIdx.x; i < end; i += kThreads)
+      split_store<kMaxTerms>(p.wf[i], wf_planes + i, wf_plane);
+  }
+  tile_chain<kBf16, ROWS>(p, row0, rows, ring, Hs, Zs, [](const float*, int, bool) {});
+  __nv_bfloat16* dst = h_planes + static_cast<size_t>(row0) * H;
+  for (int i = threadIdx.x; i < rows * H; i += kThreads)
+    split_store<kBf16 ? 1 : kMaxTerms>(rnd<kBf16>(Hs[i]), dst + i, h_plane);
+}
+
+// Launch 2: out = h_R Wf^T + bf on a grid of FinalTile output tiles
+// (blockIdx.x along P, blockIdx.y along B), from the planes of h_R and of
+// Wf (bf16 weights: Wf itself, one plane).
+template <bool kBf16>
+__global__ void __launch_bounds__(FinalTile<kBf16>::kThreads)
+made_final_kernel(Planes h, Planes wf, const float* __restrict__ bf, float* __restrict__ out,
+                  int B, int P, int H) {
+  using FT = FinalTile<kBf16>;
+  extern __shared__ float4 smem4[];
+  const int n0 = blockIdx.x * FT::NT, m0 = blockIdx.y * FT::MT;
+  const bool pairs = P % 2 == 0;  // (m, n), (m, n + 1) as one 8-byte store
+  plane_gemm<FT>(min(FT::MT, B - m0), min(FT::NT, P - n0), H,
+                     Planes{h.p + static_cast<size_t>(m0) * h.ld, h.ld, h.plane},
+                     Planes{wf.p + static_cast<size_t>(n0) * wf.ld, wf.ld, wf.plane},
+                     reinterpret_cast<char*>(smem4), [&](int m, int n, float c0, float c1) {
+                       const int col = n0 + n;
+                       float* o = out + static_cast<size_t>(m0 + m) * P + col;
+                       if (pairs) {
+                         *reinterpret_cast<float2*>(o) = make_float2(c0 + bf[col],
+                                                                     c1 + bf[col + 1]);
+                       } else {
+                         o[0] = c0 + bf[col];
+                         if (col + 1 < P) o[1] = c1 + bf[col + 1];
+                       }
+                     });
+}
+
 
 constexpr int kGT = 64;         // output tile of the grid-wide products: 64 x 64
 constexpr int kGThreads = 128;  // 2 x 2 warps of 32 x 32
@@ -829,26 +857,10 @@ made_bwd_tile_kernel(Made<kBf16> p, float* __restrict__ dx, float* scratch) {
   const Scratch s = carve(scratch, p.B, H, R);
   const size_t slab = static_cast<size_t>(p.B) * H;
   const size_t at = static_cast<size_t>(row0) * H;
-  const Transform<kBf16> round_x{kRound, p.act}, act_round{kActRound, p.act};
   // the recompute
-  tile_gemm<kBf16, false, true>(Operand<float, true>{p.x + static_cast<size_t>(row0) * F, F},
-                                round_x, TP::terms, rows, F, p.w0, H, ring,
-                                [&](int m, int n, float c) { Hs[m * H + n] = c + p.b0[n]; });
-  save_tile(Hs, s.h + at, rows * H);
-  for (int r = 0; r < R; ++r) {
-    const size_t wr = static_cast<size_t>(r) * H * H;
-    const float* b1 = p.b1s + r * H;
-    const float* b2 = p.b2s + r * H;
-    tile_gemm<kBf16, true, true>(Operand<float, true>{Hs, H}, act_round, TP::terms, rows, H,
-                                 p.w1s + wr, H, ring,
-                                 [&](int m, int n, float c) { Zs[m * H + n] = c + b1[n]; });
-    save_tile(Zs, s.z + r * slab + at, rows * H);
-    tile_gemm<kBf16, true, true>(Operand<float, true>{Zs, H}, act_round, TP::terms, rows, H,
-                                 p.w2s + wr, H, ring, [&](int m, int n, float c) {
-                                   Hs[m * H + n] = Hs[m * H + n] + (c + b2[n]);
-                                 });
-    save_tile(Hs, s.h + (r + 1) * slab + at, rows * H);
-  }
+  tile_chain<kBf16>(p, row0, rows, ring, Hs, Zs, [&](const float* tile, int r, bool is_z) {
+    save_tile(tile, (is_z ? s.z : s.h) + r * slab + at, rows * H);
+  });
   // the pull-back from dh_R (made_dh_kernel), which replaces h_R in Hs
   __syncthreads();  // the last save_tile has read Hs
   const float* dh_r = s.d2 + (R - 1) * slab + at;
@@ -943,13 +955,11 @@ made_reduce_kernel(const float* __restrict__ part, int splits, long long total,
   grads[i] = s;
 }
 
+// H a multiple of the tile pass's chunk (16): its products read the hidden
+// tiles in shared memory in whole chunks along H
 bool valid(int B, int F, int H, int R, int P, int act) {
-  return B >= 1 && F >= 1 && H >= 1 && H <= kMaxHidden && R >= 1 && P >= 1 &&
+  return B >= 1 && F >= 1 && H >= 1 && H <= kMaxHidden && H % 16 == 0 && R >= 1 && P >= 1 &&
          act >= kRelu && act <= kLeakyRelu;
-}
-
-size_t chain_smem(int H) {
-  return sizeof(float) * (kStageFloats + 2 * static_cast<size_t>(kTB) * H);
 }
 
 // Opts `kernel` in to `bytes` of dynamic shared memory (the widest H's),
@@ -983,12 +993,33 @@ Made<kBf16> made_of(const float* x, const void* w0, const float* b0,
 }
 
 template <bool kBf16>
-int forward(const Made<kBf16>& p, float* out, cudaStream_t s) {
-  static bool allowed[kMaxDevices] = {};
-  const cudaError_t e = allow_smem(made_fwd_kernel<kBf16>, chain_smem(kMaxHidden), allowed);
+int forward(const Made<kBf16>& p, float* out, __nv_bfloat16* work, cudaStream_t s) {
+  constexpr int terms = kBf16 ? 1 : kMaxTerms;
+  using FT = FinalTile<kBf16>;
+  constexpr int kTall = kChainRows<kBf16>;
+  static bool allowed[3][kMaxDevices] = {};
+  cudaError_t e = allow_smem(made_chain_kernel<kBf16, 16>, chain_smem_max<16>(kBf16), allowed[0]);
+  if (e == cudaSuccess && kTall != 16)
+    e = allow_smem(made_chain_kernel<kBf16, kTall>, chain_smem_max<kTall>(kBf16), allowed[1]);
+  if (e == cudaSuccess) e = allow_smem(made_final_kernel<kBf16>, FT::smem, allowed[2]);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = chain_smem(p.H);
-  made_fwd_kernel<kBf16><<<(p.B + kTB - 1) / kTB, kThreads, smem, s>>>(p, out);
+  const long long h_plane = plane_of(static_cast<long long>(p.B) * p.H);
+  const long long wf_plane = plane_of(static_cast<long long>(p.P) * p.H);
+  __nv_bfloat16* wf_planes = work + terms * h_plane;  // float32 weights only
+  if (p.H <= kChainRowsMaxHidden) {
+    made_chain_kernel<kBf16, kTall><<<(p.B + kTall - 1) / kTall, kThreads,
+                                      tile_smem<kTall>(p.H, kBf16), s>>>(
+        p, work, h_plane, wf_planes, wf_plane);
+  } else {
+    made_chain_kernel<kBf16, 16><<<(p.B + 15) / 16, kThreads, tile_smem<16>(p.H, kBf16), s>>>(
+        p, work, h_plane, wf_planes, wf_plane);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  Planes wf{wf_planes, p.H, wf_plane};
+  if constexpr (kBf16) wf = Planes{p.wf, p.H, 0};  // the weights as they lie
+  const dim3 grid((p.P + FT::NT - 1) / FT::NT, (p.B + FT::MT - 1) / FT::MT);
+  made_final_kernel<kBf16><<<grid, FT::kThreads, FT::smem, s>>>(
+      Planes{work, p.H, h_plane}, wf, p.bf, out, p.B, p.P, p.H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -999,7 +1030,7 @@ int backward(const Made<kBf16>& p, const float* g, float* dx, float* grads,
   const Scratch sc = carve(scratch, B, H, R);
   const size_t slab = static_cast<size_t>(B) * H;
   static bool allowed[3][kMaxDevices] = {};
-  cudaError_t e = allow_smem(made_bwd_tile_kernel<kBf16>, bwd_tile_smem(kMaxHidden, kBf16),
+  cudaError_t e = allow_smem(made_bwd_tile_kernel<kBf16>, tile_smem<16>(kMaxHidden, kBf16),
                              allowed[0]);
   if (e == cudaSuccess) e = allow_smem(made_dh_kernel<kBf16>, dh_smem<kBf16>(), allowed[1]);
   if (e == cudaSuccess) e = allow_smem(made_wgrad_kernel<kBf16>, wgrad_smem(), allowed[2]);
@@ -1008,7 +1039,7 @@ int backward(const Made<kBf16>& p, const float* g, float* dx, float* grads,
                           dh_smem<kBf16>(), s>>>(p, g, sc.d2 + (R - 1) * slab);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   constexpr int kRows = TilePass<kBf16>::ROWS;
-  made_bwd_tile_kernel<kBf16><<<(B + kRows - 1) / kRows, kThreads, bwd_tile_smem(H, kBf16), s>>>(
+  made_bwd_tile_kernel<kBf16><<<(B + kRows - 1) / kRows, kThreads, tile_smem<16>(H, kBf16), s>>>(
       p, dx, scratch);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
@@ -1063,21 +1094,25 @@ int backward(const Made<kBf16>& p, const float* g, float* dx, float* grads,
 // pointers are device pointers to contiguous row-major tensors: x (B, F),
 // w0 (H, F), b0 (H,), w1s / w2s (R, H, H), b1s / b2s (R, H), wf (P, H),
 // bf (P,), out (B, P); the weights bfloat16 when `bf16`, else float32.
-// `act`: 0 relu, 1 tanh, 2 leaky_relu (slope 0.01).
+// `work` is a bfloat16 workspace of T ceil8(B H) elements, and with float32
+// weights 3 ceil8(P H) more, T being 1 with bf16 weights and 3 without
+// (ceil8: rounded up to a multiple of 8).  `act`: 0 relu, 1 tanh,
+// 2 leaky_relu (slope 0.01).
 extern "C" int made_fused_forward(const float* x, const void* w0,
                                   const float* b0, const void* w1s,
                                   const float* b1s, const void* w2s,
                                   const float* b2s, const void* wf,
-                                  const float* bf, float* out, int B, int F,
-                                  int H, int R, int P, int act, int bf16,
+                                  const float* bf, float* out, void* work, int B,
+                                  int F, int H, int R, int P, int act, int bf16,
                                   void* stream) {
   if (!valid(B, F, H, R, P, act)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* w = static_cast<__nv_bfloat16*>(work);
   if (bf16)
     return forward(made_of<true>(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, B, F, H,
-                                 R, P, act), out, s);
+                                 R, P, act), out, w, s);
   return forward(made_of<false>(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, B, F, H,
-                                R, P, act), out, s);
+                                R, P, act), out, w, s);
 }
 
 // The backward of made_fused_forward with the same arguments and the output
@@ -1112,14 +1147,14 @@ extern "C" int made_fused_backward_occupancy(int H, int bf16, int* blocks) {
   auto query = [&](auto dh, auto tile, auto wgrad, bool b16) {
     static bool allowed[2][3][kMaxDevices] = {};
     const size_t dh_bytes = b16 ? dh_smem<true>() : dh_smem<false>();
-    cudaError_t e = allow_smem(tile, bwd_tile_smem(kMaxHidden, b16), allowed[b16][0]);
+    cudaError_t e = allow_smem(tile, tile_smem<16>(kMaxHidden, b16), allowed[b16][0]);
     if (e == cudaSuccess) e = allow_smem(dh, dh_bytes, allowed[b16][1]);
     if (e == cudaSuccess) e = allow_smem(wgrad, wgrad_smem(), allowed[b16][2]);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dh, kGThreads, dh_bytes);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, tile, kThreads,
-                                                        bwd_tile_smem(H, b16));
+                                                        tile_smem<16>(H, b16));
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, wgrad, kGThreads,
                                                         wgrad_smem());
@@ -1129,4 +1164,35 @@ extern "C" int made_fused_backward_occupancy(int H, int bf16, int* blocks) {
     return query(made_dh_kernel<true>, made_bwd_tile_kernel<true>, made_wgrad_kernel<true>, true);
   return query(made_dh_kernel<false>, made_bwd_tile_kernel<false>, made_wgrad_kernel<false>,
                false);
+}
+
+// The forward kernels' theoretical occupancy at hidden width H: blocks a
+// multiprocessor holds of the chain kernel (of the tile height it takes at
+// H) and of the final-layer kernel, written to blocks[0..1].
+extern "C" int made_fused_forward_occupancy(int H, int bf16, int* blocks) {
+  if (H < 1 || H > kMaxHidden) return static_cast<int>(cudaErrorInvalidValue);
+  // the attributes are set to the widest H's bytes, as the launches set them
+  auto query = [&](auto chain, auto final_kernel, bool b16, size_t chain_max, size_t chain_smem,
+                   size_t final_smem, int final_threads) {
+    static bool allowed[2][2][kMaxDevices] = {};
+    cudaError_t e = allow_smem(chain, chain_max, allowed[b16][0]);
+    if (e == cudaSuccess) e = allow_smem(final_kernel, final_smem, allowed[b16][1]);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, chain, kThreads, chain_smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, final_kernel,
+                                                        final_threads, final_smem);
+    return static_cast<int>(e);
+  };
+  auto run = [&](auto b16) {
+    constexpr bool kB = decltype(b16)::value;
+    constexpr int kTall = kChainRows<kB>;
+    using FT = FinalTile<kB>;
+    if (H <= kChainRowsMaxHidden)
+      return query(made_chain_kernel<kB, kTall>, made_final_kernel<kB>, kB,
+                   chain_smem_max<kTall>(kB), tile_smem<kTall>(H, kB), FT::smem, FT::kThreads);
+    return query(made_chain_kernel<kB, 16>, made_final_kernel<kB>, kB, chain_smem_max<16>(kB),
+                 tile_smem<16>(H, kB), FT::smem, FT::kThreads);
+  };
+  return bf16 ? run(std::true_type{}) : run(std::false_type{});
 }

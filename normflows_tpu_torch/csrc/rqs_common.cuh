@@ -1,7 +1,8 @@
 // Device functions shared by the planar (rqs_transposed.cu) and the flat
 // (rqs_flat.cu) rational-quadratic spline kernels, so that the two cannot
 // drift apart: one element's tail handling, softmax statistics and bin
-// search (`select_bin`), its rational-quadratic map and log|det|
+// search (`select_bin`, and `select_bin_regs` for the flat forward), its
+// rational-quadratic map and log|det|
 // (`spline_element`), and its backward (`spline_element_backward`).  The
 // kernels differ only in where an element's input, parameters, tail code
 // and bound lie.
@@ -168,6 +169,125 @@ __device__ __forceinline__ Selection select_bin(float x, const float* uw,
     }
     cw = cw_next;
     ch = ch_next;
+  }
+  return e;
+}
+
+// `select_bin` with a compile-time bin count, for the flat forward: an
+// element's 3K+1 parameters are loaded into registers in one unrolled pass,
+// so that all of its loads and all of its exponentials are in flight at
+// once, and the maxima, the sums and the search run over those registers
+// with the same operations in the same order (the sums sequential over k),
+// so the same bits as `select_bin`.  KMAX bins with kExact (K == KMAX), else
+// K <= KMAX and the bins from K up masked.  No register array is indexed by
+// a runtime value: the selected bin's two derivative logits are picked in
+// the unrolled search.
+template <bool kInverse, int KMAX, bool kExact>
+__device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
+                                                     const float* uh,
+                                                     const float* ud, size_t n,
+                                                     int K_arg, int code,
+                                                     float bound,
+                                                     const Consts& c) {
+  const int K = kExact ? KMAX : K_arg;
+  Selection e;
+  e.is_circ = code == kTailCircular;
+  e.is_lin = code == kTailLinear;
+  const float left = -bound;
+  const float right = -left;
+  e.span = 2.0f * bound;
+  e.inside = (x >= left) && (x <= right);
+  if (e.is_circ) {
+    float r = fmodf(x - left, e.span);
+    if (r < 0.0f) r += e.span;
+    e.xs = left + r;
+  } else {
+    e.xs = fminf(fmaxf(x, left), right);
+  }
+
+  float w[KMAX], h[KMAX], d[KMAX + 1];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const bool on = kExact || k < K;
+    w[k] = on ? uw[k * n] : 0.0f;
+    h[k] = on ? uh[k * n] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k <= KMAX; ++k) d[k] = (kExact || k <= K) ? ud[k * n] : 0.0f;
+
+  // softmax statistics; w and h then hold exp(logit - max)
+  e.wmax = w[0];
+  e.hmax = h[0];
+#pragma unroll
+  for (int k = 1; k < KMAX; ++k) {
+    if (kExact || k < K) {
+      e.wmax = fmaxf(e.wmax, w[k]);
+      e.hmax = fmaxf(e.hmax, h[k]);
+    }
+  }
+  e.wsum = 0.0f;
+  e.hsum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (kExact || k < K) {
+      w[k] = expf(w[k] - e.wmax);
+      h[k] = expf(h[k] - e.hmax);
+      e.wsum += w[k];
+      e.hsum += h[k];
+    }
+  }
+
+  // K-step accumulate-and-select bin search, as in select_bin
+  float cw = left;
+  float ch = left;
+  bool found = false;
+  float d_lo = 0.0f, d_hi = 0.0f;  // the selected bin's two derivative logits
+  e.k = K - 1;
+  e.cw = 0.0f, e.w = 1.0f, e.ch = 0.0f, e.h = 1.0f;
+  e.dk = 1.0f, e.dk1 = 1.0f;
+  e.pw = 0.0f, e.ph = 0.0f, e.pw_below = 0.0f, e.ph_below = 0.0f;
+  e.hits = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (kExact || k < K) {
+      const float p_w = w[k] / e.wsum;
+      const float p_h = h[k] / e.hsum;
+      const float w_k = (c.min_bin_width + c.fw * p_w) * e.span;
+      const float h_k = (c.min_bin_height + c.fh * p_h) * e.span;
+      const float cw_next = cw + w_k;
+      const float ch_next = ch + h_k;
+      const bool cond = (k == K - 1) || (e.xs < (kInverse ? ch_next : cw_next));
+      const bool hit = !found && cond;
+      e.hits += hit ? 1.0f : 0.0f;
+      if (hit) {
+        e.k = k;
+        e.cw = cw;
+        e.w = w_k;
+        e.ch = ch;
+        e.h = h_k;
+        d_lo = d[k];
+        d_hi = d[k + 1];
+        e.pw = p_w;
+        e.ph = p_h;
+        found = true;
+      } else if (!found) {
+        e.pw_below += p_w;
+        e.ph_below += p_h;
+      }
+      cw = cw_next;
+      ch = ch_next;
+    }
+  }
+
+  // knot slopes: linear tails pin both ends to 1, circular ones close d_K = d_0
+  const float d0_raw = c.min_derivative + softplus(d[0]);
+  e.dk = e.k == 0 ? (e.is_lin ? 1.0f : d0_raw) : c.min_derivative + softplus(d_lo);
+  if (e.k + 1 == K && e.is_lin) {
+    e.dk1 = 1.0f;
+  } else if (e.k + 1 == K && e.is_circ) {
+    e.dk1 = d0_raw;
+  } else {
+    e.dk1 = c.min_derivative + softplus(d_hi);
   }
   return e;
 }

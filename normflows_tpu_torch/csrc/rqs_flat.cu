@@ -36,10 +36,20 @@
 // words of tail and writes 1 + (3K+1), 224 B an element (0.92 MB and
 // 58.7 MB at the same sizes).  The design is the planar kernel's: one
 // thread per element on threadIdx.x, so that every row read and every
-// write is coalesced across a warp, the later walks over an element's
-// logits hitting L1, and the ragged edge masked rather than padded.  At
-// N = 4096 the launch is 16 blocks, far too few to fill 132 SMs, and its
-// time is launch latency; at N = 262,144 it is 1,024 blocks.
+// write is coalesced across a warp, and the ragged edge masked rather
+// than padded.
+//
+// The forward's launches are small: the sliced inverse gives it N = 4096,
+// 256 times a sample, and one element's chain of loads and exponentials,
+// not the bytes, sets their time.  So the forward takes its bin count as a
+// template argument (`select_bin_regs`): 8 and 10 exactly (the large-D and
+// coupled models, the flagship and the ablation), K <= kMaxBins with the
+// bins above K masked, and `select_bin`'s loops over a runtime K above
+// that.  An element's 3K+1 parameters are loaded in one unrolled pass and
+// every exponential is in flight at once.  Its block size follows N, so
+// that a small launch spreads over the SMs (N = 4096: 64 blocks of 64
+// threads, where 256-thread blocks gave 16) and a large one keeps 256
+// threads a block.  The backward keeps `select_bin` and 256 threads.
 
 #include "rqs_common.cuh"
 
@@ -49,8 +59,11 @@ using rqs::Consts;
 using rqs::Selection;
 
 constexpr int kThreads = 256;
+constexpr int kMaxBins = 16;   // the largest K of the register path
+constexpr int kMinBlocks = 128;  // a forward launch's blocks, where N allows
 
-template <bool kInverse>
+// KB bins (kExact) or K <= KB; KB = 0: `select_bin` over a runtime K
+template <bool kInverse, int KB, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 rqs_flat_kernel(const float* __restrict__ x, const float* __restrict__ uw,
                 const float* __restrict__ uh, const float* __restrict__ ud,
@@ -61,9 +74,44 @@ rqs_flat_kernel(const float* __restrict__ x, const float* __restrict__ uw,
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const float xn = x[n];
-  const Selection e = rqs::select_bin<kInverse>(
-      xn, uw + n, uh + n, ud + n, stride, K, codes[n], bounds[n], consts);
+  Selection e;
+  if constexpr (KB == 0) {
+    e = rqs::select_bin<kInverse>(xn, uw + n, uh + n, ud + n, stride, K, codes[n],
+                                  bounds[n], consts);
+  } else {
+    e = rqs::select_bin_regs<kInverse, KB, kExact>(xn, uw + n, uh + n, ud + n, stride, K,
+                                                    codes[n], bounds[n], consts);
+  }
   rqs::spline_element<kInverse>(e, xn, y + n, ld + n);
+}
+
+// The forward's threads a block: 256 or 128 where that still gives
+// kMinBlocks blocks, else 64.
+int forward_threads(int N) {
+  for (int t = kThreads; t > 64; t /= 2)
+    if ((N + t - 1) / t >= kMinBlocks) return t;
+  return 64;
+}
+
+template <bool kInverse>
+void launch_forward(const float* x, const float* uw, const float* uh, const float* ud,
+                    const int* codes, const float* bounds, float* y, float* ld, int N,
+                    size_t stride, int K, const Consts& consts, cudaStream_t s) {
+  const int threads = forward_threads(N);
+  const int blocks = (N + threads - 1) / threads;
+#define RQS_FLAT_LAUNCH(KB, EXACT)                                             \
+  rqs_flat_kernel<kInverse, KB, EXACT><<<blocks, threads, 0, s>>>(             \
+      x, uw, uh, ud, codes, bounds, y, ld, N, stride, K, consts)
+  if (K == 8) {
+    RQS_FLAT_LAUNCH(8, true);
+  } else if (K == 10) {
+    RQS_FLAT_LAUNCH(10, true);
+  } else if (K <= kMaxBins) {
+    RQS_FLAT_LAUNCH(kMaxBins, false);
+  } else {
+    RQS_FLAT_LAUNCH(0, false);
+  }
+#undef RQS_FLAT_LAUNCH
 }
 
 template <bool kInverse>
@@ -111,15 +159,12 @@ extern "C" int rqs_flat_forward(const float* x, const float* uw,
   if (!valid(N, K, stride)) return static_cast<int>(cudaErrorInvalidValue);
   const Consts consts =
       rqs::make_consts(K, min_bin_width, min_bin_height, min_derivative);
-  const int blocks = (N + kThreads - 1) / kThreads;
   const size_t st = static_cast<size_t>(stride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inverse) {
-    rqs_flat_kernel<true><<<blocks, kThreads, 0, s>>>(
-        x, uw, uh, ud, codes, bounds, y, ld, N, st, K, consts);
+    launch_forward<true>(x, uw, uh, ud, codes, bounds, y, ld, N, st, K, consts, s);
   } else {
-    rqs_flat_kernel<false><<<blocks, kThreads, 0, s>>>(
-        x, uw, uh, ud, codes, bounds, y, ld, N, st, K, consts);
+    launch_forward<false>(x, uw, uh, ud, codes, bounds, y, ld, N, st, K, consts, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,9 @@ launch counts and their plain PyTorch versions (port of
 ``csrc/made_fused.cu`` holds the counterparts of the TPU kernels
 ``_fwd_kernel`` and ``_bwd_kernel`` (made_pallas.py:89, :117): the whole
 context-free residual MADE (first masked linear, R residual blocks, final
-masked linear) in one forward launch whose hidden activations stay in shared
-memory, and a backward that recomputes them.  Built with ``nvcc`` for
+masked linear) in one forward call (the chain in 16-row tiles whose hidden
+activations stay in shared memory, then the final layer on a grid of output
+tiles), and a backward that recomputes them.  Built with ``nvcc`` for
 ``sm_90a`` at first use and loaded with ``ctypes`` (``ops/cuda_build.py``).
 
 It is opt-in, as in the JAX package: ``MADE.forward`` takes
@@ -25,10 +26,12 @@ bfloat16 once; JAX also rounds the sum of each 512-row tile (``TILE_B_BWD``)
 to bfloat16, which where the tiles' sums cancel costs up to an ulp of a
 tile's sum (see ``csrc/made_fused.cu``).
 
-The backward kernels run their products on the tensor cores, each float32
-operand split into three bfloat16 terms that add back to it exactly;
-:func:`split_bf16`, :func:`split_matmul` and
+The kernels run every product on the tensor cores, each float32 operand
+split into three bfloat16 terms that add back to it exactly;
+:func:`split_bf16`, :func:`split_matmul`, :func:`fused_resmade_split` and
 :func:`fused_resmade_backward_split` model that arithmetic for the tests.
+With float32 weights the forward is therefore not bit-equal to the unfused
+pass (torch's float32 GEMMs); it lies within rounding of float64.
 """
 
 from __future__ import annotations
@@ -42,23 +45,28 @@ from . import backend, cuda_build
 SOURCE = cuda_build.CSRC / "made_fused.cu"
 
 # Kernel launches made by this module since the count was last set to 0: one
-# per forward call, one per backward call (the backward's four CUDA launches,
-# made by one C call, count once).
+# per forward call, one per backward call (the forward's two and the
+# backward's four CUDA launches, each made by one C call, count once).
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
 # The gate's constants, as in the JAX package (made_pallas.py:45, :270)
 TILE_B = 256  # the least batch that is fused
 WEIGHT_BYTES = 8 * 2**20  # R * 2 * H * H * 4 must fit
-# The port's own limit: a block keeps two (32, H) float32 tiles in shared
-# memory beside 22.5 KB of staging, within the 227 KB a block may have.
+# The port's own limit: a tile block keeps two (16, H) float32 tiles in
+# shared memory beside a ring of up to 77 KB, within the 227 KB a block may
+# have.
 MAX_HIDDEN = 768
+# The tile pass reads its hidden tiles in whole chunks of 16 along H (the
+# gate asks a multiple of 128)
+HIDDEN_MULTIPLE = 16
 SPLIT = 512  # rows of one float32 weight-gradient partial of the backward
 ACTIVATIONS = {"relu": 0, "tanh": 1, "leaky_relu": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"made_fused_forward": [_P] * 10 + [_I] * 7 + [_P],
+_SIGNATURES = {"made_fused_forward": [_P] * 11 + [_I] * 7 + [_P],
                "made_fused_backward": [_P] * 14 + [_I] * 7 + [_P],
+               "made_fused_forward_occupancy": [_I, _I, _P],
                "made_fused_backward_occupancy": [_I, _I, _P]}
 
 
@@ -132,6 +140,15 @@ def made_apply_fused(made, x):
     return out.to(x.dtype)
 
 
+def forward_workspace(B, H, P, bf16) -> int:
+    """bfloat16 elements of the forward's workspace (``csrc/made_fused.cu``,
+    ``made_fused_forward``): the final layer's operand h_R as term planes,
+    one with bfloat16 weights and three with float32, and with float32
+    weights Wf's three, each plane rounded up to 8 elements."""
+    plane = lambda n: -(-n // 8) * 8  # noqa: E731
+    return plane(B * H) if bf16 else 3 * (plane(B * H) + plane(P * H))
+
+
 def _dims(x, w0, w1s, wf):
     B, F = x.shape
     return B, F, w0.shape[0], w1s.shape[0], wf.shape[0]
@@ -158,9 +175,9 @@ def _check(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation):
             raise TypeError(f"fused MADE: {name} must be {want_dtype}, got {t.dtype}")
     if w0.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused MADE: weights must be float32 or bfloat16, got {w0.dtype}")
-    if x.is_cuda and (B < 1 or H > MAX_HIDDEN):
-        raise ValueError(f"fused MADE: B = {B}, H = {H}: the kernels take "
-                         f"B >= 1 and H <= {MAX_HIDDEN}")
+    if x.is_cuda and (B < 1 or H > MAX_HIDDEN or H % HIDDEN_MULTIPLE):
+        raise ValueError(f"fused MADE: B = {B}, H = {H}: the kernels take B >= 1 and H "
+                         f"a multiple of {HIDDEN_MULTIPLE}, H <= {MAX_HIDDEN}")
 
 
 def _launch(name, pointers, x, dims, activation, bf16):
@@ -185,9 +202,12 @@ class _FusedResMADE(torch.autograd.Function):
         if not backend.use_kernel(x):
             return fused_resmade_reference(*operands, activation)
         operands = tuple(t.contiguous() for t in operands)
-        out = torch.empty(x.shape[0], wf.shape[0], dtype=torch.float32, device=x.device)
-        _launch("made_fused_forward", (*operands, out), x, _dims(x, w0, w1s, wf),
-                activation, w0.dtype == torch.bfloat16)
+        B, _, H, _, P = dims = _dims(x, w0, w1s, wf)
+        bf16 = w0.dtype == torch.bfloat16
+        out = torch.empty(B, P, dtype=torch.float32, device=x.device)
+        work = torch.empty(forward_workspace(B, H, P, bf16), dtype=torch.bfloat16,
+                           device=x.device)
+        _launch("made_fused_forward", (*operands, out, work), x, dims, activation, bf16)
         LAUNCHES += 1
         return out
 
@@ -291,18 +311,21 @@ def _rounding(bf16, dtype):
     return lambda a: a.to(torch.bfloat16).to(dtype)
 
 
-def _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation):
+def _chain(x, w0, b0, w1s, b1s, w2s, b2s, activation, mm=None):
     """The plain forward up to the final layer's input, in ``x``'s dtype:
     ``(hs, zs, h)``, hs[r] the residual stream before block r, zs[r] the
-    block's inner pre-activation, h the final layer's input."""
+    block's inner pre-activation, h the final layer's input.  ``mm(a, w)``
+    takes each product of a rounded operand and a weight in the (out, in)
+    layout (default: ``a @ w.T`` in ``x``'s dtype)."""
     dt = x.dtype
     rnd = _rounding(w0.dtype == torch.bfloat16, dt)
+    mm = mm or (lambda a, w: a @ w.to(dt).T)
     hs, zs = [], []
-    h = rnd(x) @ w0.to(dt).T + b0.to(dt)
+    h = mm(rnd(x), w0) + b0.to(dt)
     for r in range(w1s.shape[0]):
         hs.append(h)
-        zs.append(rnd(_act(activation, h)) @ w1s[r].to(dt).T + b1s[r].to(dt))
-        h = h + (rnd(_act(activation, zs[r])) @ w2s[r].to(dt).T + b2s[r].to(dt))
+        zs.append(mm(rnd(_act(activation, h)), w1s[r]) + b1s[r].to(dt))
+        h = h + (mm(rnd(_act(activation, zs[r])), w2s[r]) + b2s[r].to(dt))
     return hs, zs, h
 
 
@@ -370,6 +393,23 @@ def split_matmul(a, b, a_terms=3, b_terms=3):
     ta, tb = split_bf16(a, a_terms), split_bf16(b, b_terms)
     return sum(ta[i].double() @ tb[j].double() for i in range(a_terms)
                for j in range(b_terms) if i + j < SPLIT_ORDER)
+
+
+def fused_resmade_split(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
+    """:func:`fused_resmade_reference` with each product taken as the forward
+    kernels take it (:func:`split_matmul`): with float32 weights both
+    operands in three terms (6 partial products), with bfloat16 weights the
+    rounded operand and the weight one term each.  Each product is rounded
+    to float32; biases, activations and the residual stay float32.  A model
+    of the kernels' arithmetic, for tests."""
+    bf16 = w0.dtype == torch.bfloat16
+    terms = 1 if bf16 else 3
+
+    def mm(a, w):
+        return split_matmul(a, w.float().T, terms, terms).float()
+
+    _, _, h = _chain(x.float(), w0, b0, w1s, b1s, w2s, b2s, activation, mm)
+    return mm(_rounding(bf16, torch.float32)(h), wf) + bf
 
 
 def fused_resmade_backward_split(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g,

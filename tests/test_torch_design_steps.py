@@ -1,0 +1,37 @@
+"""The design-step variants of ``normflows_tpu_torch/examples/design_steps.py``
+still apply to the shipped CUDA sources: each variant is the shipped source
+with its one change made, written beside a copy of the shared header.  The
+timing itself runs on the card only."""
+
+import pytest
+
+from normflows_tpu_torch.examples import design_steps
+from normflows_tpu_torch.ops import made_fused, spline_flat
+
+VARIANTS = [("made", name) for name in ("fragment_split", "final_128x64", "bf16_promoted",
+                                        "chain_rows_16", "chain_rows_32")] + \
+           [("flat", name) for name in ("loops_256", "registers_256", "lane_groups")]
+
+
+@pytest.fixture(scope="module")
+def written(tmp_path_factory):
+    return design_steps.write_variants(tmp_path_factory.mktemp("design_steps"))
+
+
+@pytest.mark.parametrize("kind,name", VARIANTS)
+def test_variant_applies_to_the_shipped_source(written, kind, name):
+    path = written[(kind, name)]
+    shipped = (made_fused.SOURCE if kind == "made" else spline_flat.SOURCE).read_text()
+    text = path.read_text()
+    assert text != shipped and len(text) > len(shipped) // 2
+    assert (path.parent / "rqs_common.cuh").exists()
+
+
+def test_variants_are_all_written(written):
+    assert sorted(written) == sorted(VARIANTS)
+
+
+@pytest.mark.parametrize("make", [design_steps.made_variants, design_steps.flat_variants])
+def test_a_stale_anchor_raises(make):
+    with pytest.raises(ValueError, match="no longer holds"):
+        make("// not a shipped source\nPlaneTile<kMaxTerms, 1> PlaneTile<1, 1>")

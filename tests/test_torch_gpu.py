@@ -161,16 +161,35 @@ def flat_inputs(N, device, seed=0, slab=True, K=8):
     return to(x), p[:K], p[K:2 * K], p[2 * K:], to(codes), to(bounds)
 
 
+def sweep_inputs(N, device, K, seed=0):
+    """The flat kernel's inputs as the JAX package's dyncodes test draws them
+    (tests/test_pallas.py:408-416: x ~ U(-4, 4), logits N(0, 0.3^2), linear
+    tails at 4 and circular at pi in turn), on one feature's slab: the
+    inputs its runtime-tail bars were set on."""
+    rng = np.random.default_rng(seed)
+    S = 3 * K + 1
+    codes = np.where(np.arange(N) % 2 == 0, 1, 2).astype(np.int32)
+    bounds = np.where(codes == 1, 4.0, np.pi).astype(np.float32)
+    x = rng.uniform(-4, 4, N).astype(np.float32)
+    p = torch.from_numpy((0.3 * rng.normal(size=(64 * S, N))).astype(np.float32)).to(device)
+    p = p[5 * S:6 * S]
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return to(x), p[:K], p[K:2 * K], p[2 * K:], to(codes), to(bounds)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("N,slab", [(4096, True), (4096 + 37, True), (1, True),
-                                    (4096 * 64, False)])
-def test_flat_kernel_matches_plain(cuda, N, slab, inverse):
+@pytest.mark.parametrize("N,slab,K", [(4096, True, 8), (4096 + 37, True, 8), (1, True, 8),
+                                      (4096 * 64, False, 8)] +
+                         [(4096 + 37, True, K) for K in (2, 10, 16, 20)])
+def test_flat_kernel_matches_plain(cuda, N, slab, K, inverse):
     """Forward and backward (1e-3) against the plain versions in float64, at the JAX
     package's bars: 1e-5 / 1e-4 for the sliced inverse's slab (the runtime-tail
     entry), 2e-5 / 2e-4 at the density direction's packed size (the
-    static-tail entry)."""
-    args = flat_inputs(N, cuda, slab=slab)
+    static-tail entry).  The bin sweep reaches every instantiation of the
+    forward: K = 8 and 10 exactly, 2 and 16 (K <= 16, bins masked), 20 (a
+    runtime K), on the JAX package's own test inputs (``sweep_inputs``)."""
+    args = flat_inputs(N, cuda, slab=slab) if K == 8 else sweep_inputs(N, cuda, K)
     before = (spline_flat.LAUNCHES, spline_flat.BACKWARD_LAUNCHES)
     y, ld = spline_flat.unconstrained_rqs_dyncodes(*args, inverse)
     yb, lb = (torch.from_numpy(a).to(cuda)
@@ -296,6 +315,43 @@ def test_made_fused_backward_is_deterministic(cuda, bf16):
         assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_made_fused_forward_is_deterministic(cuda, bf16):
+    """Two forward calls on the same inputs give the same bits: no atomics,
+    each output summed by one block in a fixed order (large-D shape)."""
+    x, ops = made_operands(4096, 64, 256, 1, 25, cuda, bf16)
+    first = made_fused.fused_resmade(x, *ops)
+    second = made_fused.fused_resmade(x, *ops)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_made_fused_forward_at_a_width_no_multiple_of_32(cuda, bf16):
+    """H = 144: the final layer's last chunk along H is half empty, and P =
+    15 is odd (no paired stores); the same bars (f32 against float64 1e-5,
+    bf16 against the bf16 plain version 5e-2).  A width no multiple of 16
+    is refused, on both sides of the C interface."""
+    x, ops = made_operands(300, 3, 144, 1, 5, cuda, bf16)
+    out = made_fused.fused_resmade(x, *ops)
+    torch.cuda.synchronize()
+    if bf16:
+        close(out, made_fused.fused_resmade_reference(x, *ops), 5e-2)
+    else:
+        close(out, made_fused.fused_resmade_reference(*[t.double() for t in (x, *ops)]), 1e-5)
+    x, ops = made_operands(300, 3, 100, 1, 5, cuda, bf16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        made_fused.fused_resmade(x, *ops)
+    out = torch.empty(300, 15, device=cuda)
+    work = torch.empty(made_fused.forward_workspace(300, 100, 15, bf16), dtype=torch.bfloat16,
+                       device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        made_fused._launch("made_fused_forward", (x, *ops, out, work), x, (300, 3, 100, 1, 15),
+                           "relu", bf16)
+
+
 def made_backward_and_kinks(x, ops, g, activation="relu"):
     """The backward kernels' gradients and, from their scratch, the
     pre-activations they took: (h before each block (R, B, H), each block's
@@ -343,8 +399,10 @@ def test_made_fused_refuses_what_it_cannot_take(cuda, tmp_path):
     with pytest.raises(ValueError, match="B >= 1"):
         made_fused.fused_resmade(x[:0], *ops)
     out = torch.empty(300, 6, device=cuda)
+    work = torch.empty(made_fused.forward_workspace(300, 1024, 6, False), dtype=torch.bfloat16,
+                       device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):  # the C side's own check
-        made_fused._launch("made_fused_forward", (x, *ops, out), x, (300, 2, 1024, 1, 6),
+        made_fused._launch("made_fused_forward", (x, *ops, out, work), x, (300, 2, 1024, 1, 6),
                            "relu", False)
     with pytest.raises(TypeError, match="float32"):
         made_fused.fused_resmade(x, *ops[:6], ops[6].bfloat16(), ops[7])

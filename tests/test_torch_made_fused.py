@@ -345,7 +345,7 @@ def test_maf_layer_matches_jax_with_fusion(fusion, plain_calls):
     assert_close(ldt.numpy(), ldu.numpy(), atol=Y_TOL, rtol=Y_TOL)
 
 
-# ---- the backward kernels' split products (ops/made_fused.py, plain model) ----
+# ---- the kernels' split products (ops/made_fused.py, plain models) ----
 
 def _float32_from_bits(bits):
     return torch.from_numpy(np.asarray(bits, np.uint32).view(np.float32).copy())
@@ -436,6 +436,26 @@ def test_split_backward_matches_float64(R, activation, bf16):
     tol = BF16_G_TOL if bf16 else G_TOL
     for a, b in zip(got, want):
         assert_close(a.double().numpy(), b.double().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,activation", [(1, "relu"), (2, "relu"), (1, "tanh"),
+                                          (1, "leaky_relu")])
+def test_split_forward_matches_plain(R, activation, bf16):
+    """The forward with every product split as the kernels split it
+    (``fused_resmade_split``: f32 both operands in three terms, 6 partial
+    products; bf16 the rounded operand and the weight one term each)
+    against the plain version: f32 against it in float64 within 1e-5, bf16
+    against the bf16 plain version within 5e-2 (the kernels' bars)."""
+    x, ops, _ = _split_case(R, activation, bf16, seed=60 + R)
+    got = made_fused.fused_resmade_split(x, *ops, activation)
+    assert got.dtype == torch.float32 and got.shape == (x.shape[0], ops[6].shape[0])
+    if bf16:
+        want, tol = made_fused.fused_resmade_reference(x, *ops, activation), BF16_G_TOL
+    else:
+        want, tol = made_fused.fused_resmade_reference(
+            *[t.double() for t in (x, *ops)], activation), Y_TOL
+    assert_close(got.double().numpy(), want.double().numpy(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("activation", ["relu", "tanh", "leaky_relu"])

@@ -5,16 +5,16 @@ entry points, against the JAX package's flat Pallas kernels in interpret mode
 * ``unconstrained_rqs_dyncodes`` and its plain version against
   ``unconstrained_rqs_pallas_dyncodes`` at N = 640 with mixed per-element
   codes, both directions (tests/test_pallas.py's bars: 1e-5 on outputs, 1e-4
-  on log-dets), and its plain backward against ``jax.vjp`` through the
-  kernel at N = 256 (1e-3);
+  on log-dets), the same at K = 2 and K = 20 (N = 96), and its plain
+  backward against ``jax.vjp`` through the kernel at N = 256 (1e-3);
 * ``unconstrained_rational_quadratic_spline_flat`` against
   ``unconstrained_rational_quadratic_spline_pallas`` with static mixed tails
   at (B = 17, D = 3, K = 5), and along ``event_axis = 1`` (2e-5 / 2e-4), and
   its VJP (1e-3);
 * the wrapper's checks, its CPU dispatch and the gradients it gives.
 
-Each JAX function below is compiled once for both directions: four compiles
-in all.  The CUDA kernels are held against the plain versions on the card,
+Each JAX function below is compiled once for both directions and each
+shape: six compiles in all.  The CUDA kernels are held against the plain versions on the card,
 in tests/test_torch_gpu.py and chip_smoke.py.
 """
 
@@ -86,6 +86,20 @@ def test_plain_matches_jax_dyncodes_kernel(inverse):
         *map(t, (x, uw, uh, ud, codes, bounds)), inverse)
     assert torch.equal(yw, yt) and torch.equal(ldw, ldt)
     assert spline_flat.LAUNCHES == before
+
+
+@DIRECTIONS
+@pytest.mark.parametrize("K", [2, 20])
+def test_plain_matches_jax_dyncodes_kernel_bins(K, inverse):
+    """The bin counts at the ends of the card's sweep: 2, and 20, above the
+    register path's 16 (the card's bin sweep is held against this plain
+    version)."""
+    x, uw, uh, ud, codes, bounds = flat_inputs(96, K, seed=K)
+    yj, ldj = jax_dyncodes()(*map(jnp.asarray, (x, uw, uh, ud, codes, bounds)))[inverse]
+    yt, ldt = spline_flat.unconstrained_rqs_dyncodes_reference(
+        *map(t, (x, uw, uh, ud, codes, bounds)), inverse)
+    assert_close(yt.numpy(), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    assert_close(ldt.numpy(), np.asarray(ldj), atol=1e-4, rtol=1e-4)
 
 
 @DIRECTIONS
