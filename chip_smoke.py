@@ -230,13 +230,13 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def planar_inputs(rng, B, inside=False):
+def planar_inputs(rng, B, inside=False, K=BINS):
     """x_t (2, B), ~20% outside +-bound on both dims (or all inside), and
-    params_t (62, B), both from the numpy generator."""
+    params_t (2(3K+1), B), both from the numpy generator."""
     bounds = np.asarray(TAIL_BOUND, np.float32)[:, None]
     reach = 0.999 if inside else 1.25
     x = (rng.uniform(-reach, reach, (2, B)) * bounds).astype(np.float32)
-    p = (PARAM_STD * rng.normal(size=(2 * (3 * BINS + 1), B))).astype(np.float32)
+    p = (PARAM_STD * rng.normal(size=(2 * (3 * K + 1), B))).astype(np.float32)
     return torch.from_numpy(x).to(DEVICE), torch.from_numpy(p).to(DEVICE)
 
 
@@ -270,7 +270,8 @@ def phase_device():
 
 def phase_build():
     """Every source built anew, one nvcc each, started together; returns
-    the ablation kernel's registers and spills by variant and direction."""
+    the registers and spills of the ablation kernel's, the fused MADE's, the
+    flat kernels' and the planar kernels' instantiations."""
     from normflows_tpu_torch.ops import (cuda_build, made_fused, spline_ablate, spline_cuda,
                                          spline_flat)
 
@@ -279,14 +280,15 @@ def phase_build():
     resources = ablate_resources(info[spline_ablate.SOURCE]["ptxas"])
     made = made_resources(info[made_fused.SOURCE]["ptxas"])
     flat = flat_resources(info[spline_flat.SOURCE]["ptxas"])
+    planar = planar_resources(info[spline_cuda.SOURCE]["ptxas"])
     emit("build", sources={
         str(src.relative_to(REPO)): {
             "seconds": i["seconds"],
             "ptxas": [line for line in i["ptxas"].splitlines()
                       if "registers" in line or "spill" in line or "smem" in line]}
         for src, i in info.items()}, ablate_resources=resources, made_resources=made,
-        flat_resources=flat)
-    return resources, made, flat
+        flat_resources=flat, planar_resources=planar)
+    return resources, made, flat, planar
 
 
 def kernel_resources(ptxas, name_of):
@@ -338,27 +340,50 @@ def ablate_resources(ptxas):
     return out
 
 
+def bins_key(bins, exact):
+    """An instantiation's compile-time bin count as its key: ``8``, ``10``,
+    ``16_masked`` (K <= 16) or ``runtime`` (the loops over a runtime K)."""
+    return bins if exact == "1" else ("runtime" if bins == "0" else f"{bins}_masked")
+
+
 def flat_resources(ptxas):
     """The flat kernels' instantiations: ``{"forward_<bins>", "inverse_<bins>",
-    "backward_<direction>": {...}}``, <bins> being the forward's compile-time
-    bin count (``8``, ``10``), ``16_masked`` (K <= 16) or ``runtime`` (the
-    loops over a runtime K above 16).  The forward's template arguments
-    <inverse, bins, exact> are in its mangled name as ILb<0|1>ELi<n>ELb<0|1>E."""
+    "backward_forward_<bins>", "backward_inverse_<bins>": {...}}`` (<bins> as
+    ``bins_key`` gives it).  The template arguments <inverse, bins, exact>
+    of both kernels are in their mangled names as ILb<0|1>ELi<n>ELb<0|1>E."""
     import re
 
     def name_of(mangled):
-        m = re.search(r"rqs_flat_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
-        if m:
-            bins = m.group(2) if m.group(3) == "1" else (
-                "runtime" if m.group(2) == "0" else f"{m.group(2)}_masked")
-            return f"{'inverse' if m.group(1) == '1' else 'forward'}_{bins}"
-        m = re.search(r"rqs_flat_backward_kernelILb([01])E", mangled)
-        return m and f"backward_{'inverse' if m.group(1) == '1' else 'forward'}"
+        m = re.search(r"rqs_flat_(backward_)?kernelILb([01])ELi(\d+)ELb([01])E", mangled)
+        return m and (f"{m.group(1) or ''}{'inverse' if m.group(2) == '1' else 'forward'}_"
+                      f"{bins_key(m.group(3), m.group(4))}")
 
     out = kernel_resources(ptxas, name_of)
     if not out or any("registers" not in r or "spill_store_bytes" not in r
                       for r in out.values()):
         raise SystemExit(f"build: no full ptxas report of the flat kernels: {out}")
+    return out
+
+
+def planar_resources(ptxas):
+    """The planar kernels' instantiations: ``{"forward_<bins>",
+    "inverse_<bins>", "backward_forward", "backward_inverse": {...}}``; the
+    forward's template arguments <inverse, bins, exact> are in its mangled
+    name as ILb<0|1>ELi<n>ELb<0|1>E, the backward's <inverse> as ILb<0|1>E."""
+    import re
+
+    def name_of(mangled):
+        m = re.search(r"rqs_transposed_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
+        if m:
+            return (f"{'inverse' if m.group(1) == '1' else 'forward'}_"
+                    f"{bins_key(m.group(2), m.group(3))}")
+        m = re.search(r"rqs_transposed_backward_kernelILb([01])E", mangled)
+        return m and f"backward_{'inverse' if m.group(1) == '1' else 'forward'}"
+
+    out = kernel_resources(ptxas, name_of)
+    if len(out) != 10 or any("registers" not in r or "spill_store_bytes" not in r
+                             for r in out.values()):
+        raise SystemExit(f"build: no full ptxas report of the planar kernels: {out}")
     return out
 
 
@@ -385,38 +410,49 @@ def made_resources(ptxas):
     return out
 
 
+# the planar forward's other bin counts beside the flagship's 10: 2, the
+# large-D model's 8, the register path's largest (16, bins above K masked
+# below it) and one above it (the loops over a runtime K)
+PLANAR_BINS = (2, 8, 16, 20)
+
+
 def phase_kernel():
-    """The kernel against its plain version on the same CUDA tensors."""
+    """The kernel against its plain version on the same CUDA tensors: the
+    flagship's K at B = 2^14 and 2^14 + 37, then every other instantiation
+    (PLANAR_BINS) at 2^14 + 37, both directions, each K with a round trip
+    inverse(forward(x)) inside the bounds."""
     from normflows_tpu_torch.ops import spline_cuda as sc
 
     rng = np.random.default_rng(SEED)
-    errs = {}
-    for B in (N, N + 37):
-        for inverse in (False, True):
-            x, p = planar_inputs(rng, B)
-            y, ld = sc.rqs_transposed(x, p, CODES, TAIL_BOUND, inverse)
-            sync()
-            yr, ldr = sc.rqs_transposed_reference(x, p, CODES, TAIL_BOUND, inverse)
-            d = "inverse" if inverse else "forward"
-            e = {"max_abs_y": float((y - yr).abs().max()),
-                 "max_abs_ld": float((ld - ldr).abs().max()),
-                 "excess_y": excess(y, yr, Y_TOL, Y_TOL),
-                 "excess_ld": excess(ld, ldr, LD_TOL, LD_TOL),
-                 "finite": bool(torch.isfinite(y).all() and torch.isfinite(ld).all())}
-            errs[f"{d}_B{B}"] = e
-            if not e["finite"] or e["excess_y"] > 0 or e["excess_ld"] > 0:
-                emit("kernel", ok=False, errors=errs)
-                raise SystemExit(f"kernel disagrees with its plain version ({d}, B={B})")
+    errs, rt = {}, {}
+    cases = [(B, BINS) for B in (N, N + 37)] + [(N + 37, K) for K in PLANAR_BINS]
+    for (B, K), inverse in itertools.product(cases, (False, True)):
+        x, p = planar_inputs(rng, B, K=K)
+        y, ld = sc.rqs_transposed(x, p, CODES, TAIL_BOUND, inverse)
+        sync()
+        yr, ldr = sc.rqs_transposed_reference(x, p, CODES, TAIL_BOUND, inverse)
+        d = "inverse" if inverse else "forward"
+        e = {"max_abs_y": float((y - yr).abs().max()),
+             "max_abs_ld": float((ld - ldr).abs().max()),
+             "excess_y": excess(y, yr, Y_TOL, Y_TOL),
+             "excess_ld": excess(ld, ldr, LD_TOL, LD_TOL),
+             "finite": bool(torch.isfinite(y).all() and torch.isfinite(ld).all())}
+        errs[f"{d}_B{B}" + (f"_K{K}" if K != BINS else "")] = e
+        if not e["finite"] or e["excess_y"] > 0 or e["excess_ld"] > 0:
+            emit("kernel", ok=False, errors=errs)
+            raise SystemExit(f"kernel disagrees with its plain version ({d}, B={B}, K={K})")
     # round trip inside the bounds, through the kernel both ways
-    x, p = planar_inputs(rng, N + 37, inside=True)
-    y, ld_f = sc.rqs_transposed(x, p, CODES, TAIL_BOUND, False)
-    x2, ld_i = sc.rqs_transposed(y, p, CODES, TAIL_BOUND, True)
-    sync()
-    rt = {"excess_x": excess(x2, x, RT_TOL, RT_TOL),
-          "max_abs_ld_sum": float((ld_f + ld_i).abs().max())}
-    ok = rt["excess_x"] <= 0 and rt["max_abs_ld_sum"] <= RT_LD_TOL
+    for K in (BINS, *PLANAR_BINS):
+        x, p = planar_inputs(rng, N + 37, inside=True, K=K)
+        y, ld_f = sc.rqs_transposed(x, p, CODES, TAIL_BOUND, False)
+        x2, ld_i = sc.rqs_transposed(y, p, CODES, TAIL_BOUND, True)
+        sync()
+        rt[f"K{K}"] = {"excess_x": excess(x2, x, RT_TOL, RT_TOL),
+                       "max_abs_ld_sum": float((ld_f + ld_i).abs().max())}
+    ok = all(r["excess_x"] <= 0 and r["max_abs_ld_sum"] <= RT_LD_TOL for r in rt.values())
     emit("kernel", ok=ok, errors=errs, round_trip=rt,
-         bars={"y": [Y_TOL, Y_TOL], "ld": [LD_TOL, LD_TOL], "param_std": PARAM_STD})
+         bars={"y": [Y_TOL, Y_TOL], "ld": [LD_TOL, LD_TOL], "param_std": PARAM_STD,
+               "round_trip": [RT_TOL, RT_LD_TOL]})
     if not ok:
         raise SystemExit("kernel round trip inverse(forward(x)) != x")
     return errs
@@ -509,6 +545,8 @@ def phase_times(model):
     # 16 input sets of 4.46 MB each (71 MB > the 50 MB L2): each launch reads
     # its inputs from device memory, as after the MADE's GEMM has moved on
     sets = [planar_inputs(rng, N) for _ in range(16)]
+    rotation, y = itertools.cycle(sets), torch.empty(2, N, device=DEVICE)
+    floor = graph_ms(lambda: torch.neg(next(rotation)[0], out=y), reps=64)
     kernel, call, plain = {}, {}, {}
     for inverse in (False, True):
         d = "inverse" if inverse else "forward"
@@ -526,11 +564,13 @@ def phase_times(model):
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
     emit("times_kernel", kernel_ms=kernel, call_ms=call, plain_ms=plain,
-         bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, ops=ops, batch=N,
-         note="kernel_ms: device time, 64 launches in one CUDA graph, inputs "
+         bound_ms=bound_ms, bound_by=bound_by, floor_ms=floor, bytes=bytes_moved, ops=ops,
+         batch=N, note="kernel_ms: device time, 64 launches in one CUDA graph, inputs "
          "rotated through 71 MB; call_ms and plain_ms: CUDA events over a loop "
-         "of calls (the wrapper's host work included)")
-    return kernel, plain, bound_ms, bound_by
+         "of calls (the wrapper's host work included); floor_ms: torch.neg on the same "
+         "2 x 2^14 floats, 64 launches in one CUDA graph, a reading of the launch cost, "
+         "not a bound")
+    return kernel, plain, bound_ms, bound_by, floor
 
 
 def phase_requests(model):
@@ -791,6 +831,8 @@ def phase_times_train():
     rng = np.random.default_rng(SEED + 7)
     # 16 input sets of 4.33 MB read each (69 MB > the 50 MB L2)
     sets = [(*planar_inputs(rng, N), *cotangents(rng, N)) for _ in range(16)]
+    rotation, y = itertools.cycle(sets), torch.empty(2, N, device=DEVICE)
+    floor = graph_ms(lambda: torch.neg(next(rotation)[0], out=y), reps=64)
     kernel, call, plain = {}, {}, {}
     for inverse in (False, True):
         d = "inverse" if inverse else "forward"
@@ -812,12 +854,13 @@ def phase_times_train():
     bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
     emit("times_train", steps=steps, batch=N, backward_kernel={
         "kernel_ms": kernel, "call_ms": call, "plain_ms": plain, "bound_ms": bound_ms,
-        "bound_by": bound_by, "bytes": bytes_moved, "ops": ops},
+        "bound_by": bound_by, "floor_ms": floor, "bytes": bytes_moved, "ops": ops},
         note="ms: host median of 20 reverse-KL + Adam steps from bench.py's init, "
         "each ending in a synchronise; profile: one step under torch.profiler; "
         "kernel_ms: device time, 64 launches in one CUDA graph, inputs rotated "
-        "through 69 MB; call_ms and plain_ms: CUDA events over a loop of calls")
-    return kernel, plain, bound_ms, bound_by
+        "through 69 MB; call_ms and plain_ms: CUDA events over a loop of calls; "
+        "floor_ms: torch.neg on the same 2 x 2^14 floats in the same kind of graph")
+    return kernel, plain, bound_ms, bound_by, floor
 
 
 # ---- large-D autoregressive NSF: the flat spline kernels ---------------------
@@ -965,30 +1008,41 @@ def check_pair(phase, errs, got, want, tols, names):
 def phase_kernel_flat_backward():
     """The flat backward kernel against its plain version (autograd through
     the plain spline, in float64) at the same shapes, both directions, and
-    with zero derivative logits at 4096 + 37."""
+    with zero derivative logits at 4096 + 37; then every instantiation: the
+    bin sweep of FLAT_BINS on the slab (flat_sweep_inputs) at 4096 and
+    4096 + 37."""
     from normflows_tpu_torch.ops import spline_flat as sf
 
     rng = np.random.default_rng(SEED + 11)
     errs = {}
+
+    def check(key, args, N, inverse):
+        yb, lb = (torch.from_numpy(a).to(DEVICE)
+                  for a in rng.normal(size=(2, N)).astype(np.float32))
+        got = sf.unconstrained_rqs_dyncodes_backward(*args, yb, lb, inverse)
+        sync()
+        want = sf.unconstrained_rqs_dyncodes_backward_reference(
+            *as_f64([*args, yb, lb]), inverse)
+        e = check_pair("kernel_flat_backward", errs, got, want, (FLAT_G_TOL,) * 4,
+                       ("dx", "duw", "duh", "dud"))
+        plain = sf.unconstrained_rqs_dyncodes_backward_reference(*args, yb, lb, inverse)
+        e["plain_f32_excess"] = [excess(a, b, FLAT_G_TOL, FLAT_G_TOL)
+                                 for a, b in zip(plain, want)]
+        errs[key] = e
+
     for (N, slab), zero_slopes in [(c, False) for c in FLAT_CASES] + [(FLAT_CASES[1], True)]:
         for inverse in (False, True):
             args = flat_inputs(rng, N, slab)
             if zero_slopes:
                 args[3].zero_()
-            yb, lb = (torch.from_numpy(a).to(DEVICE)
-                      for a in rng.normal(size=(2, N)).astype(np.float32))
-            got = sf.unconstrained_rqs_dyncodes_backward(*args, yb, lb, inverse)
-            sync()
-            want = sf.unconstrained_rqs_dyncodes_backward_reference(
-                *as_f64([*args, yb, lb]), inverse)
-            key = f"{'inverse' if inverse else 'forward'}_N{N}" + ("_zero_slopes" * zero_slopes)
-            e = check_pair("kernel_flat_backward", errs, got, want, (FLAT_G_TOL,) * 4,
-                           ("dx", "duw", "duh", "dud"))
-            plain = sf.unconstrained_rqs_dyncodes_backward_reference(*args, yb, lb, inverse)
-            e["plain_f32_excess"] = [excess(a, b, FLAT_G_TOL, FLAT_G_TOL)
-                                     for a, b in zip(plain, want)]
-            errs[key] = e
-    emit("kernel_flat_backward", ok=True, errors=errs, bars={"gradients": FLAT_G_TOL})
+            check(f"{'inverse' if inverse else 'forward'}_N{N}" + ("_zero_slopes" * zero_slopes),
+                  args, N, inverse)
+    # every instantiation of the backward: the bin sweep on the slab
+    for K, (N, _), inverse in itertools.product(FLAT_BINS, FLAT_CASES[:2], (False, True)):
+        check(f"{'inverse' if inverse else 'forward'}_N{N}_K{K}", flat_sweep_inputs(rng, N, K),
+              N, inverse)
+    emit("kernel_flat_backward", ok=True, errors=errs, bars={"gradients": FLAT_G_TOL,
+                                                             "sweep_std": SWEEP_STD})
     return errs
 
 
@@ -1237,8 +1291,8 @@ def phase_times_large_d(model, flat_res):
          "work included); bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s; "
          "floor_ms: torch.neg on the same N floats, 64 launches in one CUDA graph, a "
          "reading of the launch cost, not a bound; resources: ptxas -v, per thread, "
-         "by instantiation (forward_<bins>: the forward at that compile-time bin count; "
-         "16_masked: K <= 16; runtime: K > 16)")
+         "by instantiation (forward_<bins>, backward_<direction>_<bins>: the kernel at "
+         "that compile-time bin count; 16_masked: K <= 16; runtime: K > 16)")
     return kernels, large_d_request_and_step_times(model)
 
 
@@ -2410,15 +2464,15 @@ def main() -> int:
     torch.manual_seed(SEED)
 
     smi = phase_device()
-    resources, made_res, flat_res = phase_build()
+    resources, made_res, flat_res, planar_res = phase_build()
     errs = phase_kernel()
     model, launches = phase_main_path()
-    kernel_ms, plain_ms, bound_ms, bound_by = phase_times(model)
+    kernel_ms, plain_ms, bound_ms, bound_by, floor_ms = phase_times(model)
     phase_requests(model)
     del model
     bwd_errs = phase_kernel_backward()
     bwd_launches = phase_train_path()
-    bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by = phase_times_train()
+    bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by, bwd_floor_ms = phase_times_train()
     flat_errs = phase_kernel_flat()
     flat_bwd_errs = phase_kernel_flat_backward()
     ld_model, ld_launches = phase_large_d_path()
@@ -2439,7 +2493,7 @@ def main() -> int:
 
     kernels = []
     for d in ("forward", "inverse"):
-        worst = [e for k, e in errs.items() if k.startswith(d)]
+        worst = [e for k, e in errs.items() if k.startswith(d) and "_K" not in k]
         kernels.append({
             "name": f"rqs_transposed_{d}",
             "route": "cuda",
@@ -2453,6 +2507,8 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            "floor_ms": floor_ms,
+            "resources": {k: v for k, v in planar_res.items() if k.startswith(d)},
         })
     for d in ("forward", "inverse"):
         worst = [e for k, e in bwd_errs.items() if k.startswith(d)]
@@ -2470,6 +2526,8 @@ def main() -> int:
             "bound_ms": bwd_bound_ms,
             "bound_by": bwd_bound_by,
             "library_ms": None,
+            "floor_ms": bwd_floor_ms,
+            "resources": planar_res[f"backward_{d}"],
         })
     # the flat kernels: times at the size the large-D path gives each (the
     # sliced inverse's 4096 in the sampling direction, the density

@@ -1,11 +1,14 @@
 // Device functions shared by the planar (rqs_transposed.cu) and the flat
 // (rqs_flat.cu) rational-quadratic spline kernels, so that the two cannot
 // drift apart: one element's tail handling, softmax statistics and bin
-// search (`select_bin`, and `select_bin_regs` for the flat forward), its
-// rational-quadratic map and log|det|
-// (`spline_element`), and its backward (`spline_element_backward`).  The
+// search, its rational-quadratic map and log|det| (`spline_element`), and
+// its backward.  Two forms of the search and the backward compute the same
+// function: `select_bin` and `spline_element_backward` loop over a runtime
+// K and read the parameters from memory on each walk; `select_bin_regs` and
+// `spline_element_backward_regs` take a compile-time bin count and share an
+// element's parameters, loaded once into registers (`ParamRegs`).  The
 // kernels differ only in where an element's input, parameters, tail code
-// and bound lie.
+// and bound lie, and in the threads a block (`block_threads`).
 //
 // An element's parameters lie on 3K+1 rows `stride` floats apart: widths
 // uw[k * stride] (k < K), heights uh[k * stride], derivative logits
@@ -54,6 +57,15 @@ inline Consts make_consts(int K, double min_bin_width, double min_bin_height,
                 static_cast<float>(min_derivative),
                 static_cast<float>(1.0 - min_bin_width * K),
                 static_cast<float>(1.0 - min_bin_height * K)};
+}
+
+// Threads a block for `rows` rows of n elements, one thread an element: 256
+// or 128 where that still gives `min_blocks` blocks, else 64, so that a
+// small launch spreads over the SMs and a large one keeps 256 threads.
+inline int block_threads(long long n, int rows, int min_blocks) {
+  for (int t = 256; t > 64; t /= 2)
+    if (rows * ((n + t - 1) / t) >= min_blocks) return t;
+  return 64;
 }
 
 __device__ __forceinline__ float softplus(float x) {
@@ -173,21 +185,42 @@ __device__ __forceinline__ Selection select_bin(float x, const float* uw,
   return e;
 }
 
-// `select_bin` with a compile-time bin count, for the flat forward: an
-// element's 3K+1 parameters are loaded into registers in one unrolled pass,
-// so that all of its loads and all of its exponentials are in flight at
-// once, and the maxima, the sums and the search run over those registers
-// with the same operations in the same order (the sums sequential over k),
-// so the same bits as `select_bin`.  KMAX bins with kExact (K == KMAX), else
+// An element's 3K+1 parameters in registers, at a compile-time bin count
+// KMAX: the width and height logits (exp(logit - max) once
+// `select_bin_regs` has taken the softmax statistics) and the raw
+// derivative logits.  With K < KMAX the bins from K up hold 0.
+template <int KMAX>
+struct ParamRegs {
+  float w[KMAX], h[KMAX], d[KMAX + 1];
+};
+
+// One unrolled pass of loads, rows `n` floats apart, so that all of an
+// element's loads are in flight at once.
+template <int KMAX, bool kExact>
+__device__ __forceinline__ ParamRegs<KMAX> load_params(const float* uw, const float* uh,
+                                                       const float* ud, size_t n, int K) {
+  ParamRegs<KMAX> r;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const bool on = kExact || k < K;
+    r.w[k] = on ? uw[k * n] : 0.0f;
+    r.h[k] = on ? uh[k * n] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k <= KMAX; ++k) r.d[k] = (kExact || k <= K) ? ud[k * n] : 0.0f;
+  return r;
+}
+
+// `select_bin` on the parameters in `r`: the maxima, the sums and the search
+// run over those registers with the same operations in the same order (the
+// sums sequential over k), so the same bits as `select_bin`, and every
+// exponential is in flight at once.  KMAX bins with kExact (K == KMAX), else
 // K <= KMAX and the bins from K up masked.  No register array is indexed by
 // a runtime value: the selected bin's two derivative logits are picked in
-// the unrolled search.
+// the unrolled search.  On return r.w and r.h hold exp(logit - max).
 template <bool kInverse, int KMAX, bool kExact>
-__device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
-                                                     const float* uh,
-                                                     const float* ud, size_t n,
-                                                     int K_arg, int code,
-                                                     float bound,
+__device__ __forceinline__ Selection select_bin_regs(float x, ParamRegs<KMAX>& r, int K_arg,
+                                                     int code, float bound,
                                                      const Consts& c) {
   const int K = kExact ? KMAX : K_arg;
   Selection e;
@@ -198,31 +231,21 @@ __device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
   e.span = 2.0f * bound;
   e.inside = (x >= left) && (x <= right);
   if (e.is_circ) {
-    float r = fmodf(x - left, e.span);
-    if (r < 0.0f) r += e.span;
-    e.xs = left + r;
+    float m = fmodf(x - left, e.span);
+    if (m < 0.0f) m += e.span;
+    e.xs = left + m;
   } else {
     e.xs = fminf(fmaxf(x, left), right);
   }
 
-  float w[KMAX], h[KMAX], d[KMAX + 1];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    const bool on = kExact || k < K;
-    w[k] = on ? uw[k * n] : 0.0f;
-    h[k] = on ? uh[k * n] : 0.0f;
-  }
-#pragma unroll
-  for (int k = 0; k <= KMAX; ++k) d[k] = (kExact || k <= K) ? ud[k * n] : 0.0f;
-
-  // softmax statistics; w and h then hold exp(logit - max)
-  e.wmax = w[0];
-  e.hmax = h[0];
+  // softmax statistics; r.w and r.h then hold exp(logit - max)
+  e.wmax = r.w[0];
+  e.hmax = r.h[0];
 #pragma unroll
   for (int k = 1; k < KMAX; ++k) {
     if (kExact || k < K) {
-      e.wmax = fmaxf(e.wmax, w[k]);
-      e.hmax = fmaxf(e.hmax, h[k]);
+      e.wmax = fmaxf(e.wmax, r.w[k]);
+      e.hmax = fmaxf(e.hmax, r.h[k]);
     }
   }
   e.wsum = 0.0f;
@@ -230,10 +253,10 @@ __device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
     if (kExact || k < K) {
-      w[k] = expf(w[k] - e.wmax);
-      h[k] = expf(h[k] - e.hmax);
-      e.wsum += w[k];
-      e.hsum += h[k];
+      r.w[k] = expf(r.w[k] - e.wmax);
+      r.h[k] = expf(r.h[k] - e.hmax);
+      e.wsum += r.w[k];
+      e.hsum += r.h[k];
     }
   }
 
@@ -250,8 +273,8 @@ __device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
     if (kExact || k < K) {
-      const float p_w = w[k] / e.wsum;
-      const float p_h = h[k] / e.hsum;
+      const float p_w = r.w[k] / e.wsum;
+      const float p_h = r.h[k] / e.hsum;
       const float w_k = (c.min_bin_width + c.fw * p_w) * e.span;
       const float h_k = (c.min_bin_height + c.fh * p_h) * e.span;
       const float cw_next = cw + w_k;
@@ -265,8 +288,8 @@ __device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
         e.w = w_k;
         e.ch = ch;
         e.h = h_k;
-        d_lo = d[k];
-        d_hi = d[k + 1];
+        d_lo = r.d[k];
+        d_hi = r.d[k + 1];
         e.pw = p_w;
         e.ph = p_h;
         found = true;
@@ -280,7 +303,7 @@ __device__ __forceinline__ Selection select_bin_regs(float x, const float* uw,
   }
 
   // knot slopes: linear tails pin both ends to 1, circular ones close d_K = d_0
-  const float d0_raw = c.min_derivative + softplus(d[0]);
+  const float d0_raw = c.min_derivative + softplus(r.d[0]);
   e.dk = e.k == 0 ? (e.is_lin ? 1.0f : d0_raw) : c.min_derivative + softplus(d_lo);
   if (e.k + 1 == K && e.is_lin) {
     e.dk1 = 1.0f;
@@ -489,7 +512,8 @@ __device__ __forceinline__ PostGrads post_math_vjp_inverse(const Selection& e,
 // (prefix sums) the logits of every bin below k*, then softmax backward;
 // the slopes dk, dk1 go to the derivative logits of knots k* and k*+1
 // through softplus' gradient sigmoid, with the linear and circular boundary
-// structure.
+// structure.  This form recomputes the probabilities and reads the logits
+// from memory again.
 template <bool kInverse>
 __device__ __forceinline__ void spline_element_backward(
     const Selection& e, float ybar, float lbar, const float* uw,
@@ -532,6 +556,57 @@ __device__ __forceinline__ void spline_element_backward(
     if (j == e.k + 1 && !(j == K && (e.is_lin || e.is_circ))) gd += g.dk1;
     if (j == 0 && e.k == K - 1 && e.is_circ && !e.is_lin) gd += g.dk1;
     dud[j * n_out] = gd * sigmoid(ud[j * n_in]);
+  }
+}
+
+// `spline_element_backward` on the registers that `select_bin_regs` left in
+// `r`: the probabilities are exp(logit - max) / sum from r.w and r.h, the
+// sigmoids are of the logits in r.d, and no parameter is read from memory
+// again.  The operations and their order are the loops' (built on the CPU
+// without contraction the two agree bit for bit), but nvcc contracts
+// multiply-adds into fmas differently in the two kernels, so on the card
+// the outputs differ from the loops' by float32 rounding (PERF.md).
+// Unrolled over KMAX; with K < KMAX the bins from K up write nothing.
+template <bool kInverse, int KMAX, bool kExact>
+__device__ __forceinline__ void spline_element_backward_regs(
+    const Selection& e, const ParamRegs<KMAX>& r, float ybar, float lbar, int K_arg,
+    const Consts& c, float* dx, float* duw, float* duh, float* dud, size_t n_out) {
+  const int K = kExact ? KMAX : K_arg;
+  const bool use_spline = e.inside || e.is_circ;
+  const float yb = use_spline ? ybar : 0.0f;
+  const float lb = use_spline ? lbar : 0.0f;
+  const PostGrads g = kInverse ? post_math_vjp_inverse(e, yb, lb)
+                               : post_math_vjp_forward(e, yb, lb);
+  const float pass_through = (e.is_circ || e.inside) ? 1.0f : 0.0f;
+  *dx = g.xs * pass_through + (use_spline ? 0.0f : ybar);
+
+  const float gw_hit = g.w * (c.fw * e.span);
+  const float gw_below = g.cw * (c.fw * e.span);
+  const float gh_hit = g.h * (c.fh * e.span);
+  const float gh_below = g.ch * (c.fh * e.span);
+  const float sum_w = e.pw * gw_hit + e.pw_below * gw_below;
+  const float sum_h = e.ph * gh_hit + e.ph_below * gh_below;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (kExact || k < K) {
+      const float p_w = r.w[k] / e.wsum;
+      const float p_h = r.h[k] / e.hsum;
+      const float gw = k == e.k ? gw_hit : (k < e.k ? gw_below : 0.0f);
+      const float gh = k == e.k ? gh_hit : (k < e.k ? gh_below : 0.0f);
+      duw[k * n_out] = p_w * (gw - sum_w);
+      duh[k * n_out] = p_h * (gh - sum_h);
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j <= KMAX; ++j) {
+    if (kExact || j <= K) {
+      float gd = 0.0f;
+      if (j == e.k && !(j == 0 && e.is_lin)) gd += g.dk;
+      if (j == e.k + 1 && !(j == K && (e.is_lin || e.is_circ))) gd += g.dk1;
+      if (j == 0 && e.k == K - 1 && e.is_circ && !e.is_lin) gd += g.dk1;
+      dud[j * n_out] = gd * sigmoid(r.d[j]);
+    }
   }
 }
 

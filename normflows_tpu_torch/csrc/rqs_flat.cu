@@ -39,17 +39,22 @@
 // write is coalesced across a warp, and the ragged edge masked rather
 // than padded.
 //
-// The forward's launches are small: the sliced inverse gives it N = 4096,
-// 256 times a sample, and one element's chain of loads and exponentials,
-// not the bytes, sets their time.  So the forward takes its bin count as a
-// template argument (`select_bin_regs`): 8 and 10 exactly (the large-D and
-// coupled models, the flagship and the ablation), K <= kMaxBins with the
-// bins above K masked, and `select_bin`'s loops over a runtime K above
-// that.  An element's 3K+1 parameters are loaded in one unrolled pass and
-// every exponential is in flight at once.  Its block size follows N, so
-// that a small launch spreads over the SMs (N = 4096: 64 blocks of 64
-// threads, where 256-thread blocks gave 16) and a large one keeps 256
-// threads a block.  The backward keeps `select_bin` and 256 threads.
+// The launches are small: the sliced inverse gives the forward N = 4096,
+// 256 times a sample, and the backward the same N, 256 times a reverse-KL
+// step; one element's chain of loads and exponentials, not the bytes, sets
+// their time.  So both kernels take the bin count as a template argument:
+// 8 and 10 exactly (the large-D and coupled models, the flagship and the
+// ablation), K <= kMaxBins with the bins above K masked, and the loops of
+// `select_bin` / `spline_element_backward` over a runtime K above that.
+// An element's 3K+1 parameters are loaded into registers in one unrolled
+// pass (`rqs::ParamRegs`), so that every load and every exponential is in
+// flight at once, and the backward scatters from the same registers
+// (exp(logit - max) of every width and height, the raw derivative logits)
+// rather than reading and exponentiating them again.  Both follow the
+// loops' operations in their order, so they give the same bits.  Their
+// block size follows N (`rqs::block_threads`), so that a small launch
+// spreads over the SMs (N = 4096: 64 blocks of 64 threads, where 256-thread
+// blocks gave 16) and a large one keeps 256 threads a block.
 
 #include "rqs_common.cuh"
 
@@ -59,8 +64,8 @@ using rqs::Consts;
 using rqs::Selection;
 
 constexpr int kThreads = 256;
-constexpr int kMaxBins = 16;   // the largest K of the register path
-constexpr int kMinBlocks = 128;  // a forward launch's blocks, where N allows
+constexpr int kMaxBins = 16;     // the largest K of the register path
+constexpr int kMinBlocks = 128;  // a launch's blocks, where N allows
 
 // KB bins (kExact) or K <= KB; KB = 0: `select_bin` over a runtime K
 template <bool kInverse, int KB, bool kExact>
@@ -79,42 +84,14 @@ rqs_flat_kernel(const float* __restrict__ x, const float* __restrict__ uw,
     e = rqs::select_bin<kInverse>(xn, uw + n, uh + n, ud + n, stride, K, codes[n],
                                   bounds[n], consts);
   } else {
-    e = rqs::select_bin_regs<kInverse, KB, kExact>(xn, uw + n, uh + n, ud + n, stride, K,
-                                                    codes[n], bounds[n], consts);
+    rqs::ParamRegs<KB> r = rqs::load_params<KB, kExact>(uw + n, uh + n, ud + n, stride, K);
+    e = rqs::select_bin_regs<kInverse, KB, kExact>(xn, r, K, codes[n], bounds[n], consts);
   }
   rqs::spline_element<kInverse>(e, xn, y + n, ld + n);
 }
 
-// The forward's threads a block: 256 or 128 where that still gives
-// kMinBlocks blocks, else 64.
-int forward_threads(int N) {
-  for (int t = kThreads; t > 64; t /= 2)
-    if ((N + t - 1) / t >= kMinBlocks) return t;
-  return 64;
-}
-
-template <bool kInverse>
-void launch_forward(const float* x, const float* uw, const float* uh, const float* ud,
-                    const int* codes, const float* bounds, float* y, float* ld, int N,
-                    size_t stride, int K, const Consts& consts, cudaStream_t s) {
-  const int threads = forward_threads(N);
-  const int blocks = (N + threads - 1) / threads;
-#define RQS_FLAT_LAUNCH(KB, EXACT)                                             \
-  rqs_flat_kernel<kInverse, KB, EXACT><<<blocks, threads, 0, s>>>(             \
-      x, uw, uh, ud, codes, bounds, y, ld, N, stride, K, consts)
-  if (K == 8) {
-    RQS_FLAT_LAUNCH(8, true);
-  } else if (K == 10) {
-    RQS_FLAT_LAUNCH(10, true);
-  } else if (K <= kMaxBins) {
-    RQS_FLAT_LAUNCH(kMaxBins, false);
-  } else {
-    RQS_FLAT_LAUNCH(0, false);
-  }
-#undef RQS_FLAT_LAUNCH
-}
-
-template <bool kInverse>
+// The same bin counts as the forward's
+template <bool kInverse, int KB, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 rqs_flat_backward_kernel(const float* __restrict__ x,
                          const float* __restrict__ uw,
@@ -133,11 +110,62 @@ rqs_flat_backward_kernel(const float* __restrict__ x,
   float* duw = dparams + n;
   float* duh = duw + static_cast<size_t>(K) * out;
   float* dud = duh + static_cast<size_t>(K) * out;
-  const Selection e = rqs::select_bin<kInverse>(
-      x[n], uw + n, uh + n, ud + n, stride, K, codes[n], bounds[n], consts);
-  rqs::spline_element_backward<kInverse>(e, ybar[n], lbar[n], uw + n, uh + n,
-                                         ud + n, stride, K, consts, dx + n,
-                                         duw, duh, dud, out);
+  if constexpr (KB == 0) {
+    const Selection e = rqs::select_bin<kInverse>(
+        x[n], uw + n, uh + n, ud + n, stride, K, codes[n], bounds[n], consts);
+    rqs::spline_element_backward<kInverse>(e, ybar[n], lbar[n], uw + n, uh + n,
+                                           ud + n, stride, K, consts, dx + n,
+                                           duw, duh, dud, out);
+  } else {
+    rqs::ParamRegs<KB> r = rqs::load_params<KB, kExact>(uw + n, uh + n, ud + n, stride, K);
+    const Selection e =
+        rqs::select_bin_regs<kInverse, KB, kExact>(x[n], r, K, codes[n], bounds[n], consts);
+    rqs::spline_element_backward_regs<kInverse, KB, kExact>(e, r, ybar[n], lbar[n], K, consts,
+                                                            dx + n, duw, duh, dud, out);
+  }
+}
+
+template <bool kInverse>
+void launch_forward(const float* x, const float* uw, const float* uh, const float* ud,
+                    const int* codes, const float* bounds, float* y, float* ld, int N,
+                    size_t stride, int K, const Consts& consts, cudaStream_t s) {
+  const int threads = rqs::block_threads(N, 1, kMinBlocks);
+  const int blocks = (N + threads - 1) / threads;
+#define RQS_FLAT_LAUNCH(KB, EXACT)                                             \
+  rqs_flat_kernel<kInverse, KB, EXACT><<<blocks, threads, 0, s>>>(             \
+      x, uw, uh, ud, codes, bounds, y, ld, N, stride, K, consts)
+  if (K == 8) {
+    RQS_FLAT_LAUNCH(8, true);
+  } else if (K == 10) {
+    RQS_FLAT_LAUNCH(10, true);
+  } else if (K <= kMaxBins) {
+    RQS_FLAT_LAUNCH(kMaxBins, false);
+  } else {
+    RQS_FLAT_LAUNCH(0, false);
+  }
+#undef RQS_FLAT_LAUNCH
+}
+
+template <bool kInverse>
+void launch_backward(const float* x, const float* uw, const float* uh, const float* ud,
+                     const int* codes, const float* bounds, const float* ybar,
+                     const float* lbar, float* dx, float* dparams, int N, size_t stride,
+                     int K, const Consts& consts, cudaStream_t s) {
+  const int threads = rqs::block_threads(N, 1, kMinBlocks);
+  const int blocks = (N + threads - 1) / threads;
+#define RQS_FLAT_BACKWARD_LAUNCH(KB, EXACT)                                    \
+  rqs_flat_backward_kernel<kInverse, KB, EXACT><<<blocks, threads, 0, s>>>(    \
+      x, uw, uh, ud, codes, bounds, ybar, lbar, dx, dparams, N, stride, K, consts)
+  if (K == 8) {
+    RQS_FLAT_BACKWARD_LAUNCH(8, true);
+  } else if (K == 10) {
+    RQS_FLAT_BACKWARD_LAUNCH(10, true);
+  } else if (K <= kMaxBins) {
+    RQS_FLAT_BACKWARD_LAUNCH(kMaxBins, false);
+  } else {
+    RQS_FLAT_BACKWARD_LAUNCH(0, false);
+  }
+#undef RQS_FLAT_BACKWARD_LAUNCH
 }
 
 bool valid(int N, int K, long long stride) {
@@ -183,17 +211,14 @@ extern "C" int rqs_flat_backward(const float* x, const float* uw,
   if (!valid(N, K, stride)) return static_cast<int>(cudaErrorInvalidValue);
   const Consts consts =
       rqs::make_consts(K, min_bin_width, min_bin_height, min_derivative);
-  const int blocks = (N + kThreads - 1) / kThreads;
   const size_t st = static_cast<size_t>(stride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inverse) {
-    rqs_flat_backward_kernel<true><<<blocks, kThreads, 0, s>>>(
-        x, uw, uh, ud, codes, bounds, ybar, lbar, dx, dparams, N, st, K,
-        consts);
+    launch_backward<true>(x, uw, uh, ud, codes, bounds, ybar, lbar, dx, dparams, N, st, K,
+                          consts, s);
   } else {
-    rqs_flat_backward_kernel<false><<<blocks, kThreads, 0, s>>>(
-        x, uw, uh, ud, codes, bounds, ybar, lbar, dx, dparams, N, st, K,
-        consts);
+    launch_backward<false>(x, uw, uh, ud, codes, bounds, ybar, lbar, dx, dparams, N, st, K,
+                           consts, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

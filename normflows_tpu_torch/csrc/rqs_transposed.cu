@@ -30,17 +30,25 @@
 // floats an element and writes 2 (at F=2, K=10, B=2^14: 4.46 MB, 1.33 us at
 // 3.35 TB/s); the backward reads 3 + (3K+1) and writes 1 + (3K+1) (8.65 MB,
 // 2.58 us).  Each does a few hundred operations an element, ~10^7 in all,
-// far below the bytes' time.  The simple design answers only the access
-// pattern: one thread per (f, b) element, the batch index on threadIdx.x,
-// so every read of a parameter row and every write is coalesced across a
-// warp.  Each thread walks its K logits several times (max, sum of exps,
-// search, and in the backward the two scatter sweeps); the later walks hit
-// L1, so device memory sees each byte once.  The ragged edge of B is
-// masked, not padded.  It does not hide latency: at B = 2^14 the 2^15
-// threads give each SM about 8 warps, whose loop-carried loads stall, and
-// on an H100 SXM (700 W) a forward launch takes ~14.6 us, ~11x the bound
-// (chip_smoke.py; PERF.md).  Unrolling K and more work per thread are the
-// levers for a later change.
+// far below the bytes' time.  Both put one thread on each (f, b) element,
+// the batch index on threadIdx.x, so every read of a parameter row and
+// every write is coalesced across a warp, and mask the ragged edge of B
+// rather than pad it.
+//
+// What sets the forward's time is one element's chain of dependent loads
+// and exponentials: at B = 2^14 the 2^15 threads give each SM about 8
+// warps, too few to hide it.  So the forward takes the bin count as a
+// template argument, as the flat kernels do: 10 and 8 exactly (the
+// flagship, the large-D model), K <= kMaxBins with the bins above K masked,
+// and `select_bin`'s loops over a runtime K above that.  An element's 3K+1
+// parameters are loaded into registers in one unrolled pass
+// (`rqs::select_bin_regs`), so that all of its loads and exponentials are
+// in flight at once, with the loops' operations in their order (the same
+// bits).  Its block size follows the element count (`rqs::block_threads`),
+// so that the grid spreads over the 132 SMs.  The backward keeps
+// `select_bin`'s loops and 256-thread blocks: each thread walks its K
+// logits several times (max, sum of exps, search, the two scatter sweeps),
+// the later walks hitting L1.
 
 #include "rqs_common.cuh"
 
@@ -51,18 +59,22 @@ using rqs::Selection;
 
 constexpr int kMaxFeatures = 8;
 constexpr int kThreads = 256;
+constexpr int kMaxBins = 16;     // the largest K of the forward's register path
+constexpr int kMinBlocks = 256;  // a forward launch's blocks, where F and B allow
 
 struct Tails {
   int code[kMaxFeatures];
   float bound[kMaxFeatures];
 };
 
-template <bool kInverse>
+// KB bins (kExact) or K <= KB; KB = 0: `select_bin` over a runtime K
+template <bool kInverse, int KB, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 rqs_transposed_kernel(const float* __restrict__ x_t,
                       const float* __restrict__ params_t,
                       float* __restrict__ y_t, float* __restrict__ ld_t,
-                      Tails tails, int B, int K, Consts consts) {
+                      Tails tails, int B, int K_arg, Consts consts) {
+  const int K = kExact ? KB : K_arg;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int f = blockIdx.y;
@@ -74,9 +86,36 @@ rqs_transposed_kernel(const float* __restrict__ x_t,
 
   const size_t i = static_cast<size_t>(f) * n + b;
   const float x = x_t[i];
-  const Selection e = rqs::select_bin<kInverse>(
-      x, uw, uh, ud, n, K, tails.code[f], tails.bound[f], consts);
+  Selection e;
+  if constexpr (KB == 0) {
+    e = rqs::select_bin<kInverse>(x, uw, uh, ud, n, K, tails.code[f], tails.bound[f], consts);
+  } else {
+    rqs::ParamRegs<KB> r = rqs::load_params<KB, kExact>(uw, uh, ud, n, K);
+    e = rqs::select_bin_regs<kInverse, KB, kExact>(x, r, K, tails.code[f], tails.bound[f],
+                                                    consts);
+  }
   rqs::spline_element<kInverse>(e, x, y_t + i, ld_t + i);
+}
+
+template <bool kInverse>
+void launch_forward(const float* x_t, const float* params_t, float* y_t, float* ld_t,
+                    const Tails& tails, int F, int B, int K, const Consts& consts,
+                    cudaStream_t s) {
+  const int threads = rqs::block_threads(B, F, kMinBlocks);
+  const dim3 grid((B + threads - 1) / threads, F);
+#define RQS_PLANAR_LAUNCH(KB, EXACT)                                           \
+  rqs_transposed_kernel<kInverse, KB, EXACT><<<grid, threads, 0, s>>>(         \
+      x_t, params_t, y_t, ld_t, tails, B, K, consts)
+  if (K == 10) {
+    RQS_PLANAR_LAUNCH(10, true);
+  } else if (K == 8) {
+    RQS_PLANAR_LAUNCH(8, true);
+  } else if (K <= kMaxBins) {
+    RQS_PLANAR_LAUNCH(kMaxBins, false);
+  } else {
+    RQS_PLANAR_LAUNCH(0, false);
+  }
+#undef RQS_PLANAR_LAUNCH
 }
 
 template <bool kInverse>
@@ -140,14 +179,11 @@ extern "C" int rqs_transposed_forward(const float* x_t, const float* params_t,
   }
   const Consts consts =
       rqs::make_consts(K, min_bin_width, min_bin_height, min_derivative);
-  const dim3 grid((B + kThreads - 1) / kThreads, F);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inverse) {
-    rqs_transposed_kernel<true><<<grid, kThreads, 0, s>>>(
-        x_t, params_t, y_t, ld_t, tails, B, K, consts);
+    launch_forward<true>(x_t, params_t, y_t, ld_t, tails, F, B, K, consts, s);
   } else {
-    rqs_transposed_kernel<false><<<grid, kThreads, 0, s>>>(
-        x_t, params_t, y_t, ld_t, tails, B, K, consts);
+    launch_forward<false>(x_t, params_t, y_t, ld_t, tails, F, B, K, consts, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

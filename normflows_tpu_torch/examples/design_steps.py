@@ -1,6 +1,7 @@
-"""The design steps of the port's redesigned forward kernels, timed on the
-card: the fused MADE forward (``csrc/made_fused.cu``) and the flat
-RQ-spline forward (``csrc/rqs_flat.cu``).
+"""The design steps of the port's redesigned kernels, timed on the card: the
+fused MADE forward (``csrc/made_fused.cu``), the flat RQ-spline forward and
+backward (``csrc/rqs_flat.cu``) and the planar RQ-spline forward/inverse
+(``csrc/rqs_transposed.cu``).
 
     python normflows_tpu_torch/examples/design_steps.py [--parent DIR] [--out FILE]
 
@@ -20,30 +21,47 @@ process, in turns (shipped, variants, shipped, variants):
 * MADE ``chain_rows_16`` / ``chain_rows_32``: the chain on 16-row tiles
   (the backward tile pass's; shipped for float32) in both precisions, or on
   32-row tiles (shipped for bf16) in both;
-* flat ``loops_256``: ``select_bin``'s loops over a runtime K at 256
-  threads a block, the earlier kernel's arithmetic and launch;
-* flat ``registers_256``: the register selection at 256 threads a block;
-* flat ``lane_groups``: one element per group of 8 or 16 lanes (one bin a
-  lane; shuffled maxima, sequential sums of shuffled values, a ballot).
+* flat ``loops_256``: the forward on ``select_bin``'s loops over a runtime
+  K at 256 threads a block, the earlier kernel's arithmetic and launch;
+* flat ``registers_256``: the forward's register selection at 256 threads
+  a block;
+* flat ``lane_groups``: the forward on one element per group of 8 or 16
+  lanes (one bin a lane; shuffled maxima, sequential sums of shuffled
+  values, a ballot);
+* flat ``backward_loops_256``: the backward on ``select_bin`` and
+  ``spline_element_backward``'s loops over a runtime K at 256 threads a
+  block, the earlier backward;
+* flat ``backward_registers_256``: the backward from registers at 256
+  threads a block;
+* flat ``backward_vjp_all``: the ablation's ``vjp_all_element``
+  (``csrc/rqs_flat_ablate.cu``, every residual of every bin kept, sums in
+  another order) in the shipped backward's launch;
+* planar ``planar_loops_256``: the forward/inverse on ``select_bin``'s
+  loops at 256 threads a block, the earlier kernel;
+* planar ``planar_registers_256`` / ``planar_registers_64``: the register
+  selection at 256 or 64 threads a block (128 shipped).
 
-For each it prints one JSON line: device µs of one call (64 calls of the
-flat kernel or 16 of the MADE, one CUDA graph, replayed), device µs of
-each CUDA kernel a call launches (torch.profiler over 10 calls),
-registers and spills (ptxas), and max |output - shipped output|.  The
-flat kernel runs at N = 4096 (the sliced inverse's slab), 16,384 (the
-coupled model's request) and 262,144 (the large-D density direction),
-K = 8, beside the launch floor: ``torch.neg`` on the same N floats in the
-same kind of graph.  The MADE runs at the large-D shape (B 4096, F 64,
-H 256, R 1, P 1600).  With ``--parent DIR`` (a checkout of another
-commit) that checkout's kernels are timed too, through the same public
-entry points, in a process of their own.  ``--dry-run`` writes the
-variant sources and stops: it needs no card, and a CPU test runs it to
-keep every variant applicable to the shipped sources.
+For each it prints one JSON line: device µs of one call (64 calls of a
+spline kernel or 16 of the MADE, one CUDA graph, replayed), device µs of
+each CUDA kernel a MADE call launches (torch.profiler over 10 calls),
+registers and spills (ptxas), and max |output - shipped output| of the
+forward and of the backward, at the timed size and, for the spline kernels,
+at every bin count of SWEEP_BINS.  The flat kernels run at N = 4096 (the sliced
+inverse's slab), 16,384 (the coupled model's request) and 262,144 (the
+large-D density direction), K = 8, the planar kernels at the flagship's
+F = 2, K = 10, B = 2^14, each beside the launch floor: ``torch.neg`` on the
+same number of floats in the same kind of graph.  The MADE runs at the
+large-D shape (B 4096, F 64, H 256, R 1, P 1600).  With ``--parent DIR`` (a
+checkout of another commit) that checkout's kernels are timed too, through
+the same public entry points, in a process of their own.  ``--dry-run``
+writes the variant sources and stops: it needs no card, and a CPU test runs
+it to keep every variant applicable to the shipped sources.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import re
@@ -55,6 +73,9 @@ PACKAGE = Path(__file__).resolve().parent.parent
 MADE_SHAPE = (4096, 64, 256, 1, 25)  # B, F, H, R, output multiplier
 FLAT_SIZES = ((4096, True), (2**14, False), (4096 * 64, False))  # N, slab
 BINS, SLAB_FEATURES, PARAM_STD = 8, 64, 0.5
+PLANAR_SHAPE = (2, 10, 2**14)  # F, K, B: the flagship's
+PLANAR_TAILS = ((1, 2), (5.0, 3.141592653589793))
+SWEEP_BINS = (2, 8, 10, 16, 20)  # every instantiation; outputs only, no times
 
 # the flat forward's lane-group design (one element per group of G lanes)
 _GROUP_KERNEL = r'''
@@ -199,6 +220,14 @@ def _patch(text, old, new, count=1):
     return text.replace(old, new, count)
 
 
+def _patch_in(text, anchor, old, new):
+    """``_patch`` of the first ``old`` after ``anchor`` (a function's head)."""
+    i = text.find(anchor)
+    if i < 0:
+        raise ValueError(f"design_steps: the shipped source no longer holds {anchor[:60]!r}")
+    return text[:i] + _patch(text[i:], old, new)
+
+
 def _find(pattern, text):
     m = re.search(pattern, text, re.S)
     if m is None:
@@ -231,31 +260,75 @@ def made_variants(src):
     }
 
 
+def _fixed_threads(src, launcher, threads, old):
+    """``src`` with the launch function ``launcher``'s block size fixed."""
+    return _patch_in(src, launcher, old, f"  const int threads = {threads};")
+
+
+def _loops_only(src, launcher, macro):
+    """``src`` with ``launcher`` dispatching every K to the loops over a
+    runtime K (``macro(0, false)``)."""
+    return _patch_in(src, launcher, _find(rf"  if \(K == \d+\) \{{\n    {macro}\(.*?\n  \}}\n", src),
+                     f"  {macro}(0, false);\n")
+
+
+# the backward's register branch, replaced by the ablation's whole-block
+# pull-back (its residual arrays sized at kMaxBins, K <= 16)
+_VJP_ALL_CALL = """    vjp_all_element<kInverse>(x[n], uw + n, uh + n, ud + n, stride, K, codes[n], bounds[n],
+                              ybar[n], lbar[n], consts, dx + n, duw, duh, dud, out);
+"""
+
+
 def flat_variants(src):
-    """``{name: source}`` of the flat forward's variants."""
-    fixed = _patch(src, "int forward_threads(int N) {", "int forward_threads(int N) {\n"
-                   "  if (N > 0) return kThreads;")
+    """``{name: source}`` of the flat forward's and backward's variants."""
+    threads = "  const int threads = rqs::block_threads(N, 1, kMinBlocks);"
+    fwd, bwd = "void launch_forward(", "void launch_backward("
+    fixed = _fixed_threads(src, fwd, "kThreads", threads)
     dispatch = _find(r"  if \(K == 8\) \{.*?\} else if \(K <= kMaxBins\) \{", src)
     loops = _patch(fixed, dispatch,
                    "  if (false) {\n    RQS_FLAT_LAUNCH(8, true);\n  } else if (K < 0) {")
     anchor = "template <bool kInverse>\nvoid launch_forward("
     groups = _patch(src, anchor, _GROUP_KERNEL + anchor)
-    groups = _patch(groups, "  const int threads = forward_threads(N);\n",
-                    "  if (launch_group<kInverse>(x, uw, uh, ud, codes, bounds, y, ld, N, stride,"
-                    " K, consts, s))\n    return;\n  const int threads = forward_threads(N);\n")
-    return {"loops_256": loops, "registers_256": fixed, "lane_groups": groups}
+    groups = _patch_in(groups, fwd, threads + "\n",
+                       "  if (launch_group<kInverse>(x, uw, uh, ud, codes, bounds, y, ld, N, stride,"
+                       " K, consts, s))\n    return;\n" + threads + "\n")
+    bwd_fixed = _fixed_threads(src, bwd, "kThreads", threads)
+    ablate = (PACKAGE / "csrc" / "rqs_flat_ablate.cu").read_text()
+    vjp_all = _find(r"// The whole-block pull-back of one element.*?\n}\n", ablate)
+    bwd_anchor = "// The same bin counts as the forward's\n"
+    vjp = _patch(src, bwd_anchor, "using rqs::PostGrads;\n\n" + vjp_all + "\n" + bwd_anchor)
+    vjp = _patch(vjp, _find(r"    rqs::ParamRegs<KB> r = [^;]*;\n    const Selection e =[^;]*;\n"
+                            r"    rqs::spline_element_backward_regs[^;]*;\n", src), _VJP_ALL_CALL)
+    return {"loops_256": loops, "registers_256": fixed, "lane_groups": groups,
+            "backward_loops_256": _loops_only(bwd_fixed, bwd, "RQS_FLAT_BACKWARD_LAUNCH"),
+            "backward_registers_256": bwd_fixed, "backward_vjp_all": vjp}
+
+
+def planar_variants(src):
+    """``{name: source}`` of the planar forward's variants."""
+    threads = "  const int threads = rqs::block_threads(B, F, kMinBlocks);"
+    fwd = "void launch_forward("
+    fixed = _fixed_threads(src, fwd, "kThreads", threads)
+    return {"planar_loops_256": _loops_only(fixed, fwd, "RQS_PLANAR_LAUNCH"),
+            "planar_registers_256": fixed,
+            "planar_registers_64": _fixed_threads(src, fwd, "64", threads)}
+
+
+# kind: (the source's stem, its variants, the module that loads it)
+KINDS = {"made": ("made_fused", made_variants, "made_fused"),
+         "flat": ("rqs_flat", flat_variants, "spline_flat"),
+         "planar": ("rqs_transposed", planar_variants, "spline_cuda")}
 
 
 def write_variants(build_dir):
     """Write every variant beside a copy of the shared header; returns
-    ``{("made" | "flat", name): path}``."""
+    ``{("made" | "flat" | "planar", name): path}``."""
     csrc = PACKAGE / "csrc"
     build_dir.mkdir(parents=True, exist_ok=True)
     for header in csrc.glob("*.cuh"):
         (build_dir / header.name).write_text(header.read_text())
     out = {}
-    for kind, stem, make in (("made", "made_fused", made_variants),
-                             ("flat", "rqs_flat", flat_variants)):
+    for kind, (stem, make, _) in KINDS.items():
         for name, text in make((csrc / f"{stem}.cu").read_text()).items():
             path = build_dir / f"{stem}_{name}.cu"
             path.write_text(text)
@@ -345,11 +418,15 @@ def made_inputs(bf16, seed=50):
     return x.cuda(), [t.detach() for t in made_fused.pack(made)]
 
 
-def flat_inputs(rng, N, slab, sets=16):
+@functools.lru_cache(maxsize=None)
+def flat_inputs(N, slab, sets=16, K=BINS):
+    """16 input sets of the flat kernels at N, each with its cotangents
+    (made once a process: every variant times the same inputs)."""
     import numpy as np
     import torch
 
-    S = 3 * BINS + 1
+    rng = np.random.default_rng(N + K)
+    S = 3 * K + 1
     out = []
     for _ in range(sets):
         codes = rng.choice([1, 2], size=N).astype(np.int32)
@@ -358,63 +435,125 @@ def flat_inputs(rng, N, slab, sets=16):
         p = torch.from_numpy((PARAM_STD * rng.normal(size=(S * (SLAB_FEATURES if slab else 1), N)))
                              .astype(np.float32)).cuda()[:S]
         to = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-        out.append((to(x), p[:BINS], p[BINS:2 * BINS], p[2 * BINS:], to(codes), to(bounds)))
+        out.append((to(x), p[:K], p[K:2 * K], p[2 * K:], to(codes), to(bounds),
+                    *map(to, rng.normal(size=(2, N)).astype(np.float32))))
     return out
 
 
-def measure(label, made_source=None, flat_source=None, ptxas=None):
-    """Time the package's kernels (its sources, or the given ones) and print
-    one JSON line each for the MADE and the flat kernel."""
+@functools.lru_cache(maxsize=None)
+def planar_inputs(sets=16, K=PLANAR_SHAPE[1], B=PLANAR_SHAPE[2]):
+    """16 input sets of the planar kernels at PLANAR_SHAPE: x_t (F, B) with
+    ~20% outside +-bound, params_t (F(3K+1), B), cotangents (F, B)."""
     import numpy as np
     import torch
 
-    from normflows_tpu_torch.ops import made_fused, spline_flat
+    F = PLANAR_SHAPE[0]
+    rng = np.random.default_rng(B + K)
+    bounds = np.asarray(PLANAR_TAILS[1], np.float32)[:, None]
+    out = []
+    for _ in range(sets):
+        x = (rng.uniform(-1.25, 1.25, (F, B)) * bounds).astype(np.float32)
+        p = (PARAM_STD * rng.normal(size=(F * (3 * K + 1), B))).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a).cuda() for a in
+                         (x, p, *rng.normal(size=(2, F, B)).astype(np.float32))))
+    return out
+
+
+def _spline_entry(kind, args, inverse, backward):
+    """One call of the flat or planar wrapper on an input set."""
+    from normflows_tpu_torch.ops import spline_cuda, spline_flat
+
+    if kind == "flat":
+        if backward:
+            return spline_flat.unconstrained_rqs_dyncodes_backward(*args, inverse)
+        return spline_flat.unconstrained_rqs_dyncodes(*args[:6], inverse)
+    if backward:
+        return spline_cuda.rqs_transposed_backward(*args, *PLANAR_TAILS, inverse)
+    return spline_cuda.rqs_transposed(*args[:2], *PLANAR_TAILS, inverse)
+
+
+def time_splines(kind):
+    """``{size: {...}}`` of the flat or planar kernels: the launch floor and
+    µs a launch of the forward and the backward in both directions, and
+    their outputs on the first input set (the inverse direction's); and
+    under ``bins``, at every bin count of SWEEP_BINS (the flat slab at
+    4096 + 37, the planar B at 2^14 + 37), the outputs of both directions."""
+    import torch
+
+    sizes = ([(str(N), flat_inputs(N, slab)) for N, slab in FLAT_SIZES] if kind == "flat"
+             else [("x".join(map(str, PLANAR_SHAPE)), planar_inputs())])
+    r = {"bins": {}}
+    for K in SWEEP_BINS:
+        args = (flat_inputs(4096 + 37, True, 1, K) if kind == "flat" else
+                planar_inputs(1, K, PLANAR_SHAPE[2] + 37))[0]
+        r["bins"][f"K{K}"] = {
+            f"out{'_backward' if backward else ''}": tuple(
+                t for inverse in (False, True) for t in _spline_entry(kind, args, inverse, backward))
+            for backward in (False, True)}
+    for size, sets in sizes:
+        rot, y = itertools.cycle(sets), torch.empty_like(sets[0][0])
+        e = {"floor_us": graph_us(lambda: torch.neg(next(rot)[0], out=y), 64)}
+        for backward, inverse in itertools.product((False, True), (False, True)):
+            rot = itertools.cycle(sets)
+            key = ("backward_" if backward else "") + ("inverse_us" if inverse else "forward_us")
+            e[key] = graph_us(lambda: _spline_entry(kind, next(rot), inverse, backward), 64)
+        e["out"] = _spline_entry(kind, sets[0], True, False)
+        e["out_backward"] = _spline_entry(kind, sets[0], True, True)
+        r[size] = e
+    return r
+
+
+def measure(label, kind=None, source=None, ptxas=None):
+    """Time the package's kernels of ``kind`` (every kind without one) from
+    their shipped sources or from ``source``; one JSON line each."""
+    import importlib
 
     lines = []
-    if made_source is not None or flat_source is None:
-        made_fused.SOURCE = made_source or made_fused.SOURCE
-        r = {"kind": "made", "label": label, "shape": MADE_SHAPE}
-        for bf16 in (False, True):
-            x, ops = made_inputs(bf16)
-            run = lambda: made_fused.fused_resmade(x, *ops)  # noqa: E731
-            r["bf16" if bf16 else "f32"] = {"us": graph_us(run, 16), "launch_us": launch_us(run),
-                                            "out": run()}
+    for k in [kind] if kind else KINDS:
+        module = importlib.import_module(f"normflows_tpu_torch.ops.{KINDS[k][2]}")
+        shipped, module.SOURCE = module.SOURCE, source or module.SOURCE
+        r = {"kind": k, "label": label}
+        try:
+            if k == "made":
+                r["shape"] = MADE_SHAPE
+                for bf16 in (False, True):
+                    x, ops = made_inputs(bf16)
+                    run = lambda: module.fused_resmade(x, *ops)  # noqa: E731
+                    r["bf16" if bf16 else "f32"] = {"us": graph_us(run, 16),
+                                                    "launch_us": launch_us(run), "out": run()}
+            else:
+                r["bins"] = BINS if k == "flat" else PLANAR_SHAPE[1]
+                r.update(time_splines(k))
+        finally:
+            module.SOURCE = shipped
+        r["resources"] = resources(ptxas or "", {"made": r"made_[a-z_]*?_kernel",
+                                                 "flat": r"rqs_flat[a-z_]*?_kernel",
+                                                 "planar": r"rqs_transposed[a-z_]*?_kernel"}[k])
         lines.append(r)
-    if flat_source is not None or made_source is None:
-        spline_flat.SOURCE = flat_source or spline_flat.SOURCE
-        r = {"kind": "flat", "label": label, "bins": BINS}
-        rng = np.random.default_rng(5)
-        for N, slab in FLAT_SIZES:
-            sets = flat_inputs(rng, N, slab)
-            rot, y = itertools.cycle(sets), torch.empty(N, device="cuda")
-            e = {"floor_us": graph_us(lambda: torch.neg(next(rot)[0], out=y), 64)}
-            for inverse in (False, True):
-                rot = itertools.cycle(sets)
-                e["inverse_us" if inverse else "forward_us"] = graph_us(
-                    lambda: spline_flat.unconstrained_rqs_dyncodes(*next(rot), inverse), 64)
-            e["out"] = spline_flat.unconstrained_rqs_dyncodes(*sets[0], True)
-            r[str(N)] = e
-        lines.append(r)
-    for r in lines:
-        r["resources"] = resources(ptxas or "", r"made_[a-z_]*?_kernel" if r["kind"] == "made"
-                                   else r"rqs_flat[a-z_]*?_kernel")
     return lines
 
 
 def _strip(r, shipped):
-    """The JSON line of ``r``: outputs replaced by max |r - shipped|."""
+    """The JSON line of ``r``: each output ``out<suffix>`` replaced by
+    ``max_abs<suffix>_vs_shipped``, max |r - shipped| (None without
+    ``shipped``)."""
     out = {}
     for k, v in r.items():
-        if isinstance(v, dict) and "out" in v:
-            v = dict(v)
-            o = v.pop("out")
-            ref = shipped and shipped.get(k, {}).get("out")
-            if ref is not None:
-                pairs = zip(o, ref) if isinstance(o, tuple) else [(o, ref)]
-                ref = max(float((a - b).abs().max()) for a, b in pairs)
-            v["max_abs_vs_shipped"] = ref
+        ref = shipped.get(k) if isinstance(shipped, dict) else None
+        if isinstance(v, dict):
+            v = _strip(v, ref)
+        elif k.startswith("out"):
+            k = "max_abs" + k[3:] + "_vs_shipped"
+            pairs = list(zip(v, ref)) if isinstance(v, tuple) and ref else [(v, ref)]
+            v = None if ref is None else max(float((a - b).abs().max()) for a, b in pairs)
         out[k] = v
     return out
+
+
+def _sources():
+    from normflows_tpu_torch.ops import made_fused, spline_cuda, spline_flat
+
+    return {"made": made_fused.SOURCE, "flat": spline_flat.SOURCE, "planar": spline_cuda.SOURCE}
 
 
 def main(argv=None) -> int:
@@ -442,25 +581,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("design_steps: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from normflows_tpu_torch.ops import cuda_build, made_fused, spline_flat
+    from normflows_tpu_torch.ops import cuda_build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    info = cuda_build.build([made_fused.SOURCE, spline_flat.SOURCE, *variants.values()],
-                            force=True)
+    shipped_sources = _sources()
+    info = cuda_build.build([*shipped_sources.values(), *variants.values()], force=True)
     ptx = {p: i["ptxas"] for p, i in info.items()}
-    shipped_made, shipped_flat = made_fused.SOURCE, spline_flat.SOURCE
     for turn in range(2):
-        shipped = {r["kind"]: r for r in measure("shipped", ptxas=ptx[shipped_made] +
-                                                 ptx[shipped_flat])}
+        shipped = {r["kind"]: r for r in measure(
+            "shipped", ptxas="".join(ptx[p] for p in shipped_sources.values()))}
         for r in shipped.values():
             emit({"turn": turn, "card": smi, **_strip(r, None)})
         for (kind, name), path in variants.items():
-            made_fused.SOURCE, spline_flat.SOURCE = shipped_made, shipped_flat
-            r = measure(name, **({"made_source": path} if kind == "made" else
-                                 {"flat_source": path}), ptxas=ptx[path])[0]
+            r = measure(name, kind, path, ptxas=ptx[path])[0]
             emit({"turn": turn, "card": smi, **_strip(r, shipped[kind])})
-        made_fused.SOURCE, spline_flat.SOURCE = shipped_made, shipped_flat
     if args.parent:
         out = subprocess.run([sys.executable, __file__, "--measure-root",
                               str(args.parent.resolve())], capture_output=True, text=True)
@@ -476,9 +611,9 @@ def measure_root(root: Path) -> int:
     """Time the kernels of the checkout at ``root`` (its own package, built
     there) and print their JSON lines, outputs left out."""
     sys.path.insert(0, str(root))
-    from normflows_tpu_torch.ops import cuda_build, made_fused, spline_flat
+    from normflows_tpu_torch.ops import cuda_build
 
-    info = cuda_build.build([made_fused.SOURCE, spline_flat.SOURCE], force=True)
+    info = cuda_build.build(list(_sources().values()), force=True)
     ptxas = "".join(i["ptxas"] for i in info.values())
     for r in measure(f"parent:{root.name}", ptxas=ptxas):
         print(json.dumps(_strip(r, None)), flush=True)

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA spline kernels, planar and flat (forward and
 backward), the fused MADE's kernels and the flat backward's ablation kernel,
-against their plain PyTorch versions, a small model's serving path and
+against their plain PyTorch versions (and the register kernels against the
+loops they replaced), a small model's serving path and
 training step through the planar kernels, a D = 64 autoregressive model's
 through the flat kernels and, with fusion on, the fused MADE, and a coupled
 NSF's through the flat kernels.
@@ -42,11 +43,11 @@ def close(a, b, tol):
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=tol, rtol=tol)
 
 
-def planar_inputs(B, device, seed=0):
+def planar_inputs(B, device, seed=0, K=10):
     rng = np.random.default_rng(seed)
     bounds = np.asarray(BOUNDS, np.float32)[:, None]
     x = (rng.uniform(-1.25, 1.25, (2, B)) * bounds).astype(np.float32)
-    p = (PARAM_STD * rng.normal(size=(62, B))).astype(np.float32)
+    p = (PARAM_STD * rng.normal(size=(2 * (3 * K + 1), B))).astype(np.float32)
     return torch.from_numpy(x).to(device), torch.from_numpy(p).to(device)
 
 
@@ -62,6 +63,91 @@ def test_kernel_matches_plain(cuda, B, inverse):
     yr, ldr = spline_cuda.rqs_transposed_reference(x, p, CODES, BOUNDS, inverse)
     close(y, yr, Y_TOL)
     close(ld, ldr, LD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [2, 8, 16, 20])
+def test_kernel_bins_match_plain(cuda, K, inverse):
+    """The forward's other instantiations beside the flagship's K = 10: 8
+    exactly, 2 and 16 (K <= 16, bins masked), 20 (the loops over a runtime
+    K)."""
+    x, p = planar_inputs(2**14 + 37, cuda, K=K)
+    y, ld = spline_cuda.rqs_transposed(x, p, CODES, BOUNDS, inverse)
+    yr, ldr = spline_cuda.rqs_transposed_reference(x, p, CODES, BOUNDS, inverse)
+    close(y, yr, Y_TOL)
+    close(ld, ldr, LD_TOL)
+
+
+@pytest.fixture(scope="module")
+def variants(tmp_path_factory):
+    """The design-step variants of normflows_tpu_torch/examples/design_steps.py,
+    written from the shipped sources."""
+    from normflows_tpu_torch.examples import design_steps
+
+    return design_steps.write_variants(tmp_path_factory.mktemp("design_steps"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [2, 8, 10, 16, 20])
+def test_register_kernel_gives_the_loops_bits(cuda, variants, monkeypatch, K, inverse):
+    """The planar forward from registers against the same source built with
+    the loops over a runtime K at 256 threads a block (``planar_loops_256``,
+    the earlier kernel): the same operations in the same order, the same
+    bits."""
+    x, p = planar_inputs(2**14 + 37, cuda, K=K)
+    got = spline_cuda.rqs_transposed(x, p, CODES, BOUNDS, inverse)
+    monkeypatch.setattr(spline_cuda, "SOURCE", variants[("planar", "planar_loops_256")])
+    want = spline_cuda.rqs_transposed(x, p, CODES, BOUNDS, inverse)
+    for name, a, b in zip(("y", "ld"), got, want):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+def flat_backward_builds(cuda, variants, monkeypatch, K, inverse):
+    """The flat backward of the shipped source and of ``backward_loops_256``
+    (the earlier kernel) on the same inputs, with those inputs."""
+    args = flat_inputs(4096 + 37, cuda) if K == 8 else sweep_inputs(4096 + 37, cuda, K)
+    yb, lb = (torch.from_numpy(a).to(cuda)
+              for a in np.random.default_rng(1).normal(size=(2, 4096 + 37)).astype(np.float32))
+    got = spline_flat.unconstrained_rqs_dyncodes_backward(*args, yb, lb, inverse)
+    monkeypatch.setattr(spline_flat, "SOURCE", variants[("flat", "backward_loops_256")])
+    want = spline_flat.unconstrained_rqs_dyncodes_backward(*args, yb, lb, inverse)
+    return got, want, (*args, yb, lb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [2, 8, 10, 16, 20])
+def test_register_backward_against_the_loops(cuda, variants, monkeypatch, K, inverse):
+    """The flat backward from registers and the loops it replaced
+    (``backward_loops_256``) each within the float64 bars (1e-3) on the same
+    inputs.  Their bits differ where the registers are used (K <= 16: nvcc
+    contracts multiply-adds into fmas differently in the two kernels; the
+    next test builds both without contraction) and agree at K = 20, where
+    both run the loops."""
+    got, want, args = flat_backward_builds(cuda, variants, monkeypatch, K, inverse)
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    ref = spline_flat.unconstrained_rqs_dyncodes_backward_reference(*f64, inverse)
+    for a, b, r in zip(got, want, ref):
+        close(a, r, 1e-3)
+        close(b, r, 1e-3)
+        assert K <= 16 or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [2, 8, 10, 16, 20])
+def test_register_backward_gives_the_loops_bits_without_contraction(
+        cuda, variants, monkeypatch, K, inverse):
+    """Built with ``-fmad=false`` (no multiply-add contracted into an fma),
+    the flat backward from registers gives the loops' bits: the same
+    operations in the same order."""
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ("-fmad=false",))
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
+    got, want, _ = flat_backward_builds(cuda, variants, monkeypatch, K, inverse)
+    for name, a, b in zip(("dx", "duw", "duh", "dud"), got, want):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
 
 
 @pytest.mark.gpu

@@ -6,7 +6,8 @@ entry points, against the JAX package's flat Pallas kernels in interpret mode
   ``unconstrained_rqs_pallas_dyncodes`` at N = 640 with mixed per-element
   codes, both directions (tests/test_pallas.py's bars: 1e-5 on outputs, 1e-4
   on log-dets), the same at K = 2 and K = 20 (N = 96), and its plain
-  backward against ``jax.vjp`` through the kernel at N = 256 (1e-3);
+  backward against ``jax.vjp`` through the kernel at N = 256 and K = 2, 8
+  and 20 (1e-3);
 * ``unconstrained_rational_quadratic_spline_flat`` against
   ``unconstrained_rational_quadratic_spline_pallas`` with static mixed tails
   at (B = 17, D = 3, K = 5), and along ``event_axis = 1`` (2e-5 / 2e-4), and
@@ -14,7 +15,7 @@ entry points, against the JAX package's flat Pallas kernels in interpret mode
 * the wrapper's checks, its CPU dispatch and the gradients it gives.
 
 Each JAX function below is compiled once for both directions and each
-shape: six compiles in all.  The CUDA kernels are held against the plain versions on the card,
+shape: eight compiles in all.  The CUDA kernels are held against the plain versions on the card,
 in tests/test_torch_gpu.py and chip_smoke.py.
 """
 
@@ -103,8 +104,11 @@ def test_plain_matches_jax_dyncodes_kernel_bins(K, inverse):
 
 
 @DIRECTIONS
-def test_plain_backward_matches_jax_backward_kernel(inverse):
-    x, uw, uh, ud, codes, bounds = flat_inputs(256, 8, seed=1)
+@pytest.mark.parametrize("K", [2, 8, 20])
+def test_plain_backward_matches_jax_backward_kernel(K, inverse):
+    """K = 8 (the large-D model) and the bin sweep's ends, 2 (the card's
+    masked instantiation) and 20 (its loops over a runtime K)."""
+    x, uw, uh, ud, codes, bounds = flat_inputs(256, K, seed=1)
     ybar, lbar = np.random.default_rng(2).normal(size=(2, 256)).astype(np.float32)
     gj = jax_dyncodes_vjp()(*map(jnp.asarray, (x, uw, uh, ud, codes, bounds, ybar, lbar)))
     gt = spline_flat.unconstrained_rqs_dyncodes_backward_reference(

@@ -38,9 +38,12 @@ def planar_inputs(F, K, B, seed=0):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 @pytest.mark.parametrize("B", [1024, 1024 + 37])
-@pytest.mark.parametrize("K", [8, 10])
+@pytest.mark.parametrize("K", [2, 8, 10, 16, 20])
 @pytest.mark.parametrize("F", [2, 3])
 def test_plain_matches_jax_planar_kernel(F, K, B, inverse):
+    """The models' K = 8 and 10, and the bin counts that reach the card
+    kernel's other instantiations: 2 and 16 (K <= 16, bins masked) and 20
+    (the loops over a runtime K)."""
     codes, bounds = TAILS[F]
     x_t, p_t = planar_inputs(F, K, B)
     yj, ldj = jpl.rqs_transposed_pallas(jnp.asarray(x_t), jnp.asarray(p_t), codes,
