@@ -154,6 +154,9 @@ LD_FUSED_STEPS = 20
 # 2^14 x 2 elements and 10 bins; sel_only's bar is 1e-5 (its output is the
 # selection's values summed, no pull-back), the others the flat backward's
 ABLATE_N, ABLATE_BINS, ABLATE_SEL_TOL = 2**15, 10, 1e-5
+# the ablation kernel's other bin counts: 8 exactly, 16 (K <= 16, bins
+# masked) and 20 (the loops over a runtime K, which vjp_all refuses)
+ABLATE_SWEEP_BINS = (8, 16, 20)
 
 # coupled NSF of docs/getting_started.md:19-47: 8 layers, 2 residual blocks
 # of hidden 64, 8 bins, linear tails at 3; forward-KL steps on batches of 512
@@ -230,13 +233,13 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def planar_inputs(rng, B, inside=False, K=BINS):
+def planar_inputs(rng, B, inside=False, K=BINS, std=PARAM_STD):
     """x_t (2, B), ~20% outside +-bound on both dims (or all inside), and
-    params_t (2(3K+1), B), both from the numpy generator."""
+    params_t (2(3K+1), B) ~ N(0, std^2), both from the numpy generator."""
     bounds = np.asarray(TAIL_BOUND, np.float32)[:, None]
     reach = 0.999 if inside else 1.25
     x = (rng.uniform(-reach, reach, (2, B)) * bounds).astype(np.float32)
-    p = (PARAM_STD * rng.normal(size=(2 * (3 * K + 1), B))).astype(np.float32)
+    p = (std * rng.normal(size=(2 * (3 * K + 1), B))).astype(np.float32)
     return torch.from_numpy(x).to(DEVICE), torch.from_numpy(p).to(DEVICE)
 
 
@@ -320,20 +323,23 @@ def kernel_resources(ptxas, name_of):
 
 
 def ablate_resources(ptxas):
-    """The ablation kernel's instantiations: ``{"<mode>_<direction>": {...}}``.
-    Its template arguments <mode, inverse> are in its mangled name, as
-    ILi<mode>ELb<inverse>E."""
+    """The ablation kernel's instantiations: ``{"<mode>_<direction>_<bins>":
+    {...}}`` (<bins> as ``bins_key`` gives it).  Its template arguments
+    <mode, inverse, bins, exact> are in its mangled name, as
+    ILi<mode>ELb<0|1>ELi<n>ELb<0|1>E; vjp_all has no runtime-K one."""
     import re
 
     from normflows_tpu_torch.ops import spline_ablate
 
     def name_of(mangled):
-        m = re.search(r"rqs_flat_ablate_kernelILi(\d)ELb([01])E", mangled)
+        m = re.search(r"rqs_flat_ablate_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E", mangled)
         return m and (f"{spline_ablate.VARIANTS[int(m.group(1))]}_"
-                      f"{'inverse' if m.group(2) == '1' else 'forward'}")
+                      f"{'inverse' if m.group(2) == '1' else 'forward'}_"
+                      f"{bins_key(m.group(3), m.group(4))}")
 
     out = kernel_resources(ptxas, name_of)
-    want = {f"{v}_{d}" for v in spline_ablate.VARIANTS for d in ("forward", "inverse")}
+    want = {f"{v}_{d}_{b}" for v in spline_ablate.VARIANTS for d in ("forward", "inverse")
+            for b in ("8", "10", "16_masked") + (() if v == "vjp_all" else ("runtime",))}
     if set(out) != want or any("registers" not in r or "spill_store_bytes" not in r
                                for r in out.values()):
         raise SystemExit(f"build: no full ptxas report of the ablation kernel: {out}")
@@ -367,21 +373,19 @@ def flat_resources(ptxas):
 
 def planar_resources(ptxas):
     """The planar kernels' instantiations: ``{"forward_<bins>",
-    "inverse_<bins>", "backward_forward", "backward_inverse": {...}}``; the
-    forward's template arguments <inverse, bins, exact> are in its mangled
-    name as ILb<0|1>ELi<n>ELb<0|1>E, the backward's <inverse> as ILb<0|1>E."""
+    "inverse_<bins>", "backward_forward_<bins>", "backward_inverse_<bins>":
+    {...}}`` (<bins> as ``bins_key`` gives it); the template arguments
+    <inverse, bins, exact> of both kernels are in their mangled names as
+    ILb<0|1>ELi<n>ELb<0|1>E."""
     import re
 
     def name_of(mangled):
-        m = re.search(r"rqs_transposed_kernelILb([01])ELi(\d+)ELb([01])E", mangled)
-        if m:
-            return (f"{'inverse' if m.group(1) == '1' else 'forward'}_"
-                    f"{bins_key(m.group(2), m.group(3))}")
-        m = re.search(r"rqs_transposed_backward_kernelILb([01])E", mangled)
-        return m and f"backward_{'inverse' if m.group(1) == '1' else 'forward'}"
+        m = re.search(r"rqs_transposed_(backward_)?kernelILb([01])ELi(\d+)ELb([01])E", mangled)
+        return m and (f"{m.group(1) or ''}{'inverse' if m.group(2) == '1' else 'forward'}_"
+                      f"{bins_key(m.group(3), m.group(4))}")
 
     out = kernel_resources(ptxas, name_of)
-    if len(out) != 10 or any("registers" not in r or "spill_store_bytes" not in r
+    if len(out) != 16 or any("registers" not in r or "spill_store_bytes" not in r
                              for r in out.values()):
         raise SystemExit(f"build: no full ptxas report of the planar kernels: {out}")
     return out
@@ -632,36 +636,55 @@ def cotangents(rng, B):
 
 
 def phase_kernel_backward():
-    """The backward kernel against its plain version on the same CUDA
-    tensors: B = 2^14 and 2^14 + 37, both directions, ~20% of the inputs
-    outside the bounds, and one case whose derivative logits are all 0."""
+    """The backward kernel against its plain version in float64 on the same
+    CUDA tensors: the flagship's K at B = 2^14 and 2^14 + 37, both
+    directions, ~20% of the inputs outside the bounds, and one case whose
+    derivative logits are all 0; then every other instantiation
+    (PLANAR_BINS) at 2^14 + 37, both directions, its logits drawn at
+    SWEEP_STD (the inputs the flat sweep's bars were set on), and read at
+    PARAM_STD beside it."""
     from normflows_tpu_torch.ops import spline_cuda as sc
 
     rng = np.random.default_rng(SEED + 3)
+
+    def compare(B, K, std, inverse, zero_slopes=False):
+        x, p = planar_inputs(rng, B, K=K, std=std)
+        if zero_slopes:
+            p.view(2, 3 * K + 1, B)[:, 2 * K:] = 0.0
+        yb, lb = cotangents(rng, B)
+        got = sc.rqs_transposed_backward(x, p, yb, lb, CODES, TAIL_BOUND, inverse)
+        sync()
+        args = (x, p, yb, lb)
+        want = sc.rqs_transposed_backward_reference(*as_f64(args), CODES, TAIL_BOUND, inverse)
+        return got, want, sc.rqs_transposed_backward_reference(*args, CODES, TAIL_BOUND,
+                                                               inverse)
+
     errs = {}
-    for B, zero_slopes in ((N, False), (N + 37, False), (N + 37, True)):
-        for inverse in (False, True):
-            x, p = planar_inputs(rng, B)
-            if zero_slopes:
-                p.view(2, 3 * BINS + 1, B)[:, 2 * BINS:] = 0.0
-            yb, lb = cotangents(rng, B)
-            dx, dp = sc.rqs_transposed_backward(x, p, yb, lb, CODES, TAIL_BOUND, inverse)
-            sync()
-            dxr, dpr = sc.rqs_transposed_backward_reference(
-                x, p, yb, lb, CODES, TAIL_BOUND, inverse)
-            d = "inverse" if inverse else "forward"
-            e = {"max_abs_dx": float((dx - dxr).abs().max()),
-                 "max_abs_dparams": float((dp - dpr).abs().max()),
-                 "excess_dx": excess(dx, dxr, G_TOL, G_TOL),
-                 "excess_dparams": excess(dp, dpr, G_TOL, G_TOL),
-                 "finite": bool(torch.isfinite(dx).all() and torch.isfinite(dp).all())}
-            errs[f"{d}_B{B}" + ("_zero_slopes" if zero_slopes else "")] = e
-            if not e["finite"] or e["excess_dx"] > 0 or e["excess_dparams"] > 0:
-                emit("kernel_backward", ok=False, errors=errs)
-                raise SystemExit(f"backward kernel disagrees with its plain version "
-                                 f"({d}, B={B}, zero slopes {zero_slopes})")
-    emit("kernel_backward", ok=True, errors=errs, bars={"dx": [G_TOL, G_TOL],
-                                                        "dparams": [G_TOL, G_TOL]})
+    cases = [(N, BINS, PARAM_STD, False), (N + 37, BINS, PARAM_STD, False),
+             (N + 37, BINS, PARAM_STD, True)] + [(N + 37, K, SWEEP_STD, False)
+                                                 for K in PLANAR_BINS]
+    for (B, K, std, zero_slopes), inverse in itertools.product(cases, (False, True)):
+        d = "inverse" if inverse else "forward"
+        name = f"{d}_B{B}" + (f"_K{K}" if K != BINS else "") + \
+            ("_zero_slopes" if zero_slopes else "")
+        got, want, _ = compare(B, K, std, inverse, zero_slopes)
+        errs[name] = check_pair("kernel_backward", errs, got, want, (G_TOL, G_TOL),
+                                ("dx", "dparams"))
+    # a reading, not a bar: the sweep at PARAM_STD, the kernel's and the
+    # float32 plain version's excess over the bars
+    reading = {}
+    for K, inverse in itertools.product(PLANAR_BINS, (False, True)):
+        got, want, plain = compare(N + 37, K, PARAM_STD, inverse)
+        reading[f"{'inverse' if inverse else 'forward'}_K{K}"] = {
+            name: [excess(a, b, G_TOL, G_TOL) for a, b in zip(out, want)]
+            for name, out in (("kernel", got), ("plain_f32", plain))}
+    emit("kernel_backward", ok=True, errors=errs,
+         bars={"dx": [G_TOL, G_TOL], "dparams": [G_TOL, G_TOL], "param_std": PARAM_STD,
+               "sweep_std": SWEEP_STD},
+         reference="float64", sweep_at_param_std=reading,
+         note="sweep_at_param_std: [dx, dparams] excess over the bars (> 0 misses) of the "
+         "kernel and of the float32 plain version, each against float64; a reading, not "
+         "a bar")
     return errs
 
 
@@ -1855,8 +1878,9 @@ def ablate_cases(rng):
     script makes them, in both directions; a mixed-tail case (linear at 5,
     circular at pi, random cotangents, x ~ N(0, 1): no linear input clamped,
     where sel_post's unmasked pull-back would meet the clip's tie), both
-    directions; and, for full and vjp_all only, ~20% of the inputs outside
-    their bounds (flat_inputs' mix at K = 10)."""
+    directions; for full and vjp_all only, ~20% of the inputs outside
+    their bounds (flat_inputs' mix at K = 10); and the mixed-tail case at the
+    kernel's other bin counts, ABLATE_SWEEP_BINS (vjp_all takes K <= 16)."""
     from normflows_tpu_torch.examples import spline_bwd_ablate as script
 
     n = ABLATE_N
@@ -1880,6 +1904,13 @@ def ablate_cases(rng):
         cases.append((f"tails_{d}", d == "inverse",
                       (to(x), to(p[:K]), to(p[K:2 * K]), to(p[2 * K:]), to(codes), to(bounds),
                        to(yb), to(lb))))
+    for K, d in itertools.product(ABLATE_SWEEP_BINS, ("forward", "inverse")):
+        x, uw, uh, ud, *_ = script.make_inputs(n, SEED + 62 + K, DEVICE, K=K)
+        codes = torch.from_numpy(rng.choice([1, 2], size=n).astype(np.int32)).to(DEVICE)
+        bounds = torch.where(codes == 1, 5.0, math.pi).to(torch.float32)
+        yb, lb = (torch.from_numpy(a).to(DEVICE) for a in rng.normal(size=(2, n))
+                  .astype(np.float32))
+        cases.append((f"mixed_K{K}_{d}", d == "inverse", (x, uw, uh, ud, codes, bounds, yb, lb)))
     return cases
 
 
@@ -1893,6 +1924,8 @@ def phase_kernel_ablate():
     errs = {}
     for name, inverse, args in ablate_cases(rng):
         modes = ("full", "vjp_all") if name.startswith("tails") else sa.VARIANTS
+        if args[1].shape[0] > sa.MAX_BINS:
+            modes = tuple(m for m in modes if m != "vjp_all")
         got = {}
         for mode in modes:
             got[mode] = sa.run_variant(mode, *args, inverse=inverse)
@@ -1901,10 +1934,12 @@ def phase_kernel_ablate():
             tol = ABLATE_SEL_TOL if mode == "sel_only" else FLAT_G_TOL
             errs[f"{mode}_{name}"] = check_pair("kernel_ablate", errs, got[mode], want,
                                                 (tol,) * 4, ("xg", "uwg", "uhg", "udg"))
-        errs[f"vjp_all_vs_full_{name}"] = check_pair(
-            "kernel_ablate", errs, got["vjp_all"], got["full"], (FLAT_G_TOL,) * 4,
-            ("xg", "uwg", "uhg", "udg"))
+        if "vjp_all" in got:
+            errs[f"vjp_all_vs_full_{name}"] = check_pair(
+                "kernel_ablate", errs, got["vjp_all"], got["full"], (FLAT_G_TOL,) * 4,
+                ("xg", "uwg", "uhg", "udg"))
     emit("kernel_ablate", ok=True, errors=errs, n=ABLATE_N, bins=ABLATE_BINS,
+         sweep_bins=ABLATE_SWEEP_BINS,
          bars={"sel_only": ABLATE_SEL_TOL, "sel_post_full_vjp_all": FLAT_G_TOL,
                "vjp_all_vs_full": FLAT_G_TOL})
     return errs
@@ -1932,15 +1967,16 @@ def phase_times_ablate(resources):
             "ms": r["ms"], "launches": launches[mode],
             "plain_ms": cuda_ms(lambda: sa.REFERENCES[mode](*inputs, True), reps=10),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
-            **resources[f"{mode}_inverse"],
-            "forward_direction": resources[f"{mode}_forward"]}
+            **resources[f"{mode}_inverse_{ABLATE_BINS}"],
+            "forward_direction": resources[f"{mode}_forward_{ABLATE_BINS}"]}
         if not launches[mode]:
             raise SystemExit(f"times_ablate: the script launched no {mode} kernel")
     emit("times_ablate", variants=out, n=ABLATE_N, bins=ABLATE_BINS,
          note="ms: the script's device time of one launch, 64 launches over 16 input sets "
          "(75 MB) in one CUDA graph; plain_ms: CUDA events over 10 calls of the plain "
          "version; launches: the script's run (1 checked + 3 warm-up + 64 captured); "
-         "registers, stack and spill bytes per thread from ptxas -v")
+         "registers, stack and spill bytes per thread from ptxas -v, of the K = 10 "
+         "instantiation")
     return out
 
 
@@ -2511,7 +2547,7 @@ def main() -> int:
             "resources": {k: v for k, v in planar_res.items() if k.startswith(d)},
         })
     for d in ("forward", "inverse"):
-        worst = [e for k, e in bwd_errs.items() if k.startswith(d)]
+        worst = [e for k, e in bwd_errs.items() if k.startswith(d) and "_K" not in k]
         kernels.append({
             "name": f"rqs_transposed_backward_{d}",
             "route": "cuda",
@@ -2527,7 +2563,8 @@ def main() -> int:
             "bound_by": bwd_bound_by,
             "library_ms": None,
             "floor_ms": bwd_floor_ms,
-            "resources": planar_res[f"backward_{d}"],
+            "resources": {k: v for k, v in planar_res.items()
+                          if k.startswith(f"backward_{d}")},
         })
     # the flat kernels: times at the size the large-D path gives each (the
     # sliced inverse's 4096 in the sampling direction, the density

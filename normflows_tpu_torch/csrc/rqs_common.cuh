@@ -610,4 +610,29 @@ __device__ __forceinline__ void spline_element_backward_regs(
   }
 }
 
+// One element's backward from its parameter rows (`stride` floats apart)
+// into gradient rows `n_out` floats apart: with KB = 0 the loops over a
+// runtime K (`select_bin`, `spline_element_backward`), else the register
+// form at KB bins (kExact) or K <= KB (`load_params`, `select_bin_regs`,
+// `spline_element_backward_regs`).  The flat and the planar backward
+// kernels and the ablation's `full` variant are this one call.  x, ybar and
+// lbar come as pointers, read where the search and the scatter take them,
+// so that the loops keep the registers of the kernels they were written in.
+template <bool kInverse, int KB, bool kExact>
+__device__ __forceinline__ void element_backward(
+    const float* x, const float* uw, const float* uh, const float* ud, size_t stride, int K,
+    int code, float bound, const float* ybar, const float* lbar, const Consts& c, float* dx,
+    float* duw, float* duh, float* dud, size_t n_out) {
+  if constexpr (KB == 0) {
+    const Selection e = select_bin<kInverse>(*x, uw, uh, ud, stride, K, code, bound, c);
+    spline_element_backward<kInverse>(e, *ybar, *lbar, uw, uh, ud, stride, K, c, dx, duw, duh,
+                                      dud, n_out);
+  } else {
+    ParamRegs<KB> r = load_params<KB, kExact>(uw, uh, ud, stride, K);
+    const Selection e = select_bin_regs<kInverse, KB, kExact>(*x, r, K, code, bound, c);
+    spline_element_backward_regs<kInverse, KB, kExact>(e, r, *ybar, *lbar, K, c, dx, duw, duh,
+                                                       dud, n_out);
+  }
+}
+
 }  // namespace rqs

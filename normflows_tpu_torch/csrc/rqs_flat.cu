@@ -110,19 +110,9 @@ rqs_flat_backward_kernel(const float* __restrict__ x,
   float* duw = dparams + n;
   float* duh = duw + static_cast<size_t>(K) * out;
   float* dud = duh + static_cast<size_t>(K) * out;
-  if constexpr (KB == 0) {
-    const Selection e = rqs::select_bin<kInverse>(
-        x[n], uw + n, uh + n, ud + n, stride, K, codes[n], bounds[n], consts);
-    rqs::spline_element_backward<kInverse>(e, ybar[n], lbar[n], uw + n, uh + n,
-                                           ud + n, stride, K, consts, dx + n,
-                                           duw, duh, dud, out);
-  } else {
-    rqs::ParamRegs<KB> r = rqs::load_params<KB, kExact>(uw + n, uh + n, ud + n, stride, K);
-    const Selection e =
-        rqs::select_bin_regs<kInverse, KB, kExact>(x[n], r, K, codes[n], bounds[n], consts);
-    rqs::spline_element_backward_regs<kInverse, KB, kExact>(e, r, ybar[n], lbar[n], K, consts,
-                                                            dx + n, duw, duh, dud, out);
-  }
+  rqs::element_backward<kInverse, KB, kExact>(x + n, uw + n, uh + n, ud + n, stride, K, codes[n],
+                                              bounds[n], ybar + n, lbar + n, consts, dx + n, duw,
+                                              duh, dud, out);
 }
 
 template <bool kInverse>

@@ -35,20 +35,20 @@
 // every write is coalesced across a warp, and mask the ragged edge of B
 // rather than pad it.
 //
-// What sets the forward's time is one element's chain of dependent loads
-// and exponentials: at B = 2^14 the 2^15 threads give each SM about 8
-// warps, too few to hide it.  So the forward takes the bin count as a
-// template argument, as the flat kernels do: 10 and 8 exactly (the
-// flagship, the large-D model), K <= kMaxBins with the bins above K masked,
-// and `select_bin`'s loops over a runtime K above that.  An element's 3K+1
-// parameters are loaded into registers in one unrolled pass
-// (`rqs::select_bin_regs`), so that all of its loads and exponentials are
-// in flight at once, with the loops' operations in their order (the same
-// bits).  Its block size follows the element count (`rqs::block_threads`),
-// so that the grid spreads over the 132 SMs.  The backward keeps
-// `select_bin`'s loops and 256-thread blocks: each thread walks its K
-// logits several times (max, sum of exps, search, the two scatter sweeps),
-// the later walks hitting L1.
+// What sets their time is one element's chain of dependent loads and
+// exponentials: at B = 2^14 the 2^15 threads give each SM about 8 warps,
+// too few to hide it.  So both kernels take the bin count as a template
+// argument, as the flat kernels do: 10 and 8 exactly (the flagship, the
+// large-D model), K <= kMaxBins with the bins above K masked, and the loops
+// of `select_bin` / `spline_element_backward` over a runtime K above that.
+// An element's 3K+1 parameters are loaded into registers in one unrolled
+// pass (`rqs::load_params`), so that all of its loads and exponentials are
+// in flight at once, with the loops' operations in their order; the
+// backward scatters its gradients from the same registers
+// (`rqs::element_backward`, shared with the flat backward) rather than
+// reading and exponentiating every logit again.  Both size their blocks
+// from the element count (`rqs::block_threads`: 128 threads, 256 blocks at
+// F = 2, B = 2^14), so that the grid spreads over the 132 SMs.
 
 #include "rqs_common.cuh"
 
@@ -59,8 +59,8 @@ using rqs::Selection;
 
 constexpr int kMaxFeatures = 8;
 constexpr int kThreads = 256;
-constexpr int kMaxBins = 16;     // the largest K of the forward's register path
-constexpr int kMinBlocks = 256;  // a forward launch's blocks, where F and B allow
+constexpr int kMaxBins = 16;     // the largest K of the register path
+constexpr int kMinBlocks = 256;  // a launch's blocks, where F and B allow
 
 struct Tails {
   int code[kMaxFeatures];
@@ -118,7 +118,8 @@ void launch_forward(const float* x_t, const float* params_t, float* y_t, float* 
 #undef RQS_PLANAR_LAUNCH
 }
 
-template <bool kInverse>
+// The forward's bin counts; KB = 0: the loops over a runtime K
+template <bool kInverse, int KB, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 rqs_transposed_backward_kernel(const float* __restrict__ x_t,
                                const float* __restrict__ params_t,
@@ -126,7 +127,8 @@ rqs_transposed_backward_kernel(const float* __restrict__ x_t,
                                const float* __restrict__ lbar_t,
                                float* __restrict__ dx_t,
                                float* __restrict__ dparams_t, Tails tails,
-                               int B, int K, Consts consts) {
+                               int B, int K_arg, Consts consts) {
+  const int K = kExact ? KB : K_arg;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int f = blockIdx.y;
@@ -141,11 +143,30 @@ rqs_transposed_backward_kernel(const float* __restrict__ x_t,
   float* dud = duh + static_cast<size_t>(K) * n;
 
   const size_t i = static_cast<size_t>(f) * n + b;
-  const Selection e = rqs::select_bin<kInverse>(
-      x_t[i], uw, uh, ud, n, K, tails.code[f], tails.bound[f], consts);
-  rqs::spline_element_backward<kInverse>(e, ybar_t[i], lbar_t[i], uw, uh, ud,
-                                         n, K, consts, dx_t + i, duw, duh,
-                                         dud, n);
+  rqs::element_backward<kInverse, KB, kExact>(x_t + i, uw, uh, ud, n, K, tails.code[f],
+                                              tails.bound[f], ybar_t + i, lbar_t + i, consts,
+                                              dx_t + i, duw, duh, dud, n);
+}
+
+template <bool kInverse>
+void launch_backward(const float* x_t, const float* params_t, const float* ybar_t,
+                     const float* lbar_t, float* dx_t, float* dparams_t, const Tails& tails,
+                     int F, int B, int K, const Consts& consts, cudaStream_t s) {
+  const int threads = rqs::block_threads(B, F, kMinBlocks);
+  const dim3 grid((B + threads - 1) / threads, F);
+#define RQS_PLANAR_BACKWARD_LAUNCH(KB, EXACT)                                  \
+  rqs_transposed_backward_kernel<kInverse, KB, EXACT><<<grid, threads, 0, s>>>( \
+      x_t, params_t, ybar_t, lbar_t, dx_t, dparams_t, tails, B, K, consts)
+  if (K == 10) {
+    RQS_PLANAR_BACKWARD_LAUNCH(10, true);
+  } else if (K == 8) {
+    RQS_PLANAR_BACKWARD_LAUNCH(8, true);
+  } else if (K <= kMaxBins) {
+    RQS_PLANAR_BACKWARD_LAUNCH(kMaxBins, false);
+  } else {
+    RQS_PLANAR_BACKWARD_LAUNCH(0, false);
+  }
+#undef RQS_PLANAR_BACKWARD_LAUNCH
 }
 
 bool fill_tails(const int* codes, const float* bounds, int F, Tails* tails) {
@@ -203,14 +224,13 @@ extern "C" int rqs_transposed_backward(
   }
   const Consts consts =
       rqs::make_consts(K, min_bin_width, min_bin_height, min_derivative);
-  const dim3 grid((B + kThreads - 1) / kThreads, F);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (inverse) {
-    rqs_transposed_backward_kernel<true><<<grid, kThreads, 0, s>>>(
-        x_t, params_t, ybar_t, lbar_t, dx_t, dparams_t, tails, B, K, consts);
+    launch_backward<true>(x_t, params_t, ybar_t, lbar_t, dx_t, dparams_t, tails, F, B, K,
+                          consts, s);
   } else {
-    rqs_transposed_backward_kernel<false><<<grid, kThreads, 0, s>>>(
-        x_t, params_t, ybar_t, lbar_t, dx_t, dparams_t, tails, B, K, consts);
+    launch_backward<false>(x_t, params_t, ybar_t, lbar_t, dx_t, dparams_t, tails, F, B, K,
+                           consts, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

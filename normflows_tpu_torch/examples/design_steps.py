@@ -1,7 +1,7 @@
 """The design steps of the port's redesigned kernels, timed on the card: the
 fused MADE forward (``csrc/made_fused.cu``), the flat RQ-spline forward and
 backward (``csrc/rqs_flat.cu``) and the planar RQ-spline forward/inverse
-(``csrc/rqs_transposed.cu``).
+and backward (``csrc/rqs_transposed.cu``).
 
     python normflows_tpu_torch/examples/design_steps.py [--parent DIR] [--out FILE]
 
@@ -39,7 +39,12 @@ process, in turns (shipped, variants, shipped, variants):
 * planar ``planar_loops_256``: the forward/inverse on ``select_bin``'s
   loops at 256 threads a block, the earlier kernel;
 * planar ``planar_registers_256`` / ``planar_registers_64``: the register
-  selection at 256 or 64 threads a block (128 shipped).
+  selection at 256 or 64 threads a block (128 shipped);
+* planar ``planar_backward_loops_256``: the backward on ``select_bin`` and
+  ``spline_element_backward``'s loops at 256 threads a block, the earlier
+  backward;
+* planar ``planar_backward_registers_256`` / ``planar_backward_registers_64``:
+  the backward from registers at 256 or 64 threads a block (128 shipped).
 
 For each it prints one JSON line: device µs of one call (64 calls of a
 spline kernel or 16 of the MADE, one CUDA graph, replayed), device µs of
@@ -272,10 +277,14 @@ def _loops_only(src, launcher, macro):
                      f"  {macro}(0, false);\n")
 
 
-# the backward's register branch, replaced by the ablation's whole-block
-# pull-back (its residual arrays sized at kMaxBins, K <= 16)
-_VJP_ALL_CALL = """    vjp_all_element<kInverse>(x[n], uw + n, uh + n, ud + n, stride, K, codes[n], bounds[n],
-                              ybar[n], lbar[n], consts, dx + n, duw, duh, dud, out);
+# the backward's register form, replaced by the ablation's whole-block
+# pull-back (its residual arrays sized at the compile-time bin count, K <= 16)
+_VJP_ALL_CALL = """  if constexpr (KB == 0) {
+{call}  } else {
+    vjp_all_element<kInverse, KB, kExact>(
+        x[n], rqs::load_params<KB, kExact>(uw + n, uh + n, ud + n, stride, K), K, codes[n],
+        bounds[n], ybar[n], lbar[n], consts, dx + n, duw, duh, dud, out);
+  }
 """
 
 
@@ -297,21 +306,25 @@ def flat_variants(src):
     vjp_all = _find(r"// The whole-block pull-back of one element.*?\n}\n", ablate)
     bwd_anchor = "// The same bin counts as the forward's\n"
     vjp = _patch(src, bwd_anchor, "using rqs::PostGrads;\n\n" + vjp_all + "\n" + bwd_anchor)
-    vjp = _patch(vjp, _find(r"    rqs::ParamRegs<KB> r = [^;]*;\n    const Selection e =[^;]*;\n"
-                            r"    rqs::spline_element_backward_regs[^;]*;\n", src), _VJP_ALL_CALL)
+    call = _find(r"  rqs::element_backward<kInverse, KB, kExact>\([^;]*;\n", src)
+    vjp = _patch(vjp, call, _VJP_ALL_CALL.replace("{call}", "  " + call))
     return {"loops_256": loops, "registers_256": fixed, "lane_groups": groups,
             "backward_loops_256": _loops_only(bwd_fixed, bwd, "RQS_FLAT_BACKWARD_LAUNCH"),
             "backward_registers_256": bwd_fixed, "backward_vjp_all": vjp}
 
 
 def planar_variants(src):
-    """``{name: source}`` of the planar forward's variants."""
+    """``{name: source}`` of the planar forward's and backward's variants."""
     threads = "  const int threads = rqs::block_threads(B, F, kMinBlocks);"
-    fwd = "void launch_forward("
-    fixed = _fixed_threads(src, fwd, "kThreads", threads)
-    return {"planar_loops_256": _loops_only(fixed, fwd, "RQS_PLANAR_LAUNCH"),
-            "planar_registers_256": fixed,
-            "planar_registers_64": _fixed_threads(src, fwd, "64", threads)}
+    out = {}
+    for prefix, launcher, macro in (("planar", "void launch_forward(", "RQS_PLANAR_LAUNCH"),
+                                    ("planar_backward", "void launch_backward(",
+                                     "RQS_PLANAR_BACKWARD_LAUNCH")):
+        fixed = _fixed_threads(src, launcher, "kThreads", threads)
+        out[f"{prefix}_loops_256"] = _loops_only(fixed, launcher, macro)
+        out[f"{prefix}_registers_256"] = fixed
+        out[f"{prefix}_registers_64"] = _fixed_threads(src, launcher, "64", threads)
+    return out
 
 
 # kind: (the source's stem, its variants, the module that loads it)

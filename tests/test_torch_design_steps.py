@@ -13,8 +13,8 @@ VARIANTS = [("made", name) for name in ("fragment_split", "final_128x64", "bf16_
            [("flat", name) for name in ("loops_256", "registers_256", "lane_groups",
                                         "backward_loops_256", "backward_registers_256",
                                         "backward_vjp_all")] + \
-           [("planar", name) for name in ("planar_loops_256", "planar_registers_256",
-                                          "planar_registers_64")]
+           [("planar", f"{step}_{name}") for step in ("planar", "planar_backward")
+            for name in ("loops_256", "registers_256", "registers_64")]
 SHIPPED = {"made": made_fused.SOURCE, "flat": spline_flat.SOURCE, "planar": spline_cuda.SOURCE}
 
 

@@ -43,11 +43,11 @@ def close(a, b, tol):
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=tol, rtol=tol)
 
 
-def planar_inputs(B, device, seed=0, K=10):
+def planar_inputs(B, device, seed=0, K=10, std=PARAM_STD):
     rng = np.random.default_rng(seed)
     bounds = np.asarray(BOUNDS, np.float32)[:, None]
     x = (rng.uniform(-1.25, 1.25, (2, B)) * bounds).astype(np.float32)
-    p = (PARAM_STD * rng.normal(size=(2 * (3 * K + 1), B))).astype(np.float32)
+    p = (std * rng.normal(size=(2 * (3 * K + 1), B))).astype(np.float32)
     return torch.from_numpy(x).to(device), torch.from_numpy(p).to(device)
 
 
@@ -147,6 +147,53 @@ def test_register_backward_gives_the_loops_bits_without_contraction(
     monkeypatch.setattr(cuda_build, "_LIBS", {})
     got, want, _ = flat_backward_builds(cuda, variants, monkeypatch, K, inverse)
     for name, a, b in zip(("dx", "duw", "duh", "dud"), got, want):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+def planar_backward_builds(cuda, variants, monkeypatch, K, inverse):
+    """The planar backward of the shipped source and of
+    ``planar_backward_loops_256`` (the earlier kernel) on the same inputs,
+    with those inputs: B = 4096 + 37, the flat backward's test size, the
+    flagship's K at PARAM_STD and the others at 0.3 (the flat sweep's draw,
+    chip_smoke.py's SWEEP_STD)."""
+    B = 4096 + 37
+    x, p = planar_inputs(B, cuda, K=K, std=PARAM_STD if K == 10 else 0.3)
+    yb, lb = (torch.from_numpy(a).to(cuda)
+              for a in np.random.default_rng(1).normal(size=(2, 2, B)).astype(np.float32))
+    got = spline_cuda.rqs_transposed_backward(x, p, yb, lb, CODES, BOUNDS, inverse)
+    monkeypatch.setattr(spline_cuda, "SOURCE", variants[("planar", "planar_backward_loops_256")])
+    want = spline_cuda.rqs_transposed_backward(x, p, yb, lb, CODES, BOUNDS, inverse)
+    return got, want, (x, p, yb, lb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [2, 8, 10, 16, 20])
+def test_register_planar_backward_against_the_loops(cuda, variants, monkeypatch, K, inverse):
+    """The planar backward from registers and the loops it replaced
+    (``planar_backward_loops_256``) each within the JAX package's gradient
+    bar (2e-3) of the float64 plain version on the same inputs; bit for bit
+    at K = 20, where both run the loops."""
+    got, want, args = planar_backward_builds(cuda, variants, monkeypatch, K, inverse)
+    ref = spline_cuda.rqs_transposed_backward_reference(*(a.double() for a in args), CODES,
+                                                        BOUNDS, inverse)
+    for a, b, r in zip(got, want, ref):
+        close(a, r, G_TOL)
+        close(b, r, G_TOL)
+        assert K <= 16 or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [2, 8, 10, 16, 20])
+def test_register_planar_backward_gives_the_loops_bits_without_contraction(
+        cuda, variants, monkeypatch, K, inverse):
+    """Built with ``-fmad=false``, the planar backward from registers gives
+    the loops' bits: the same operations in the same order."""
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ("-fmad=false",))
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
+    got, want, _ = planar_backward_builds(cuda, variants, monkeypatch, K, inverse)
+    for name, a, b in zip(("dx", "dparams"), got, want):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
 
 
@@ -565,6 +612,30 @@ def test_ablate_kernel_matches_plain(cuda, mode, N, inverse):
     for g, r in zip(got, want):
         assert torch.isfinite(g).all()
         close(g, r, tol)
+    if mode == "vjp_all":
+        for g, r in zip(got, spline_ablate.run_variant("full", *args, inverse=inverse)):
+            close(g, r, 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("K", [8, 16, 20])
+@pytest.mark.parametrize("mode", spline_ablate.VARIANTS)
+def test_ablate_kernel_bins_match_plain(cuda, mode, K, inverse):
+    """The kernel's other instantiations beside the script's K = 10: 8
+    exactly, 16 (K <= 16, bins masked) and, for every variant but vjp_all,
+    20 (the loops over a runtime K); the bars as above."""
+    args = ablate_inputs(2**15 + 37, cuda, K=K)
+    if mode == "vjp_all" and K > spline_ablate.MAX_BINS:
+        with pytest.raises(ValueError, match="at most"):
+            spline_ablate.run_variant(mode, *args, inverse=inverse)
+        return
+    got = spline_ablate.run_variant(mode, *args, inverse=inverse)
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    want = spline_ablate.REFERENCES[mode](*f64, inverse)
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all()
+        close(g, r, 1e-5 if mode == "sel_only" else 1e-3)
     if mode == "vjp_all":
         for g, r in zip(got, spline_ablate.run_variant("full", *args, inverse=inverse)):
             close(g, r, 1e-3)

@@ -30,7 +30,7 @@ PARAM_STD = 0.5
 TAILS = {2: ((1, 2), (5.0, float(np.pi))), 3: ((1, 2, 1), (5.0, float(np.pi), 3.0))}
 
 
-def inputs(F, B, seed=0, zero_slopes=False):
+def inputs(F, B, seed=0, zero_slopes=False, K=K):
     """x_t (F, B) with ~20% outside +-bound, params_t (F(3K+1), B) and the
     cotangents (ybar, lbar), all from one numpy generator.  ``zero_slopes``
     sets every derivative logit to exactly 0, where softplus' gradient is
@@ -60,15 +60,17 @@ def jax_backward(F, B, inverse):
 
 
 # F = 2 on a ragged batch (B = 1061 pads to two (8, 128) tiles of the TPU
-# kernel), F = 3 with its 93 parameter rows on a whole one; each compile of
-# the interpret-mode kernel costs seconds, so not every pairing is run.
+# kernel), F = 3 with its 93 parameter rows on a whole one, and the large-D
+# model's K = 8 (the other bin count the CUDA kernel takes exactly); each
+# compile of the interpret-mode kernel costs seconds, so not every pairing
+# is run.
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("F,B,zero_slopes", [(2, 1061, False), (2, 1061, True),
-                                             (3, 1024, False)],
-                         ids=["F2-B1061", "F2-B1061-zero-slopes", "F3-B1024"])
-def test_plain_backward_matches_jax_backward_kernel(F, B, zero_slopes, inverse):
+@pytest.mark.parametrize("F,B,zero_slopes,bins", [(2, 1061, False, K), (2, 1061, True, K),
+                                                  (3, 1024, False, K), (2, 1061, False, 8)],
+                         ids=["F2-B1061", "F2-B1061-zero-slopes", "F3-B1024", "F2-B1061-K8"])
+def test_plain_backward_matches_jax_backward_kernel(F, B, zero_slopes, bins, inverse):
     codes, bounds = TAILS[F]
-    x_t, p_t, ybar, lbar = inputs(F, B, zero_slopes=zero_slopes)
+    x_t, p_t, ybar, lbar = inputs(F, B, zero_slopes=zero_slopes, K=bins)
     dxj, dpj = jax_backward(F, B, inverse)(*map(jnp.asarray, (x_t, p_t, ybar, lbar)))
     t = torch.from_numpy
     dx, dp = spline_cuda.rqs_transposed_backward_reference(
