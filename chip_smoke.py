@@ -36,6 +36,15 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   the flat spline kernels along the coupling's and the CDF's layouts, and
   a circular coupled stack: phases coupled_path, coupled_train,
   coupled_float64 (card and CPU each against float64), times_coupled.
+* the chunked trainer (``training.make_step_chunk`` and
+  ``make_chunked_train_step``: one step captured in a CUDA graph and
+  replayed): the flagship and the coupled NSF, each captured chunk against
+  the same steps taken eagerly, with no host sync in a chunk, exact
+  replayed launches (counted on the card, where the wrappers' device
+  counters are captured beside the launches), the non-finite skip decided on the card, a checkpoint
+  restored in place, step times, and 2,000 bf16 flagship steps trained to
+  a KL(q||p) bar: phases chunked_train, chunked_data, times_chunked,
+  convergence.
 
 It prints one JSON line per phase, then the ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
@@ -45,6 +54,7 @@ printing anything.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -102,7 +112,7 @@ G_TOL = 2e-3
 STEP_G_TOL = 2e-3
 N_TRAIN_CPU = 2**12
 LR = 5e-4  # bench.py's Adam
-TRAIN_STEPS = 200
+TRAIN_STEPS = 100
 
 # large-D autoregressive NSF (examples/ar_large_d_bench.py:60-93): linear
 # tails at the wrapper's default bound, DiagGaussian base, DiagGaussian
@@ -110,7 +120,8 @@ TRAIN_STEPS = 200
 LD_D, LD_HIDDEN, LD_BINS, LD_LAYERS, LD_BATCH = 64, 256, 8, 4, 4096
 LD_TAIL_BOUND = 3.0
 LD_CPU = 512  # samples of the card-against-CPU checks
-LD_TRAIN_STEPS = 50
+LD_TRAIN_STEPS = 20
+LD_TIMED_REPS = 10  # host medians of the large-D requests and steps
 # Flat kernel against its plain version: the JAX package's bars for the
 # runtime-tail entry (tests/test_pallas.py:427-428), 1e-5 on outputs and
 # 1e-4 on log-dets, for the static-tail entry (:41-42) 2e-5 and 2e-4, and
@@ -160,7 +171,24 @@ ABLATE_SWEEP_BINS = (8, 16, 20)
 
 # coupled NSF of docs/getting_started.md:19-47: 8 layers, 2 residual blocks
 # of hidden 64, 8 bins, linear tails at 3; forward-KL steps on batches of 512
-CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 200
+CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 100
+
+# the chunked trainer (training.make_step_chunk / make_chunked_train_step):
+# a chunk of CHUNK steps checked against as many eager steps (bars: the
+# losses within CPU_TOL, every parameter leaf within STEP_G_TOL of its
+# norm), TIMED_CHUNK steps a timed chunk, the step made non-finite at
+# NAN_STEP; the coupled model's data set of CP_DATA TwoMoons points;
+# PROFILED_CHUNK steps a chunk profiled for the device time of a step
+CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 100, 3, 3, 2**16
+PROFILED_CHUNK = 10
+# bf16 flagship, CONV_STEPS chunked steps (chunks of CONV_CHUNK) under cosine
+# decay over CONV_STEPS from bench.py's init, then KL(q||p) on CONV_HELD_OUT
+# fresh samples.  Three runs on the H100 (generator seeds SEED + 13, + 20,
+# + 21) gave 8.02e-4, 8.15e-4 and 6.26e-4 nats (a seed's run repeats to
+# the last bit); the bar is ~3.7x the largest, and the 10k-step runs of
+# examples/nsf_cylinder.py reach ~1e-4.
+CONV_STEPS, CONV_CHUNK, CONV_HELD_OUT = 2000, 100, 2**16
+CONV_KL = 3e-3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
@@ -883,7 +911,7 @@ def phase_times_train():
         "kernel_ms: device time, 64 launches in one CUDA graph, inputs rotated "
         "through 69 MB; call_ms and plain_ms: CUDA events over a loop of calls; "
         "floor_ms: torch.neg on the same 2 x 2^14 floats in the same kind of graph")
-    return kernel, plain, bound_ms, bound_by, floor
+    return kernel, plain, bound_ms, bound_by, floor, steps
 
 
 # ---- large-D autoregressive NSF: the flat spline kernels ---------------------
@@ -1332,24 +1360,24 @@ def large_d_request_and_step_times(model):
             x, _ = model.sample(LD_BATCH, generator=gen)
             for what, fn in (("sample", lambda: model.sample(LD_BATCH, generator=gen)),
                              ("log_prob", lambda: model.log_prob(x))):
-                r[what] = timed(fn)
+                r[what] = timed(fn, reps=LD_TIMED_REPS)
         trained = set_compute_dtype(build_large_d(DEVICE, init_identity=True),
                                     None if dtype == "float32" else dtype)
         for what, loss_fn, batch in (("reverse_kld_step", reverse_kld_loss(LD_BATCH), None),
                                      ("forward_kld_step", forward_kld_loss, x)):
             state, step = make_train_step(
                 trained, torch.optim.Adam(trained.parameters(), lr=LR), loss_fn)
-            r[what] = timed(lambda: step(state, batch, gen))
+            r[what] = timed(lambda: step(state, batch, gen), reps=LD_TIMED_REPS)
         out[dtype] = r
     emit("times_large_d", requests_and_steps=out, batch=LD_BATCH,
-         note="ms: host median of 20 calls, each ending in a synchronise; profile: one "
-         "call under torch.profiler, device time summed over its CUDA kernels; "
+         note=f"ms: host median of {LD_TIMED_REPS} calls, each ending in a synchronise; "
+         "profile: one call under torch.profiler, device time summed over its CUDA kernels; "
          "busy_share_of_median: that over the median; steps from the bench's init")
     return out
 
 
-def timed(fn, batch=LD_BATCH):
-    ms = host_ms(fn, reps=20)
+def timed(fn, batch=LD_BATCH, reps=20):
+    ms = host_ms(fn, reps=reps)
     prof = profile(fn, top=8)
     return {"ms": ms, "samples_per_s": batch / (ms / 1e3), "profile": prof,
             "busy_share_of_median": prof["device_ms"] / ms}
@@ -2398,12 +2426,13 @@ def phase_coupled_float64():
     return results
 
 
-def docs_data(seed):
-    """docs/getting_started.md:31: 1024 samples of the target, on the card."""
+def docs_data(seed, n=2 * CP_BATCH):
+    """``n`` samples of the target on the card (docs/getting_started.md:31
+    takes 1024)."""
     import normflows_tpu_torch as nft
 
     return nft.distributions.TwoMoons(device=DEVICE).sample(
-        2 * CP_BATCH, generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        n, generator=torch.Generator(device=DEVICE).manual_seed(seed))
 
 
 def phase_coupled_train():
@@ -2485,6 +2514,512 @@ def phase_times_coupled(model):
     return out
 
 
+# ---- the chunked trainer: one step captured in a CUDA graph and replayed -----
+
+KERNEL_ENTRIES = {("rqs_transposed_kernel", False): "rqs_transposed_forward",
+                  ("rqs_transposed_kernel", True): "rqs_transposed_inverse",
+                  ("rqs_transposed_backward_kernel", False): "rqs_transposed_backward_forward",
+                  ("rqs_transposed_backward_kernel", True): "rqs_transposed_backward_inverse",
+                  ("rqs_flat_kernel", False): "rqs_flat_forward",
+                  ("rqs_flat_kernel", True): "rqs_flat_inverse",
+                  ("rqs_flat_backward_kernel", False): "rqs_flat_backward_forward",
+                  ("rqs_flat_backward_kernel", True): "rqs_flat_backward_inverse"}
+
+
+def replayed(fn, top=8):
+    """Run ``fn`` (replayed chunks) under torch.profiler: the launches of each
+    spline kernel the profiler records, by the ``kernels`` line's names (the
+    direction from the first template argument), and the profile's device
+    time, wall time and heaviest kernels."""
+    import re
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
+    launches = dict.fromkeys(KERNEL_ENTRIES.values(), 0)
+    for e in kernels:
+        m = re.search(r"\b(rqs_(?:transposed|flat)(?:_backward)?_kernel)<(true|false)", e.key)
+        if m:
+            launches[KERNEL_ENTRIES[(m.group(1), m.group(2) == "true")]] += e.count
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    heavy = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return launches, {"wall_ms": wall_ms, "device_ms": device_ms,
+                      "kernel_launches": sum(e.count for e in kernels),
+                      "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                              for e in heavy]}
+
+
+@contextlib.contextmanager
+def device_counters():
+    """The two spline wrappers' ``DEVICE_LAUNCHES`` set to fresh int64 (2, 2)
+    tensors on the card ([backward][inverse]) for the block, off after it.
+    Their adds are captured beside the launches of a graph captured in the
+    block, so that each replay counts; the caller's name for them keeps
+    them alive as long as those graphs."""
+    from normflows_tpu_torch.ops import spline_cuda, spline_flat
+
+    counts = {kind: torch.zeros(2, 2, dtype=torch.int64, device=DEVICE)
+              for kind in ("planar", "flat")}
+    spline_cuda.DEVICE_LAUNCHES, spline_flat.DEVICE_LAUNCHES = counts["planar"], counts["flat"]
+    try:
+        yield counts
+    finally:
+        spline_cuda.DEVICE_LAUNCHES = spline_flat.DEVICE_LAUNCHES = None
+
+
+def on_card(counts, fn):
+    """Run ``fn`` with the device counters ``counts`` set to 0 just before
+    it; its result and what they counted, by the ``kernels`` line's names."""
+    for c in counts.values():
+        c.zero_()
+    out = fn()
+    got = {}
+    for kind, stem in (("planar", "rqs_transposed"), ("flat", "rqs_flat")):
+        c = counts[kind].tolist()
+        for backward, inverse in itertools.product((0, 1), (0, 1)):
+            got[f"{stem}_{'backward_' if backward else ''}"
+                f"{'inverse' if inverse else 'forward'}"] = c[backward][inverse]
+    return out, got
+
+
+def by_stage(chunk):
+    """Have a chunk's step note how far the planar and flat Python counters
+    grow over each step it runs on the host, by stage: the warm-up's steps
+    and the captured one (a replay runs no Python).  Returns the notes,
+    ``{stage: {kind: [forward, backward]}}``, filled in as the chunk is
+    first called."""
+    from normflows_tpu_torch.ops import spline_cuda, spline_flat
+
+    modules = {"planar": spline_cuda, "flat": spline_flat}
+    stages = {stage: {kind: [0, 0] for kind in modules} for stage in ("warm_up", "capture")}
+    step = chunk._step
+
+    def noted(generator):
+        before = {k: (m.LAUNCHES, m.BACKWARD_LAUNCHES) for k, m in modules.items()}
+        step(generator)
+        stage = stages["capture" if torch.cuda.is_current_stream_capturing() else "warm_up"]
+        for k, m in modules.items():
+            stage[k][0] += m.LAUNCHES - before[k][0]
+            stage[k][1] += m.BACKWARD_LAUNCHES - before[k][1]
+
+    chunk._step = noted
+    return stages
+
+
+def check_stages(what, stages, kind, per_step):
+    """The Python counters over the warm-up's steps and the captured one:
+    ``per_step`` forward and as many backward launches of ``kind`` each."""
+    from normflows_tpu_torch.training.loop import WARMUP_STEPS
+
+    want = {"warm_up": [per_step * WARMUP_STEPS] * 2, "capture": [per_step] * 2}
+    got = {stage: stages[stage][kind] for stage in want}
+    if got != want:
+        raise SystemExit(f"{what}: (forward, backward) {kind} launches by stage {got}, "
+                         f"expected {want}")
+    return stages
+
+
+def replay_launches(what, counted_on_card, per_step, steps, profiled=None):
+    """A replayed chunk's launches of each spline kernel as the device
+    counters counted them, which must be exactly ``per_step`` (``{name:
+    launches}`` of a step, 0 for the others) times ``steps``; beside them,
+    when given, the profiler's records of the same chunk, which for each
+    kernel must not exceed the count nor fall short of it by more than 5%
+    (the profiler can drop records).  Returns ``{name: {"device_counter",
+    "profiler"}}``."""
+    want = {k: per_step.get(k, 0) * steps for k in counted_on_card}
+    if counted_on_card != want:
+        raise SystemExit(f"{what}: the device counters counted {counted_on_card} launches "
+                         f"in a replayed chunk, expected {want}")
+    if profiled is None:
+        return {k: {"device_counter": n} for k, n in counted_on_card.items()}
+    if any(not 0.95 * n <= profiled[k] <= n for k, n in counted_on_card.items()):
+        raise SystemExit(f"{what}: the profiler recorded {profiled} launches in a replayed "
+                         f"chunk, the device counters {counted_on_card}")
+    return {k: {"device_counter": n, "profiler": profiled[k]}
+            for k, n in counted_on_card.items()}
+
+
+def params_of(model):
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def leaf_gap(got, want):
+    """The worst leaf of ``relative_norms(got, want)`` and its value."""
+    rel = relative_norms(got, want)
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def against_eager(what, losses, eager_losses, model, eager_model):
+    """The chunk's losses within CPU_TOL of the eager steps', every leaf
+    within STEP_G_TOL of its norm."""
+    worst, gap = leaf_gap(params_of(model), params_of(eager_model))
+    r = {"excess_loss": excess(losses.cpu(), eager_losses.cpu(), CPU_TOL, CPU_TOL),
+         "max_abs_loss": float((losses - eager_losses).abs().max()),
+         "worst_leaf": worst, "worst_relative_norm": gap,
+         "bit_equal_losses": bool(torch.equal(losses, eager_losses))}
+    if r["excess_loss"] > 0 or gap > STEP_G_TOL:
+        emit(what, ok=False, against_eager=r)
+        raise SystemExit(f"{what}: the captured chunk disagrees with the eager steps")
+    return r
+
+
+def no_sync(fn):
+    """Run ``fn`` with the sync debug mode at "error": a host sync inside fails."""
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def capturable_adam(model):
+    return torch.optim.Adam(model.parameters(), lr=LR, capturable=True)
+
+
+def nan_at(box, k, loss_fn):
+    """``loss_fn`` plus a term that is NaN when the chunk's device step count
+    (``box["state"].step``) equals ``k``."""
+    return lambda model, batch, gen: loss_fn(model, batch, gen) + torch.where(
+        box["state"].step == k, float("nan"), 0.0)
+
+
+def adam_tensors(opt):
+    return [v.clone() for s in opt.state.values() for v in s.values()]
+
+
+def eager_steps(compute):
+    """CHUNK eager reverse-KL steps (make_train_step with a capturable Adam)
+    of the flagship from bench.py's init: the model and the losses."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    model = set_compute_dtype(build_flagship(DEVICE, init_identity=True), compute)
+    state, step = training.make_train_step(model, capturable_adam(model), reverse_kld_loss(N))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    return model, torch.stack([step(state, None, gen)[1]["loss"] for _ in range(CHUNK)])
+
+
+def phase_chunked_train():
+    """The flagship at full width, f32 and bf16: a captured chunk of CHUNK
+    reverse-KL steps against as many eager steps from the same weights and
+    generator seed, with the same optimizer (Adam with ``capturable=True``,
+    run eagerly); the Python counters by stage (``by_stage``); the next
+    chunk with no host sync, the one after under the profiler, each with
+    exactly 24 planar forward and 24 backward launches a step on the device
+    counters (``replay_launches``).
+    In f32 also: a step made non-finite on the device leaves the parameters
+    and Adam's state as they were and the chunk trains on; a checkpoint
+    after the first chunk, restored in place into a fresh model's captured
+    chunk, gives the second chunk within the same bars."""
+    import tempfile
+
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.training.loop import WARMUP_STEPS
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    per_step = 2 * LAYERS
+    per_entry = {"rqs_transposed_inverse": per_step,
+                 "rqs_transposed_backward_inverse": per_step}
+    results, replays = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        compute = None if dtype == "float32" else dtype
+        eager, eager_losses = eager_steps(compute)
+
+        model = set_compute_dtype(build_flagship(DEVICE, init_identity=True), compute)
+        cstate, chunk = training.make_step_chunk(model, capturable_adam(model),
+                                                 reverse_kld_loss(N), CHUNK)
+        stages = by_stage(chunk)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+        n = per_step * (WARMUP_STEPS + 1)
+        with device_counters() as counts:
+            t0 = time.perf_counter()
+            (_, first), _ = counted(f"chunked {dtype}: warm-up and capture",
+                                    lambda: chunk(cstate, gen), planar=(n, n))
+            r = {"first_call_seconds": time.perf_counter() - t0,
+                 "python_counters": check_stages(f"chunked {dtype}", stages, "planar",
+                                                 per_step),
+                 "against_eager": against_eager("chunked_train", first["loss"], eager_losses,
+                                                model, eager)}
+            checkpoint = tempfile.TemporaryDirectory() if dtype == "float32" else None
+            if checkpoint:
+                training.save_checkpoint(checkpoint.name, {"train": cstate, "generator": gen},
+                                         step=CHUNK)
+            (_, second), unsynced = on_card(counts, lambda: no_sync(lambda: chunk(cstate, gen)))
+            second = second["loss"]
+            replay_launches(f"chunked {dtype}: the chunk with no host sync", unsynced,
+                            per_entry, CHUNK)
+            after_second = {k: p.clone() for k, p in params_of(model).items()}
+            (profiled, _), profiled_on_card = on_card(
+                counts, lambda: replayed(lambda: chunk(cstate, gen)))
+        replays[f"flagship_{dtype}"] = replay_launches(f"chunked {dtype}", profiled_on_card,
+                                                       per_entry, CHUNK, profiled)
+        losses = torch.cat([first["loss"], second]).cpu().numpy()
+        r.update(no_host_sync=True, replayed_launches_per_chunk=replays[f"flagship_{dtype}"],
+                 steps=int(cstate.step), all_finite=bool(np.isfinite(losses).all()),
+                 mean_first_10=float(losses[:10].mean()), mean_last_10=float(losses[-10:].mean()))
+        if not (r["all_finite"] and r["mean_last_10"] < r["mean_first_10"]):
+            emit("chunked_train", ok=False, results={**results, dtype: r})
+            raise SystemExit(f"chunked {dtype}: a loss was not finite or the loss did not fall")
+        if checkpoint:
+            with checkpoint:
+                r["checkpoint"] = restored_chunk(checkpoint.name, second, after_second)
+            r["non_finite_step"] = non_finite_step()
+        results[dtype] = r
+    emit("chunked_train", ok=True, results=results, chunk=CHUNK, batch=N,
+         bars={"loss": [CPU_TOL, CPU_TOL], "leaf_relative_norm": STEP_G_TOL},
+         note="against_eager: a captured chunk against as many make_train_step steps "
+         "from the same weights, generator seed and optimizer (capturable Adam); "
+         "python_counters: the counters' (forward, backward) launches over the "
+         "warm-up's steps and over the captured step (replays do not tick them); "
+         "replayed_launches_per_chunk: device_counter, the wrappers' device counters "
+         "over a replayed chunk (their adds are captured beside the launches); "
+         "profiler, torch.profiler's kernel records of the same chunk (it can drop "
+         "records)")
+    return replays
+
+
+def restored_chunk(directory, want_losses, want_params):
+    """A fresh flagship and capturable Adam, its chunk captured and run once,
+    then the checkpoint restored in place into it: its next chunk against the
+    uninterrupted run's second chunk."""
+    from normflows_tpu_torch import training
+
+    model = build_flagship(DEVICE, init_identity=True)
+    state, chunk = training.make_step_chunk(model, capturable_adam(model),
+                                            reverse_kld_loss(N), CHUNK)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    chunk(state, gen)
+    training.restore_checkpoint(directory, {"train": state, "generator": gen}, step=CHUNK)
+    losses = chunk(state, gen)[1]["loss"]
+    _, gap = leaf_gap(params_of(model), want_params)
+    r = {"excess_loss": excess(losses.cpu(), want_losses.cpu(), CPU_TOL, CPU_TOL),
+         "max_abs_loss": float((losses - want_losses).abs().max()),
+         "worst_relative_norm": gap, "steps": int(state.step),
+         "bit_equal_losses": bool(torch.equal(losses, want_losses))}
+    if r["excess_loss"] > 0 or r["worst_relative_norm"] > STEP_G_TOL or \
+            r["steps"] != 2 * CHUNK:
+        emit("chunked_train", ok=False, checkpoint=r)
+        raise SystemExit("chunked_train: the chunk restored from a checkpoint disagrees")
+    return r
+
+
+def non_finite_step():
+    """f32 flagship, a captured one-step chunk whose loss is NaN at device
+    step NAN_STEP: that call leaves every parameter and Adam tensor bit for
+    bit as it was, and the next calls train on; then a chunk of 10 with the
+    NaN at its step 5: the loss vector holds it, Adam counted 9 updates."""
+    from normflows_tpu_torch import training
+
+    model = build_flagship(DEVICE, init_identity=True)
+    opt = capturable_adam(model)
+    box = {}
+    state, one = training.make_step_chunk(model, opt, nan_at(box, NAN_STEP,
+                                                             reverse_kld_loss(N)), 1)
+    box["state"] = state
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    for _ in range(NAN_STEP):
+        one(state, gen)
+    params, adam = [p.detach().clone() for p in model.parameters()], adam_tensors(opt)
+    nan_loss = float(one(state, gen)[1]["loss"][0])
+    kept = all(torch.equal(p, q) for p, q in zip(model.parameters(), params)) and all(
+        torch.equal(a, b) for a, b in zip(adam_tensors(opt), adam))
+    later = torch.cat([one(state, gen)[1]["loss"] for _ in range(2)])
+    moved = not all(torch.equal(p, q) for p, q in zip(model.parameters(), params))
+
+    model = build_flagship(DEVICE, init_identity=True)
+    box = {}
+    state, chunk = training.make_step_chunk(model, capturable_adam(model),
+                                            nan_at(box, 5, reverse_kld_loss(N)), 10)
+    box["state"] = state
+    losses = chunk(state, gen)[1]["loss"]
+    adam_steps = float(next(iter(state.optimizer.state.values()))["step"])
+    r = {"nan_step": NAN_STEP, "loss_at_nan_step": nan_loss, "unchanged_across_it": kept,
+         "later_losses_finite": bool(torch.isfinite(later).all()), "moved_after": moved,
+         "chunk_losses_finite": torch.isfinite(losses).tolist(), "adam_steps": adam_steps,
+         "steps": int(state.step)}
+    if not (math.isnan(nan_loss) and kept and moved and r["later_losses_finite"]
+            and r["chunk_losses_finite"] == [i != 5 for i in range(10)]
+            and adam_steps == 9 and r["steps"] == 10):
+        emit("chunked_train", ok=False, non_finite_step=r)
+        raise SystemExit("chunked_train: a non-finite step was not skipped on the device")
+    return r
+
+
+def phase_chunked_data():
+    """The coupled NSF of docs/getting_started.md (random nets and CDFs, f32),
+    make_chunked_train_step on CP_DATA TwoMoons points on the card, batch
+    512, shuffle=False: a captured chunk of CHUNK steps against the same
+    windows stepped eagerly with the same (capturable) Adam; the Python
+    counters by stage; the next chunk with no host sync, the one after
+    under the profiler, each with exactly 16 flat forward and 16 flat
+    backward launches a step on the device counters (``replay_launches``)."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.training.loop import WARMUP_STEPS
+
+    per_step = 2 * CP_LAYERS
+    per_entry = {"rqs_flat_forward": per_step, "rqs_flat_backward_forward": per_step}
+    data = docs_data(SEED + 92, CP_DATA)
+    eager = build_coupled(DEVICE)
+    state, step = training.make_train_step(eager, capturable_adam(eager), forward_kld_loss)
+    windows = [(i * CP_BATCH) % (CP_DATA - CP_BATCH + 1) for i in range(CHUNK)]
+    eager_losses = torch.stack([step(state, data[s:s + CP_BATCH])[1]["loss"]
+                                for s in windows])
+    model = build_coupled(DEVICE)
+    cstate, chunk = training.make_chunked_train_step(
+        model, capturable_adam(model), forward_kld_loss, data, CP_BATCH, CHUNK, shuffle=False)
+    stages = by_stage(chunk)
+    n = per_step * (WARMUP_STEPS + 1)
+    with device_counters() as counts:
+        (_, first), _ = counted("chunked coupled: warm-up and capture", lambda: chunk(cstate),
+                                flat=(n, n))
+        r = {"python_counters": check_stages("chunked coupled", stages, "flat", per_step),
+             "against_eager": against_eager("chunked_data", first["loss"], eager_losses, model,
+                                            eager)}
+        (_, second), unsynced = on_card(counts, lambda: no_sync(lambda: chunk(cstate)))
+        replay_launches("chunked coupled: the chunk with no host sync", unsynced, per_entry,
+                        CHUNK)
+        r["no_host_sync"] = bool(torch.isfinite(second["loss"]).all())
+        (profiled, _), profiled_on_card = on_card(counts,
+                                                  lambda: replayed(lambda: chunk(cstate)))
+    launches = replay_launches("chunked coupled", profiled_on_card, per_entry, CHUNK, profiled)
+    r.update(replayed_launches_per_chunk=launches, steps=int(cstate.step))
+    emit("chunked_data", ok=True, results=r, chunk=CHUNK, batch=CP_BATCH, data=CP_DATA,
+         bars={"loss": [CPU_TOL, CPU_TOL], "leaf_relative_norm": STEP_G_TOL},
+         note="as chunked_train's")
+    return {"coupled_float32": launches}
+
+
+def timed_chunk(make, batch):
+    """``make(steps) -> (state, chunk, generator)``, a fresh model's chunk.
+    Host time of a chunk of TIMED_CHUNK steps ending in a synchronise, over
+    TIMED_CHUNK: the median of TIMED_CHUNKS chunks after one (the capture).
+    Then a PROFILED_CHUNK-step chunk of another fresh model, after its
+    capture, under torch.profiler: the device time of a step and the busy
+    share (a short chunk: processing the profile of a 100-step chunk's
+    ~250,000 kernel records takes tens of seconds).  Returns the numbers
+    and the timed chunk."""
+    state, chunk, gen = make(TIMED_CHUNK)
+    chunk(state, gen)
+    sync()
+    times = []
+    for _ in range(TIMED_CHUNKS):
+        t0 = time.perf_counter()
+        chunk(state, gen)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3 / TIMED_CHUNK)
+    ms = float(np.median(times))
+    short, short_chunk, short_gen = make(PROFILED_CHUNK)
+    short_chunk(short, short_gen)
+    _, prof = replayed(lambda: short_chunk(short, short_gen))
+    device_ms = prof["device_ms"] / PROFILED_CHUNK
+    return {"ms": ms, "ms_each_chunk": times, "samples_per_s": batch / (ms / 1e3),
+            "device_ms": device_ms, "busy_share_of_median": device_ms / ms,
+            "profile": prof}, chunk
+
+
+def phase_times_chunked(eager_flagship, eager_coupled):
+    """Step ms and samples/s of the chunked flagship (f32, bf16) and of the
+    chunked coupled forward-KL step, beside the eager steps' numbers from
+    this run (times_train, times_coupled); the device ms of a step from a
+    short chunk under the profiler (``timed_chunk``); the device time of the
+    non-finite skip's copy and select over the flagship's parameters and
+    Adam state, 20 of them in one CUDA graph."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    def eager(e):
+        return {"ms": e["ms"], "samples_per_s": e["samples_per_s"],
+                "device_ms": e["profile"]["device_ms"],
+                "busy_share_of_median": e["busy_share_of_median"]}
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        def make(steps):
+            model = set_compute_dtype(build_flagship(DEVICE, init_identity=True),
+                                      None if dtype == "float32" else dtype)
+            state, chunk = training.make_step_chunk(model, capturable_adam(model),
+                                                    reverse_kld_loss(N), steps)
+            return state, chunk, torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+
+        r, chunk = timed_chunk(make, N)
+        r["eager"] = eager(eager_flagship[dtype])
+        if dtype == "float32":
+            flat, keep = chunk.flat, torch.ones((), dtype=torch.bool, device=DEVICE)
+            elements = sum(live.numel() for live, _ in flat.pairs)
+            skip_ms = graph_ms(lambda: (flat.save(), flat.keep_if(keep)), reps=20)
+            out["skip"] = {"ms": skip_ms, "elements": elements,
+                           "bound_ms": 5 * 4 * elements / HBM_BYTES_PER_S * 1e3,
+                           "note": "the copy before the update (2 floats moved an "
+                           "element) and the select after it (3)"}
+        out[f"flagship_{dtype}"] = r
+    data = docs_data(SEED + 93, CP_DATA)
+
+    def make_coupled(steps):
+        model = build_coupled(DEVICE, init_identity=True)
+        state, chunk = training.make_chunked_train_step(
+            model, capturable_adam(model), forward_kld_loss, data, CP_BATCH, steps)
+        return state, chunk, torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+
+    r, _ = timed_chunk(make_coupled, CP_BATCH)
+    r["eager"] = eager(eager_coupled["float32"]["forward_kld_step"])
+    out["coupled_forward_kld_float32"] = r
+    emit("times_chunked", steps=out, chunk=TIMED_CHUNK, profiled_chunk=PROFILED_CHUNK,
+         flagship_batch=N, coupled_batch=CP_BATCH,
+         note="ms: host time of a chunk of 100 steps ending in a synchronise, over 100, "
+         "median of 3 chunks after the first; device_ms: the kernels' device time of "
+         "a 10-step chunk of another model built alike, under torch.profiler after "
+         "its capture, over 10; busy_share_of_median: device_ms over ms; eager: "
+         "the same model's make_train_step in times_train / times_coupled; the flagship "
+         "from bench.py's init, the coupled model from the docs' on shuffled batches")
+    return out
+
+
+def phase_convergence(seed=SEED + 13):
+    """bf16 flagship from bench.py's init, CONV_STEPS chunked reverse-KL
+    steps (chunks of CONV_CHUNK) with Adam(5e-4) under cosine decay over
+    CONV_STEPS, then KL(q||p) = E_q[log q - log p] on CONV_HELD_OUT fresh
+    samples (GaussianVonMises is normalised), against CONV_KL."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    model = set_compute_dtype(build_flagship(DEVICE, init_identity=True), "bfloat16")
+    state, chunk = training.make_step_chunk(
+        model, capturable_adam(model), reverse_kld_loss(N), CONV_CHUNK,
+        schedule=training.cosine_decay_schedule(LR, CONV_STEPS))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    losses = torch.cat([chunk(state, gen)[1]["loss"]
+                        for _ in range(CONV_STEPS // CONV_CHUNK)]).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        z, log_q = model.sample(CONV_HELD_OUT, generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED + 14))
+        kl = float(torch.mean(log_q - model.p.log_prob(z)))
+    r = {"seed": seed, "steps": int(state.step), "seconds": seconds,
+         "samples_per_s": CONV_STEPS * N / seconds, "kl": kl,
+         "all_finite": bool(np.isfinite(losses).all()),
+         "loss_every_100": losses[::100].tolist(), "mean_last_100": float(losses[-100:].mean())}
+    ok = r["all_finite"] and kl <= CONV_KL
+    emit("convergence", ok=ok, results=r, bar=CONV_KL, held_out=CONV_HELD_OUT)
+    if not ok:
+        raise SystemExit(f"convergence: KL(q||p) {kl} after {CONV_STEPS} steps exceeds "
+                         f"{CONV_KL}")
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -2508,7 +3043,8 @@ def main() -> int:
     del model
     bwd_errs = phase_kernel_backward()
     bwd_launches = phase_train_path()
-    bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by, bwd_floor_ms = phase_times_train()
+    bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by, bwd_floor_ms, eager_flagship = \
+        phase_times_train()
     flat_errs = phase_kernel_flat()
     flat_bwd_errs = phase_kernel_flat_backward()
     ld_model, ld_launches = phase_large_d_path()
@@ -2524,8 +3060,12 @@ def main() -> int:
     cp_model, cp_launches = phase_coupled_path()
     cp_train_launches = phase_coupled_train()
     phase_coupled_float64()
-    phase_times_coupled(cp_model)
+    eager_coupled = phase_times_coupled(cp_model)
     del cp_model
+    flagship_replays = phase_chunked_train()
+    coupled_replays = phase_chunked_data()
+    phase_times_chunked(eager_flagship, eager_coupled)
+    phase_convergence()
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -2545,6 +3085,8 @@ def main() -> int:
             "library_ms": None,
             "floor_ms": floor_ms,
             "resources": {k: v for k, v in planar_res.items() if k.startswith(d)},
+            "launches_replayed": {run: r[f"rqs_transposed_{d}"]
+                                  for run, r in flagship_replays.items()},
         })
     for d in ("forward", "inverse"):
         worst = [e for k, e in bwd_errs.items() if k.startswith(d) and "_K" not in k]
@@ -2565,6 +3107,8 @@ def main() -> int:
             "floor_ms": bwd_floor_ms,
             "resources": {k: v for k, v in planar_res.items()
                           if k.startswith(f"backward_{d}")},
+            "launches_replayed": {run: r[f"rqs_transposed_backward_{d}"]
+                                  for run, r in flagship_replays.items()},
         })
     # the flat kernels: times at the size the large-D path gives each (the
     # sliced inverse's 4096 in the sampling direction, the density
@@ -2602,6 +3146,7 @@ def main() -> int:
                          for n, r in t.items()},
                 "resources": {k: v for k, v in flat_res.items()
                               if k.startswith("backward_" + d if backward else d)},
+                "launches_replayed": {run: r[name] for run, r in coupled_replays.items()},
             })
     # the fused MADE: times at the large-D shape, f32 (bf16 beside)
     for d, errs_of in (("forward", made_errs), ("backward", made_bwd_errs)):

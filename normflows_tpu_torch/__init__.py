@@ -15,8 +15,12 @@ flows (more than 8 features, sampled by the sliced sequential inverse:
 ``LULinearPermute`` between them), and for the coupled RQ-spline flows
 (``CoupledRationalQuadraticSpline`` and its circular form, on a
 ``ResidualNet``; ``TwoMoons`` with the rejection sampler of ``Target``).
-``examples.spline_bwd_ablate`` times the four variants of the flat spline
-backward's ablation kernel.
+``training.make_step_chunk`` and ``training.make_chunked_train_step``
+train many steps a call, one step captured in a CUDA graph and replayed;
+``training.save_checkpoint`` / ``restore_checkpoint`` keep a training state,
+``NormalizingFlow.save`` / ``load`` a model.  ``examples.nsf_cylinder``
+trains the flagship to convergence, and ``examples.spline_bwd_ablate`` times
+the four variants of the flat spline backward's ablation kernel.
 """
 
 from . import core, distributions, flows, interop, nets, ops, training, utils

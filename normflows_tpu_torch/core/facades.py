@@ -4,6 +4,12 @@
 (density).  ``sample`` and ``reverse_kld`` draw from an explicit
 ``torch.Generator`` where the JAX version takes a key.  ``reverse_alpha_div``
 waits for a later slice of the port.
+
+Persistence (facades.py:220-335 of the JAX package): ``save`` pickles the
+whole model with ``torch.save``, ``NormalizingFlow.load`` rebuilds it, and
+:func:`load_params_like` copies a saved model's tensors into an existing
+one, each converted to the model tensor's dtype, naming the first name or
+shape that differs.
 """
 
 from __future__ import annotations
@@ -121,3 +127,60 @@ class NormalizingFlow(nn.Module):
             log_q = torch.func.functional_call(_LogProb(self), detached, (z, context))
         log_p = self.p.log_prob(z) if context is None else self.p.log_prob(z, context)
         return torch.mean(log_q) - beta * torch.mean(log_p)
+
+    # ---- persistence -----------------------------------------------------
+    def save(self, path: str):
+        """Pickle the whole model (its classes by import path, every tensor
+        where it lies) with ``torch.save``."""
+        torch.save(self, path)
+
+    @classmethod
+    def load(cls, path: str):
+        """Rebuild a model written by :meth:`save`; a file that holds
+        another class raises ``TypeError``.  This unpickles the file, which
+        can run code: load only files this program wrote."""
+        obj = torch.load(path, weights_only=False)
+        if not isinstance(obj, cls):
+            raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, "
+                            f"not {cls.__name__}")
+        return obj
+
+
+def copy_tensors_like(model: nn.Module, saved: dict, source: str) -> nn.Module:
+    """Copy ``saved`` (a state dict: name -> tensor) into ``model``'s
+    parameters and buffers in place, each converted to the model tensor's
+    dtype and device (a bfloat16 model loaded from a float32 checkpoint stays
+    bfloat16).  The names must be the model's, in its order, and the shapes
+    its: the first name or shape that differs raises ``ValueError`` naming
+    it, before anything is copied."""
+    current = model.state_dict(keep_vars=True)
+    names, saved_names = list(current), list(saved)
+    for i, (mine, theirs) in enumerate(zip(names, saved_names)):
+        if mine != theirs:
+            raise ValueError(f"{source} does not match the model: first differing path "
+                             f"(entry {i}): model has {mine!r}, checkpoint has {theirs!r}")
+    if len(names) != len(saved_names):
+        longer, which = (names, "model") if len(names) > len(saved_names) \
+            else (saved_names, "checkpoint")
+        raise ValueError(f"{source} does not match the model: the model has {len(names)} "
+                         f"entries, the checkpoint {len(saved_names)}; first unmatched path "
+                         f"{longer[min(len(names), len(saved_names))]!r} (in the {which})")
+    for name in names:
+        if tuple(saved[name].shape) != tuple(current[name].shape):
+            raise ValueError(f"{source}: {name!r} has shape {tuple(saved[name].shape)}, "
+                             f"the model expects {tuple(current[name].shape)}")
+    with torch.no_grad():
+        for name in names:
+            current[name].copy_(saved[name])
+    return model
+
+
+def load_params_like(model: nn.Module, path: str) -> nn.Module:
+    """Copy the tensors of a model written by :meth:`NormalizingFlow.save`
+    into ``model`` in place, with :func:`copy_tensors_like`'s checks, and
+    return it.  This unpickles the file: load only files this program
+    wrote."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(obj, nn.Module):
+        raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, not a model")
+    return copy_tensors_like(model, obj.state_dict(), f"checkpoint at {path}")

@@ -42,6 +42,17 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def count_launch(counts, backward: bool, inverse: bool):
+    """Add one to ``counts[backward][inverse]`` on the device, when
+    ``counts`` (a wrapper's ``DEVICE_LAUNCHES``: None, or an int64 (2, 2)
+    tensor on the card) is set.  The add runs in the launch's stream: under
+    a CUDA graph's capture it is captured beside the launch, so it counts
+    every replay, where the Python counters tick only at the capture.  The
+    tensor must outlive every graph captured while it was set."""
+    if counts is not None:
+        counts[int(backward), int(inverse)].add_(1)
+
+
 def set_made_fusion(enabled: bool):
     """Turn the fused MADE on or off for every later MADE pass (off by
     default; the counterpart of ``set_made_fusion`` in the JAX package)."""

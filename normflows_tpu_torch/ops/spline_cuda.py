@@ -29,6 +29,9 @@ MAX_FEATURES = 8  # kMaxFeatures in the kernel
 # forward kernels (either direction) and backward kernels.
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# The same launches counted on the card, by [backward][inverse], when set to
+# an int64 (2, 2) tensor there (see backend.count_launch); None: off.
+DEVICE_LAUNCHES = None
 
 _SIGNATURES = {
     name: [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_double] * 3
@@ -95,6 +98,7 @@ class _RQSTransposed(torch.autograd.Function):
         _launch(_library().rqs_transposed_forward, (x_t, params_t, y_t, ld_t), x_t,
                 codes, bounds, K, inverse, mbw, mbh, md)
         LAUNCHES += 1
+        backend.count_launch(DEVICE_LAUNCHES, False, inverse)
         return y_t, ld_t
 
     @staticmethod
@@ -137,6 +141,7 @@ def rqs_transposed_backward(x_t, params_t, ybar, lbar, tail_codes, tail_bound,
     _launch(_library().rqs_transposed_backward, (x_t, params_t, ybar, lbar, dx, dp),
             x_t, codes, bounds, K, *cfg)
     BACKWARD_LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, True, inverse)
     return dx, dp
 
 

@@ -43,6 +43,9 @@ SOURCE = cuda_build.CSRC / "rqs_flat.cu"
 # forward kernels (either direction) and backward kernels.
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# The same launches counted on the card, by [backward][inverse], when set to
+# an int64 (2, 2) tensor there (see backend.count_launch); None: off.
+DEVICE_LAUNCHES = None
 
 _TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
@@ -109,6 +112,7 @@ class _RQSFlat(torch.autograd.Function):
         _launch("rqs_flat_forward", (x, uw_t, uh_t, ud_t, codes, bounds, y, ld), x,
                 uw_t.shape[0], ud_t.stride(0), config)
         LAUNCHES += 1
+        backend.count_launch(DEVICE_LAUNCHES, False, config[0])
         return y, ld
 
     @staticmethod
@@ -171,6 +175,7 @@ def unconstrained_rqs_dyncodes_backward(x, uw_t, uh_t, ud_t, codes, bounds, ybar
     _launch("rqs_flat_backward", (x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, dx, dp),
             x, K, ud_t.stride(0), config)
     BACKWARD_LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, True, config[0])
     return dx, dp[:K], dp[K:2 * K], dp[2 * K:]
 
 

@@ -4,7 +4,9 @@ against their plain PyTorch versions (and the register kernels against the
 loops they replaced), a small model's serving path and
 training step through the planar kernels, a D = 64 autoregressive model's
 through the flat kernels and, with fusion on, the fused MADE, and a coupled
-NSF's through the flat kernels.
+NSF's through the flat kernels; the chunked trainer, its step captured in a
+CUDA graph and replayed, against eager steps, with no host sync inside a
+chunk and its kernels read from the profiler in every replay.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -688,3 +690,174 @@ def test_coupled_model_runs_through_the_flat_kernel(cuda):
     close(losses[0], losses[1], 1e-4)
     for (n, p), q in zip(card.named_parameters(), cpu.parameters()):
         assert float((p.grad.cpu() - q.grad).norm()) <= G_TOL * float(q.grad.norm()) + 1e-6, n
+
+
+# ---- the chunked trainer: one step captured in a CUDA graph and replayed ------
+
+def kernel_counts(fn):
+    """``{kernel name: launches}`` that torch.profiler records on the card
+    while ``fn`` runs (graph replays included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    return {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host}
+
+
+def launches_of(counts, kernel):
+    """Launches of the kernel named ``kernel`` (its template arguments aside)."""
+    return sum(n for name, n in counts.items() if f"{kernel}<" in name or f"{kernel}(" in name)
+
+
+def profiled_as(counts, kernel, exact):
+    """The profiler's records of ``kernel`` in replayed chunks that launch it
+    ``exact`` times: never more, and short only by a few records the
+    profiler drops (on the H100 it can drop ~1%)."""
+    n = launches_of(counts, kernel)
+    return exact * 0.95 <= n <= exact
+
+
+def reverse_kld_1000(model, batch, generator):
+    return model.reverse_kld(1000, generator=generator)
+
+
+@pytest.mark.gpu
+def test_captured_chunk_matches_eager_steps(cuda):
+    """Five reverse-KL steps captured once and replayed against five eager
+    steps from the same weights, generator seed and optimizer (Adam with
+    capturable=True, run eagerly): the replays draw what the eager steps
+    draw (the generator is registered with the graph), the losses agree
+    within 1e-4 and every leaf within 2e-3 of its norm."""
+    from normflows_tpu_torch.training import make_step_chunk, make_train_step
+
+    eager, captured = small_model(cuda, target=True), small_model(cuda, target=True)
+    captured.load_state_dict(eager.state_dict())
+    state, step = make_train_step(
+        eager, torch.optim.Adam(eager.parameters(), lr=5e-4, capturable=True), reverse_kld_1000)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    want = torch.stack([step(state, None, gen)[1]["loss"] for _ in range(5)])
+    cstate, chunk = make_step_chunk(
+        captured, torch.optim.Adam(captured.parameters(), lr=5e-4, capturable=True),
+        reverse_kld_1000, chunk_len=5)
+    _, metrics = chunk(cstate, torch.Generator(device=cuda).manual_seed(0))
+    assert int(cstate.step) == 5
+    close(metrics["loss"], want, 1e-4)
+    for (n, p), q in zip(captured.named_parameters(), eager.parameters()):
+        assert float((p - q).detach().norm()) <= G_TOL * float(q.detach().norm()) + 1e-6, n
+
+
+@pytest.mark.gpu
+def test_chunk_replays_without_a_host_sync_and_draws_anew(cuda):
+    """After the capture a chunk makes no host sync (sync debug mode
+    "error"), and each replay draws new samples: at lr 0 the losses differ
+    only through the draws."""
+    from normflows_tpu_torch.training import make_step_chunk
+
+    model = small_model(cuda, target=True)
+    state, chunk = make_step_chunk(
+        model, torch.optim.Adam(model.parameters(), lr=0.0, capturable=True),
+        reverse_kld_1000, chunk_len=4)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    chunk(state, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = chunk(state, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses = metrics["loss"].tolist()
+    assert int(state.step) == 8 and all(np.isfinite(losses))
+    assert len(set(losses)) == 4
+    with pytest.raises(ValueError, match="generator it was captured with"):
+        chunk(state, torch.Generator(device=cuda).manual_seed(1))
+
+
+@pytest.mark.gpu
+def test_chunk_launches_its_kernels_every_replay(cuda):
+    """The planar kernels run 4 + 4 times a step (2 layers, reverse KL, the
+    inverse direction) in every replay: the Python counters tick at the
+    warm-up and the capture only, 4 + 4 a step; the device counters, whose
+    adds are captured beside the launches, count 12 + 12 in a replayed chunk
+    of 3; the profiler's records of that chunk agree."""
+    from normflows_tpu_torch.training import make_step_chunk
+    from normflows_tpu_torch.training.loop import WARMUP_STEPS
+
+    model = small_model(cuda, target=True)
+    state, chunk = make_step_chunk(
+        model, torch.optim.Adam(model.parameters(), lr=5e-4, capturable=True),
+        reverse_kld_1000, chunk_len=3)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    on_card = torch.zeros(2, 2, dtype=torch.int64, device=cuda)
+    spline_cuda.DEVICE_LAUNCHES = on_card
+    try:
+        spline_cuda.LAUNCHES = spline_cuda.BACKWARD_LAUNCHES = 0
+        chunk(state, gen)
+        captured = (spline_cuda.LAUNCHES, spline_cuda.BACKWARD_LAUNCHES)
+        assert captured == (4 * (WARMUP_STEPS + 1),) * 2
+        # the warm-up's steps ran, the captured one did not: 3 replays did
+        assert on_card.tolist() == [[0, 4 * (WARMUP_STEPS + 3)], [0, 4 * (WARMUP_STEPS + 3)]]
+        on_card.zero_()
+        counts = kernel_counts(lambda: chunk(state, gen))
+        assert on_card.tolist() == [[0, 12], [0, 12]]
+    finally:
+        spline_cuda.DEVICE_LAUNCHES = None
+    assert profiled_as(counts, "rqs_transposed_kernel", 12)
+    assert profiled_as(counts, "rqs_transposed_backward_kernel", 12)
+    assert (spline_cuda.LAUNCHES, spline_cuda.BACKWARD_LAUNCHES) == captured
+
+
+@pytest.mark.gpu
+def test_chunk_on_the_card_wants_a_capturable_adam(cuda):
+    from normflows_tpu_torch.training import make_step_chunk
+
+    model = small_model(cuda, target=True)
+    with pytest.raises(ValueError, match="capturable=True"):
+        make_step_chunk(model, torch.optim.Adam(model.parameters(), lr=5e-4),
+                        reverse_kld_1000)
+
+
+@pytest.mark.gpu
+def test_sequential_data_chunk_on_the_card(cuda):
+    """make_chunked_train_step on the coupled model, data on the card,
+    shuffle=False: the same minibatches as eager steps on the window (the
+    same capturable Adam), losses
+    within 1e-4, leaves within 2e-3 of their norms, and 4 + 4 flat launches a
+    step captured and replayed (the device counters: 12 + 12 in a chunk of
+    3, the forward direction)."""
+    from normflows_tpu_torch.training import make_chunked_train_step, make_train_step
+    from normflows_tpu_torch.training.loop import WARMUP_STEPS
+
+    eager, captured = coupled_model(cuda), coupled_model(cuda)
+    captured.load_state_dict(eager.state_dict())
+    x = eager.p.sample(4096, generator=torch.Generator(device=cuda).manual_seed(3))
+    loss_fn = lambda m, batch, gen: m.forward_kld(batch)  # noqa: E731
+    state, step = make_train_step(
+        eager, torch.optim.Adam(eager.parameters(), lr=5e-4, capturable=True), loss_fn)
+    want = []
+    for i in range(6):
+        s = (i * 512) % (4096 - 512 + 1)
+        want.append(step(state, x[s:s + 512])[1]["loss"])
+    cstate, chunk = make_chunked_train_step(
+        captured, torch.optim.Adam(captured.parameters(), lr=5e-4, capturable=True), loss_fn,
+        x, batch_size=512, chunk_len=3, shuffle=False)
+    on_card = torch.zeros(2, 2, dtype=torch.int64, device=cuda)
+    spline_flat.DEVICE_LAUNCHES = on_card
+    try:
+        spline_flat.LAUNCHES = spline_flat.BACKWARD_LAUNCHES = 0
+        got = [chunk(cstate)[1]["loss"]]
+        assert (spline_flat.LAUNCHES, spline_flat.BACKWARD_LAUNCHES) == \
+            (4 * (WARMUP_STEPS + 1),) * 2
+        on_card.zero_()
+        counts = kernel_counts(lambda: got.append(chunk(cstate)[1]["loss"]))
+        assert on_card.tolist() == [[12, 0], [12, 0]]
+    finally:
+        spline_flat.DEVICE_LAUNCHES = None
+    close(torch.cat(got), torch.stack(want), 1e-4)
+    for (n, p), q in zip(captured.named_parameters(), eager.parameters()):
+        assert float((p - q).detach().norm()) <= G_TOL * float(q.detach().norm()) + 1e-6, n
+    assert profiled_as(counts, "rqs_flat_kernel", 12)
+    assert profiled_as(counts, "rqs_flat_backward_kernel", 12)

@@ -253,7 +253,8 @@ def test_non_finite_loss_skips_the_whole_update(jm):
     with pytest.raises(NotImplementedError, match="later slice"):
         training.make_train_step(tm, opt, loss_fn, update_lipschitz_iters=1)
     with pytest.raises(NotImplementedError, match="later slice"):
-        training.make_chunked_train_step(tm, opt, loss_fn, None, 8)
+        training.make_chunked_train_step(tm, opt, loss_fn, torch.zeros(8, 2), 8,
+                                         update_lipschitz_iters=1)
 
 
 def test_three_steps_match_jax_train_step(jm):
