@@ -44,8 +44,22 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   counters are captured beside the launches), the non-finite skip decided on the card, a checkpoint
   restored in place, step times, and 2,000 bf16 flagship steps trained to
   a KL(q||p) bar: phases chunked_train, chunked_data, times_chunked,
-  convergence.
+  convergence;
+* the README's Real NVP (32 masked affine layers on MLPs, TwoMoons): one
+  forward-KL step on the card against the CPU, the example's first 50
+  chunked AdamW steps on the card against the CPU on the same inputs, then
+  ``normflows_tpu_torch.examples.real_nvp_twomoons`` as a user runs it,
+  4,000 chunked AdamW steps, its held-out log q and the ring radius of
+  draws served from its bundle reported beside their bars: phase realnvp;
+* serving export (``normflows_tpu_torch.serving``): bundles of the
+  flagship (f32, bf16), the coupled NSF, the large-D ``log_prob`` with the
+  fused MADE off and on, and Real NVP, each loaded and held bit
+  for bit against its live model, eagerly and as a replayed CUDA graph,
+  with exact launches on the device counters, and the request routes
+  timed: phase serving_export.
 
+Every kernel on a model's path is reached through its ``torch.library``
+operator (``normflows_tpu_torch.ops.backend.kernel_op``).
 It prints one JSON line per phase, then the ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
 a CUDA card, or without the package beside it, it exits non-zero before
@@ -57,9 +71,12 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import io
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -121,7 +138,7 @@ LD_D, LD_HIDDEN, LD_BINS, LD_LAYERS, LD_BATCH = 64, 256, 8, 4, 4096
 LD_TAIL_BOUND = 3.0
 LD_CPU = 512  # samples of the card-against-CPU checks
 LD_TRAIN_STEPS = 20
-LD_TIMED_REPS = 10  # host medians of the large-D requests and steps
+LD_TIMED_REPS = 5  # host medians of the large-D requests and steps
 # Flat kernel against its plain version: the JAX package's bars for the
 # runtime-tail entry (tests/test_pallas.py:427-428), 1e-5 on outputs and
 # 1e-4 on log-dets, for the static-tail entry (:41-42) 2e-5 and 2e-4, and
@@ -189,6 +206,25 @@ PROFILED_CHUNK = 10
 # examples/nsf_cylinder.py reach ~1e-4.
 CONV_STEPS, CONV_CHUNK, CONV_HELD_OUT = 2000, 100, 2**16
 CONV_KL = 3e-3
+
+# the README's Real NVP (examples/real_nvp_twomoons.py: K = 32, MLP [2, 64,
+# 64, 2] nets, batch 512, AdamW(5e-4, weight decay 1e-5), 4,000 iterations),
+# trained chunked on the card.  Its first RNVP_PARITY_STEPS steps must give
+# the CPU's losses on the same inputs within CPU_TOL.  The full run's
+# held-out log q and served ring radius (the ring is at 2) are reported
+# beside RNVP_LOG_Q (QUALITY.md's one chunked JAX run: -1.593) and
+# RNVP_RADIUS, not held: an unbounded affine scale blows up in some runs of
+# this recipe, on the card, on the CPU and in the JAX package alike, at
+# seeds that differ between them, because float32 rounding parts the
+# trajectories of one seed within a few hundred steps (PERF.md, PR 11: the
+# example at 12 seeds on the card, its replay through the JAX package and
+# its run on the CPU).
+RNVP_K, RNVP_ITERS, RNVP_CHUNK, RNVP_BATCH, RNVP_SERVED = 32, 4000, 100, 512, 4096
+RNVP_LR, RNVP_PARITY_STEPS = 5e-4, 50
+RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
+# serving: log_prob through one program at these batches; SERVE_REPS
+# requests a route's host median
+SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 20
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
@@ -2561,20 +2597,23 @@ def replayed(fn, top=8):
 
 @contextlib.contextmanager
 def device_counters():
-    """The two spline wrappers' ``DEVICE_LAUNCHES`` set to fresh int64 (2, 2)
-    tensors on the card ([backward][inverse]) for the block, off after it.
-    Their adds are captured beside the launches of a graph captured in the
-    block, so that each replay counts; the caller's name for them keeps
-    them alive as long as those graphs."""
-    from normflows_tpu_torch.ops import spline_cuda, spline_flat
+    """The kernel wrappers' ``DEVICE_LAUNCHES`` (the two splines' and the
+    fused MADE's) set to fresh int64 (2, 2) tensors on the card
+    ([backward][inverse]) for the block, off after it.  Their adds are
+    captured beside the launches of a graph captured in the block, so that
+    each replay counts; the caller's name for them keeps them alive as long
+    as those graphs."""
+    from normflows_tpu_torch.ops import made_fused, spline_cuda, spline_flat
 
-    counts = {kind: torch.zeros(2, 2, dtype=torch.int64, device=DEVICE)
-              for kind in ("planar", "flat")}
-    spline_cuda.DEVICE_LAUNCHES, spline_flat.DEVICE_LAUNCHES = counts["planar"], counts["flat"]
+    modules = {"planar": spline_cuda, "flat": spline_flat, "made": made_fused}
+    counts = {kind: torch.zeros(2, 2, dtype=torch.int64, device=DEVICE) for kind in modules}
+    for kind, m in modules.items():
+        m.DEVICE_LAUNCHES = counts[kind]
     try:
         yield counts
     finally:
-        spline_cuda.DEVICE_LAUNCHES = spline_flat.DEVICE_LAUNCHES = None
+        for m in modules.values():
+            m.DEVICE_LAUNCHES = None
 
 
 def on_card(counts, fn):
@@ -2589,6 +2628,8 @@ def on_card(counts, fn):
         for backward, inverse in itertools.product((0, 1), (0, 1)):
             got[f"{stem}_{'backward_' if backward else ''}"
                 f"{'inverse' if inverse else 'forward'}"] = c[backward][inverse]
+    c = counts["made"].tolist()
+    got["made_fused_forward"], got["made_fused_backward"] = c[0][0], c[1][0]
     return out, got
 
 
@@ -2643,10 +2684,10 @@ def replay_launches(what, counted_on_card, per_step, steps, profiled=None):
                          f"in a replayed chunk, expected {want}")
     if profiled is None:
         return {k: {"device_counter": n} for k, n in counted_on_card.items()}
-    if any(not 0.95 * n <= profiled[k] <= n for k, n in counted_on_card.items()):
+    if any(not 0.95 * n <= profiled.get(k, 0) <= n for k, n in counted_on_card.items()):
         raise SystemExit(f"{what}: the profiler recorded {profiled} launches in a replayed "
                          f"chunk, the device counters {counted_on_card}")
-    return {k: {"device_counter": n, "profiler": profiled[k]}
+    return {k: {"device_counter": n, "profiler": profiled.get(k, 0)}
             for k, n in counted_on_card.items()}
 
 
@@ -3020,6 +3061,269 @@ def phase_convergence(seed=SEED + 13):
     return r
 
 
+# ---- Real NVP, trained and served ------------------------------------------
+
+def build_real_nvp(device, K=RNVP_K, random_last=True):
+    """The README's Real NVP (``examples.real_nvp_twomoons.build_model``)
+    from a seeded generator; with ``random_last`` every net's zero-init last
+    layer drawn ~ 0.1 N(0, 1), so that each layer does work."""
+    from normflows_tpu_torch.examples.real_nvp_twomoons import build_model
+
+    model = build_model(K, device, torch.Generator().manual_seed(SEED + 30))
+    if random_last:
+        gen = torch.Generator().manual_seed(SEED + 31)
+        with torch.no_grad():
+            for layer in model.flows:
+                for net in (layer.s_net, layer.t_net):
+                    w = net.linears[-1].weight
+                    w.copy_(0.1 * torch.randn(w.shape, generator=gen))
+    return model
+
+
+def realnvp_parity():
+    """The example's inputs at SEED (``real_nvp_twomoons.inputs``, drawn on
+    the host): RNVP_PARITY_STEPS chunked AdamW steps in its windows on the
+    card (one chunk, captured) and on the CPU, every loss within CPU_TOL.
+    Returns the readings and the card's model."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import real_nvp_twomoons as example
+
+    losses, models = {}, {}
+    for where in (DEVICE, "cpu"):
+        model, x_all, _ = example.inputs(RNVP_K, SEED, where)
+        models[where] = model
+        opt = torch.optim.AdamW(model.parameters(), lr=RNVP_LR, weight_decay=1e-5,
+                                capturable=where != "cpu")
+        state, chunk = training.make_chunked_train_step(
+            model, opt, example.forward_kld_loss, x_all, RNVP_BATCH, RNVP_PARITY_STEPS,
+            shuffle=False)
+        losses[where] = chunk(state)[1]["loss"].cpu()
+    gap = (losses[DEVICE] - losses["cpu"]).abs()
+    return {"steps": RNVP_PARITY_STEPS, "max_abs_loss_gap": float(gap.max()),
+            "gap_at_step": {i: float(gap[i]) for i in (0, 9, 24, RNVP_PARITY_STEPS - 1)},
+            "loss_card_last": float(losses[DEVICE][-1]),
+            "loss_cpu_last": float(losses["cpu"][-1])}, models[DEVICE]
+
+
+def phase_realnvp(root):
+    """(a) One f32 forward-KL step of the README's Real NVP (K = 32, random
+    last layers) on RNVP_BATCH TwoMoons points on the card against the CPU
+    (every gradient leaf within 2e-3 of its norm; no kernel launch: the model
+    runs no kernel of the port); (b) the example's first RNVP_PARITY_STEPS
+    steps on the card against the CPU (``realnvp_parity``); (c)
+    ``examples.real_nvp_twomoons`` as a user runs it: RNVP_ITERS chunked
+    AdamW steps (chunks of RNVP_CHUNK, 2^16 points on the card), a bundle
+    written under ``root``, 4096 draws served from it; its held-out mean
+    log q and the draws' mean radius reported beside RNVP_LOG_Q and
+    RNVP_RADIUS.  Returns (b)'s model, trained RNVP_PARITY_STEPS steps on
+    the card: its draws are finite, where (c)'s may not be."""
+    from normflows_tpu_torch.examples import real_nvp_twomoons
+
+    r = {"card_vs_cpu": step_against_cpu(
+        "realnvp", build_real_nvp, RNVP_BATCH, lambda card, cpu: None, {},
+        loss_fn=forward_kld_loss, batch=docs_data(SEED + 32, RNVP_BATCH))}
+    r["parity"], model = realnvp_parity()
+    if not r["parity"]["max_abs_loss_gap"] <= CPU_TOL:
+        emit("realnvp", ok=False, results=r)
+        raise SystemExit("realnvp: the example's first steps on the card disagree with "
+                         "the CPU")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, record = real_nvp_twomoons.main(
+            ["--iters", str(RNVP_ITERS), "--k", str(RNVP_K), "--chunk", str(RNVP_CHUNK),
+             "--bundle", os.path.join(root, "real_nvp_trained"), "--seed", str(SEED),
+             "--device", DEVICE])
+    record.pop("bundle")
+    r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1],
+                "held_out_log_q_at_least": bool(record["held_out_log_q"] >= RNVP_LOG_Q),
+                "ring_radius_within": bool(RNVP_RADIUS[0] <= record["ring_radius"]
+                                           <= RNVP_RADIUS[1])}
+    emit("realnvp", ok=True, results=r,
+         bars={"leaf_relative_norm": STEP_G_TOL, "loss": [CPU_TOL, CPU_TOL],
+               "parity_loss_gap": CPU_TOL},
+         reported={"held_out_log_q": RNVP_LOG_Q, "ring_radius": RNVP_RADIUS})
+    return model
+
+
+def bundle_bytes(path):
+    return {name: os.path.getsize(os.path.join(path, name)) for name in sorted(os.listdir(path))}
+
+
+def expect_launches(what, got, want):
+    """``got`` (the device counters, by the kernels line's names) must be
+    ``want`` for the kernels it names and 0 for every other."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise SystemExit(f"{what}: the device counters counted {got}, expected {full}")
+    return {k: n for k, n in got.items() if n}
+
+
+def python_launches():
+    from normflows_tpu_torch.ops import made_fused, spline_cuda, spline_flat
+
+    return sum(m.LAUNCHES + m.BACKWARD_LAUNCHES for m in (spline_cuda, spline_flat, made_fused))
+
+
+def route_times(fns):
+    """Host median of SERVE_REPS calls of each function of ``fns``, each
+    ending in a synchronise, and one profiled call's device time over it."""
+    out = {}
+    for route, fn in fns.items():
+        ms = host_ms(fn, reps=SERVE_REPS)
+        prof = profile(fn)
+        out[route] = {"ms": ms, "device_ms": prof["device_ms"],
+                      "busy_share_of_median": prof["device_ms"] / ms,
+                      "kernel_launches": prof["kernel_launches"]}
+    return out
+
+
+def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batches,
+          num_samples=N, timed=False, path=None, **export_kw):
+    """Export ``model`` (``serving.save_bundle``) under ``root`` (or take
+    the bundle it was saved to at ``path``), load the bundle and hold it
+    against the live model, bit for bit:
+
+    * the sampler (when ``sample_launches`` is not None) from one seed, eager
+      and as the graph (after the call that captures it), against
+      ``model.sample(num_samples)`` from the same seed; each request
+      launches exactly ``sample_launches`` on the device counters, and the
+      graphed one no kernel from Python;
+    * ``log_prob`` of ``x[:b]`` for each ``b`` of ``batches`` through the one
+      program, ``log_prob_launches`` each.
+
+    With ``timed``: the three routes of a request (the live model eager, the
+    bundle eager, the bundle graphed) and ``log_prob`` live and from the
+    bundle at each batch (``route_times``)."""
+    from normflows_tpu_torch import serving
+
+    if path is None:
+        path = os.path.join(root, what)
+        manifest = serving.save_bundle(model, path, num_samples if sample_launches is not None
+                                       else None, tuple(x.shape[1:]), **export_kw)
+    bundle = serving.load_bundle(path)
+    manifest = bundle.manifest
+    num_samples = manifest["num_samples"] or num_samples
+    r = {"export_seconds": manifest["export_seconds"], "bytes": bundle_bytes(path),
+         "kernel_ops": manifest["kernel_ops"], "symbolic_batch": manifest["symbolic_batch"],
+         "launches": {}}
+    equal = {}
+    seed = SEED + 40
+    with torch.inference_mode():
+        if sample_launches is not None:
+            live = model.sample(num_samples,
+                                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        lives = {b: model.log_prob(x[:b]) for b in batches}
+    if sample_launches is not None:
+        eager, got = on_card(counts, lambda: bundle.sample(seed, graphed=False))
+        r["launches"]["sample_eager"] = expect_launches(f"{what} sample, eager", got,
+                                                        sample_launches)
+        bundle.sample(seed + 1)  # captures the graph
+        before = python_launches()
+        graphed, got = on_card(counts, lambda: bundle.sample(seed))
+        r["launches"]["sample_graphed"] = expect_launches(f"{what} sample, graphed", got,
+                                                          sample_launches)
+        r["python_launches_graphed"] = python_launches() - before
+        for route, (xs, lq) in (("eager", eager), ("graphed", graphed)):
+            equal[f"sample_{route}"] = bool(torch.equal(xs, live[0])
+                                            and torch.equal(lq, live[1]))
+        r["finite"] = bool(torch.isfinite(graphed[0]).all() and torch.isfinite(graphed[1]).all())
+    for b in batches:
+        lp, got = on_card(counts, lambda: bundle.log_prob(x[:b]))
+        r["launches"][f"log_prob_{b}"] = expect_launches(f"{what} log_prob at {b}", got,
+                                                         log_prob_launches)
+        equal[f"log_prob_{b}"] = bool(torch.equal(lp, lives[b]))
+    r["bit_equal"] = equal
+    if not all(equal.values()) or r.get("python_launches_graphed", 0) or not r.get("finite", 1):
+        emit("serving_export", ok=False, failed=what, results=r)
+        raise SystemExit(f"serving_export: the {what} bundle disagrees with its live model")
+    if timed:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+        def live_sample():
+            with torch.inference_mode():
+                return model.sample(num_samples, generator=gen)
+
+        r["sample_ms"] = route_times({"live_eager": live_sample,
+                                      "bundle_eager": lambda: bundle.sample(seed, graphed=False),
+                                      "bundle_graphed": lambda: bundle.sample(seed)})
+        for b in batches:
+            def live_log_prob():
+                with torch.inference_mode():
+                    return model.log_prob(x[:b])
+
+            r[f"log_prob_ms_{b}"] = route_times({
+                "live_eager": live_log_prob, "bundle_eager": lambda: bundle.log_prob(x[:b])})
+    return r
+
+
+def phase_serving_export(root, real_nvp):
+    """``normflows_tpu_torch.serving`` on the card: bundles of the flagship
+    (random weights, f32 and bf16), the coupled NSF (random nets and CDFs),
+    the large-D model's ``log_prob`` with the fused MADE off (symbolic batch)
+    and on (concrete batch of 4096), and Real NVP (``real_nvp``: the
+    example's model after its first RNVP_PARITY_STEPS steps on the card,
+    from ``phase_realnvp``; a model of the full run may draw non-finite
+    points), each exported to the directory ``root``, loaded and held bit for bit
+    against its live model, eager and graphed (``serve``), with exact
+    launches on the device counters: 24 planar inverse launches a flagship
+    sample, 12 forward a log_prob; 16 flat a coupled request; 4 flat and 4
+    fused a large-D log_prob with fusion on.  The request routes timed for
+    the flagship and the coupled model at 2^14.  Returns, for each kernel,
+    its launches by bundle and request."""
+    from normflows_tpu_torch.ops import backend
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    results = {}
+    with device_counters() as counts:
+        flagship = build_flagship(DEVICE)
+        x = flagship.sample(N, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 41))[0]
+        for dtype in ("float32", "bfloat16"):
+            set_compute_dtype(flagship, None if dtype == "float32" else dtype)
+            results[f"flagship_{dtype}"] = serve(
+                f"flagship_{dtype}", flagship, root, counts,
+                {"rqs_transposed_inverse": 2 * LAYERS}, {"rqs_transposed_forward": LAYERS},
+                x.detach(), SERVE_BATCHES, timed=True)
+        del flagship
+        coupled = build_coupled(DEVICE)
+        per_request = 2 * CP_LAYERS
+        results["coupled_float32"] = serve(
+            "coupled_float32", coupled, root, counts, {"rqs_flat_inverse": per_request},
+            {"rqs_flat_forward": per_request}, docs_data(SEED + 42, N), SERVE_BATCHES,
+            timed=True)
+        del coupled
+        large = build_large_d(DEVICE)
+        xl = 1.5 * torch.randn(LD_BATCH, LD_D, device=DEVICE,
+                               generator=torch.Generator(device=DEVICE).manual_seed(SEED + 43))
+        results["large_d_fusion_off"] = serve(
+            "large_d_fusion_off", large, root, counts, None, {"rqs_flat_forward": LD_LAYERS},
+            xl, (1, 1000, LD_BATCH))
+        backend.set_made_fusion(True)
+        try:
+            results["large_d_fusion_on"] = serve(
+                "large_d_fusion_on", large, root, counts, None,
+                {"rqs_flat_forward": LD_LAYERS, "made_fused_forward": LD_LAYERS}, xl,
+                (LD_BATCH,), symbolic_batch=False, batch_size=LD_BATCH)
+        finally:
+            backend.set_made_fusion(False)
+        del large
+        results["real_nvp"] = serve("real_nvp", real_nvp, root, counts, {}, {},
+                                    docs_data(SEED + 44, RNVP_SERVED), (1, RNVP_SERVED),
+                                    num_samples=RNVP_SERVED)
+    emit("serving_export", ok=True, results=results, batch=N,
+         note="export_seconds: torch.export of the sampler and of log_prob (save_bundle); "
+         "bytes: the bundle's files; launches: the device counters over one request; "
+         "sample_ms: the request by three routes, host median of 20 calls each ending in "
+         "a synchronise, device_ms of one call under torch.profiler, busy share that over "
+         "the median; log_prob_ms_<b>: the same at batch b, live and from the bundle's "
+         "one program")
+    served = {}
+    for bundle, r in results.items():
+        for request, launched in r["launches"].items():
+            for kernel, n in launched.items():
+                served.setdefault(kernel, {}).setdefault(bundle, {})[request] = n
+    return served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -3066,6 +3370,8 @@ def main() -> int:
     coupled_replays = phase_chunked_data()
     phase_times_chunked(eager_flagship, eager_coupled)
     phase_convergence()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundles_") as root:
+        served = phase_serving_export(root, phase_realnvp(root))
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -3194,6 +3500,8 @@ def main() -> int:
             "spill_store_bytes": t["spill_store_bytes"],
             "spill_load_bytes": t["spill_load_bytes"],
         })
+    for entry in kernels:
+        entry["launches_served"] = served.get(entry["name"], {})
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

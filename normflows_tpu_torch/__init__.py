@@ -15,15 +15,23 @@ flows (more than 8 features, sampled by the sliced sequential inverse:
 ``LULinearPermute`` between them), and for the coupled RQ-spline flows
 (``CoupledRationalQuadraticSpline`` and its circular form, on a
 ``ResidualNet``; ``TwoMoons`` with the rejection sampler of ``Target``).
+Real NVP, the README's first model, is ``MaskedAffineFlow`` layers on
+``MLP`` nets (``flows.affine.coupling`` holds the other affine couplings,
+``flows.reshape`` the feature split).
 ``training.make_step_chunk`` and ``training.make_chunked_train_step``
 train many steps a call, one step captured in a CUDA graph and replayed;
 ``training.save_checkpoint`` / ``restore_checkpoint`` keep a training state,
-``NormalizingFlow.save`` / ``load`` a model.  ``examples.nsf_cylinder``
-trains the flagship to convergence, and ``examples.spline_bwd_ablate`` times
-the four variants of the flat spline backward's ablation kernel.
+``NormalizingFlow.save`` / ``load`` a model.  ``serving`` exports a model's
+sampler and ``log_prob`` as ``torch.export`` programs over the kernels'
+operators (``ops.backend.kernel_op``), saves them as a bundle and serves a
+loaded bundle, the sampler as a CUDA graph on a card.
+``examples.nsf_cylinder`` trains the flagship to convergence,
+``examples.real_nvp_twomoons`` trains Real NVP and serves it, and
+``examples.spline_bwd_ablate`` times the four variants of the flat spline
+backward's ablation kernel.
 """
 
-from . import core, distributions, flows, interop, nets, ops, training, utils
+from . import core, distributions, flows, interop, nets, ops, serving, training, utils
 from .core.flow import Composite, Flow, Identity, Reverse
 from .core.facades import NormalizingFlow
 

@@ -5,15 +5,16 @@
 ``torch.Generator`` where the JAX version takes a key.  ``reverse_alpha_div``
 waits for a later slice of the port.
 
-Persistence (facades.py:220-335 of the JAX package): ``save`` pickles the
-whole model with ``torch.save``, ``NormalizingFlow.load`` rebuilds it, and
-:func:`load_params_like` copies a saved model's tensors into an existing
-one, each converted to the model tensor's dtype, naming the first name or
-shape that differs.
+Persistence (facades.py:220-335 of the JAX package): ``save`` pickles a
+:func:`compact_copy` of the model with ``torch.save``,
+``NormalizingFlow.load`` rebuilds it, and :func:`load_params_like` copies a
+saved model's tensors into an existing one, each converted to the model
+tensor's dtype, naming the first name or shape that differs.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -102,6 +103,18 @@ class NormalizingFlow(nn.Module):
                             generator: Optional[torch.Generator] = None):
         return self.sample(num_samples, context, generator=generator)
 
+    def from_noise(self, eps, context=None):
+        """``(x, log_q)`` of :meth:`sample` with the base draws given: ``eps``
+        (num_samples, *event) is the base's noise, drawn by its
+        ``noise_spec`` (``distributions.base.draw_noise``), so that
+        ``sample(n, generator=g)`` is ``from_noise(draw_noise(...))`` on
+        the same draws.  The program ``serving.export_sampler`` exports."""
+        z, log_q = self.q0.from_noise(eps, context)
+        for flow in self.flows:
+            z, ld = flow.forward(z, context)
+            log_q = log_q - ld
+        return z, log_q
+
     # ---- training objectives --------------------------------------------
     def forward_kld(self, x, context=None):
         """-E_p[log q(x)], the maximum-likelihood loss."""
@@ -131,8 +144,9 @@ class NormalizingFlow(nn.Module):
     # ---- persistence -----------------------------------------------------
     def save(self, path: str):
         """Pickle the whole model (its classes by import path, every tensor
-        where it lies) with ``torch.save``."""
-        torch.save(self, path)
+        where it lies) with ``torch.save``, as :func:`compact_copy` gives
+        it: no storage beyond the model's own tensors goes into the file."""
+        torch.save(compact_copy(self), path)
 
     @classmethod
     def load(cls, path: str):
@@ -144,6 +158,22 @@ class NormalizingFlow(nn.Module):
             raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, "
                             f"not {cls.__name__}")
         return obj
+
+
+def compact_copy(model: nn.Module) -> nn.Module:
+    """A deep copy of ``model`` whose every parameter and buffer owns a
+    storage of its own bytes; ``model`` keeps its tensors.
+
+    A chunked trainer makes each parameter a view of a flat buffer that also
+    holds Adam's moments (``training.loop``), and ``torch.save`` or
+    ``torch.export`` of a view writes its whole storage: ``save`` and
+    ``serving``'s exports take this copy instead."""
+    copied = copy.deepcopy(model)
+    with torch.no_grad():
+        for t in [*copied.parameters(), *copied.buffers()]:
+            if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+                t.data = t.data.clone(memory_format=torch.contiguous_format)
+    return copied
 
 
 def copy_tensors_like(model: nn.Module, saved: dict, source: str) -> nn.Module:

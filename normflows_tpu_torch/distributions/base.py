@@ -8,6 +8,13 @@ JAX package takes a PRNG key.  Contract:
     sample_and_log_prob(num_samples, context=None, *, generator=None) -> (z, log_p)
     log_prob(z, context=None) -> (batch,)
     sample(num_samples, context=None, *, generator=None) -> z
+
+``DiagGaussian`` and ``UniformGaussian`` split a draw from its transform:
+``noise_spec`` names each event index's unit draw (``"normal"``, or
+``"uniform"`` on [0, 1)), :func:`draw_noise` draws it, and
+``from_noise(eps) -> (z, log_p)`` maps it; ``sample_and_log_prob`` is the
+two in turn.  A program that takes the noise as its input (the exported
+sampler of ``serving``) gives the samples of a generator's draws.
 """
 
 from __future__ import annotations
@@ -28,6 +35,34 @@ def _tuple_shape(shape):
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
+def draw_noise(noise_spec, event_shape, num_samples: int, *,
+               generator: Optional[torch.Generator] = None, dtype=torch.float32,
+               device="cpu") -> torch.Tensor:
+    """Unit draws (num_samples, *event_shape) by ``noise_spec``, one entry
+    per event index (row-major): ``torch.rand`` for the ``"uniform"``
+    indices, then ``torch.randn`` for the ``"normal"`` ones, each from
+    ``generator`` as one (num_samples, count) draw, placed at their indices
+    in ascending order."""
+    spec = list(noise_spec)
+    if set(spec) - {"normal", "uniform"}:
+        raise ValueError(f"noise_spec entries are 'normal' or 'uniform', got {spec}")
+    shape = (num_samples, *event_shape)
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    if "uniform" not in spec:
+        return torch.randn(shape, **kw)
+    if "normal" not in spec:
+        return torch.rand(shape, **kw)
+    uniform = [i for i, k in enumerate(spec) if k == "uniform"]
+    normal = [i for i, k in enumerate(spec) if k == "normal"]
+    u = torch.rand(num_samples, len(uniform), **kw)
+    g = torch.randn(num_samples, len(normal), **kw)
+    # columns placed by slicing, no index tensor: no host-to-device copy,
+    # which a CUDA graph's capture (a chunk's reverse-KL step) refuses
+    columns = {**{i: u[:, k] for k, i in enumerate(uniform)},
+               **{i: g[:, k] for k, i in enumerate(normal)}}
+    return torch.stack([columns[i] for i in range(len(spec))], dim=-1).reshape(shape)
+
+
 class BaseDistribution(nn.Module):
     """Abstract base: a module's ``forward`` is ``sample_and_log_prob``."""
 
@@ -37,6 +72,11 @@ class BaseDistribution(nn.Module):
 
     def log_prob(self, z, context=None):
         raise NotImplementedError
+
+    def from_noise(self, eps, context=None):
+        """``(z, log_p)`` of the unit draws ``eps`` (:func:`draw_noise` by
+        ``self.noise_spec``); a base that has no such split raises."""
+        raise NotImplementedError(f"{type(self).__name__} has no noise_spec")
 
     def sample(self, num_samples: int = 1, context=None, *,
                generator: Optional[torch.Generator] = None):
@@ -76,11 +116,22 @@ class DiagGaussian(BaseDistribution):
             return self.log_scale
         return self.log_scale + math.log(self.temperature)
 
+    @property
+    def event_shape(self):
+        return self.shape
+
+    @property
+    def noise_spec(self):
+        return ("normal",) * self.d
+
     def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
                             generator: Optional[torch.Generator] = None):
+        eps = draw_noise(self.noise_spec, self.shape, num_samples, generator=generator,
+                         dtype=self.loc.dtype, device=self.loc.device)
+        return self.from_noise(eps, context)
+
+    def from_noise(self, eps, context=None):
         log_scale = self._log_scale()
-        eps = torch.randn(num_samples, *self.shape, generator=generator,
-                          dtype=self.loc.dtype, device=self.loc.device)
         z = self.loc + torch.exp(log_scale) * eps
         dims = tuple(range(1, len(self.shape) + 1))
         log_p = -0.5 * self.d * LOG2PI - torch.sum(log_scale + 0.5 * eps**2, dim=dims)
@@ -111,6 +162,9 @@ class UniformGaussian(BaseDistribution):
         inv_perm[perm] = np.arange(ndim)
         scale = np.ones(ndim, np.float32) if scale is None else np.asarray(scale, np.float32)
         self.ndim = ndim
+        # the uniform indices on the host; their draws are placed in
+        # ascending order (draw_noise)
+        self.ind_host = tuple(int(i) for i in ind)
         self.register_buffer("ind", torch.as_tensor(ind, device=device))
         self.register_buffer("ind_", torch.as_tensor(rest, device=device))
         self.register_buffer("inv_perm", torch.as_tensor(inv_perm, device=device))
@@ -120,20 +174,32 @@ class UniformGaussian(BaseDistribution):
     def create(cls, ndim: int, ind, scale=None, *, device="cuda"):
         return cls(ndim, ind, scale, device=device)
 
+    @property
+    def event_shape(self):
+        return (self.ndim,)
+
+    @property
+    def noise_spec(self):
+        uniform = set(self.ind_host)
+        return tuple("uniform" if i in uniform else "normal" for i in range(self.ndim))
+
     def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
                             generator: Optional[torch.Generator] = None):
-        z = self.sample(num_samples, context, generator=generator)
-        return z, self.log_prob(z, context)
+        eps = draw_noise(self.noise_spec, (self.ndim,), num_samples, generator=generator,
+                         device=self.scale.device)
+        return self.from_noise(eps, context)
 
     def sample(self, num_samples: int = 1, context=None, *,
                generator: Optional[torch.Generator] = None):
-        dev = self.scale.device
-        eps_u = torch.rand(num_samples, self.ind.shape[0], generator=generator,
-                           device=dev) - 0.5
-        eps_g = torch.randn(num_samples, self.ind_.shape[0], generator=generator,
-                            device=dev)
-        z = torch.cat([eps_u, eps_g], dim=-1)[..., self.inv_perm]
-        return self.scale * z
+        z, _ = self.sample_and_log_prob(num_samples, context, generator=generator)
+        return z
+
+    def from_noise(self, eps, context=None):
+        """The uniform indices' draws centred (eps - 0.5), then every index
+        scaled: ``z = scale * eps'``."""
+        z = torch.cat([eps[..., self.ind] - 0.5, eps[..., self.ind_]], dim=-1)
+        z = self.scale * z[..., self.inv_perm]
+        return z, self.log_prob(z, context)
 
     def log_prob(self, z, context=None):
         log_p_u = -torch.sum(torch.log(self.scale[self.ind]))

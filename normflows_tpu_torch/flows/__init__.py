@@ -1,8 +1,18 @@
-"""Flow layers of this slice of the port."""
+"""Flow layers of the port: the autoregressive and coupled RQ splines, the
+affine autoregressive and coupling flows (Real NVP), ``LULinearPermute`` and
+the feature split."""
 
 from ..core.flow import Flow, Reverse, Composite, Identity, zero_log_det_like_z
 from . import base
 from .affine.autoregressive import Autoregressive, MaskedAffineAutoregressive
+from .affine.coupling import (
+    AffineConstFlow,
+    AffineCoupling,
+    AffineCouplingBlock,
+    CCAffineConst,
+    MaskedAffineFlow,
+)
+from .reshape import Merge, Split
 from .mixing import LULinearPermute
 from .neural_spline import (
     MaskedPiecewiseRationalQuadraticAutoregressive,
@@ -21,6 +31,13 @@ __all__ = [
     "Identity",
     "Autoregressive",
     "MaskedAffineAutoregressive",
+    "AffineConstFlow",
+    "CCAffineConst",
+    "AffineCoupling",
+    "MaskedAffineFlow",
+    "AffineCouplingBlock",
+    "Split",
+    "Merge",
     "LULinearPermute",
     "MaskedPiecewiseRationalQuadraticAutoregressive",
     "AutoregressiveRationalQuadraticSpline",

@@ -1,1 +1,3 @@
 from .autoregressive import Autoregressive
+from .coupling import (AffineConstFlow, AffineCoupling, AffineCouplingBlock, CCAffineConst,
+                       MaskedAffineFlow)

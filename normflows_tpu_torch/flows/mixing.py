@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from ..core.flow import Flow, zero_log_det_like_z
 from ..ops import splines
@@ -30,8 +31,10 @@ from ..ops.backend import resolve_device
 def _triangle_indices(n: int, device) -> tuple:
     """Row and column indices of the strictly lower and the strictly upper
     triangle of an (n, n) matrix, in numpy's ``tril_indices`` /
-    ``triu_indices`` order (the JAX package's), on ``device``."""
-    with torch.inference_mode(False):
+    ``triu_indices`` order (the JAX package's), on ``device``; made outside
+    ``torch.export``'s fake tensors, so that an exported program holds them
+    as constants."""
+    with torch.inference_mode(False), unset_fake_temporarily():
         return tuple(torch.as_tensor(np.stack(idx), device=device)
                      for idx in (np.tril_indices(n, k=-1), np.triu_indices(n, k=1)))
 

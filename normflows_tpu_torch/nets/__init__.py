@@ -1,5 +1,5 @@
 """Parameter networks."""
 
-from .mlp import Linear
+from .mlp import MLP, Linear
 from .made import MADE, MaskedLinear, MaskedResidualBlock
 from .resnet import ResidualBlock, ResidualNet

@@ -7,6 +7,12 @@
   the kernel's plain PyTorch version, a CUDA tensor launches the kernel (or the
   wrapper raises).  There is no switch that sends a CUDA tensor to the plain
   version; a caller that wants it calls the plain function by name.
+* Every kernel on a model's path is a ``torch.library`` operator of the
+  namespace :data:`NAMESPACE` (:func:`kernel_op`): a CUDA implementation
+  (the launch), a CPU implementation (the plain version), a fake one that
+  gives the output shapes for a symbolic batch, and the op's autograd.  So
+  ``torch.export`` keeps each launch as one opaque node; importing the
+  module that registers an op is what a loaded program needs.
 * The fused MADE (``ops/made_fused.py``) is opt-in, as in the JAX package:
   :func:`set_made_fusion` turns it on for every MADE whose pass passes
   ``made_fused.fusable``.  The flag picks the fused path, not the device:
@@ -16,9 +22,13 @@
 
 from __future__ import annotations
 
+import contextlib
+import re
+
 import torch
 
 _MADE_FUSION = False
+NAMESPACE = "normflows_tpu_torch"
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -62,3 +72,47 @@ def set_made_fusion(enabled: bool):
 
 def made_fusion_enabled() -> bool:
     return _MADE_FUSION
+
+
+def kernel_op(name: str, schema: str, *, cpu, cuda, fake, backward=None,
+              setup_context=None):
+    """Register the operator ``NAMESPACE::name`` with
+    ``torch.library.custom_op`` and return its overload.
+
+    ``schema`` is its signature without the name, ``"(Tensor x, ...) ->
+    (Tensor, Tensor)"`` (``Tensor(a!)`` for an argument the op writes in
+    place).  ``cuda`` launches the kernel on CUDA tensors, ``cpu`` runs its
+    plain version, ``fake`` returns empty outputs of the right shapes and
+    reads no data.  With ``backward``, ``setup_context(ctx, inputs, output)``
+    saves what ``backward(ctx, *grads)`` needs, and ``backward`` returns one
+    gradient (or None) per input.  An implementation runs below autograd
+    (see :func:`autograd_inside_op`)."""
+    mutated = tuple(re.findall(r"Tensor\(a!\)\??\s+(\w+)", schema))
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", cpu, mutates_args=mutated,
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    if backward is not None:
+        op.register_autograd(backward, setup_context=setup_context)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+_AUTOGRAD_KEYS = (torch._C.DispatchKey.AutogradCPU, torch._C.DispatchKey.AutogradCUDA,
+                  torch._C.DispatchKey.AutogradOther, torch._C.DispatchKey.ADInplaceOrView)
+
+
+@contextlib.contextmanager
+def autograd_inside_op():
+    """Autograd turned back on for the block, for an operator's plain
+    implementation that takes ``torch.autograd.grad`` of a plain forward
+    (the plain backward versions): the dispatcher runs an operator's
+    implementation below its autograd, with autograd's dispatch keys
+    excluded, so that its own ops record no graph.  (``torch.func.vjp``
+    would need no private call, but ``torch.library.opcheck``'s schema test
+    cannot read its wrapped tensors.)"""
+    excluded = torch._C._dispatch_tls_local_exclude_set()
+    for key in _AUTOGRAD_KEYS:
+        excluded = excluded.remove(key)
+    with torch._C._ForceDispatchKeyGuard(torch._C._dispatch_tls_local_include_set(),
+                                         excluded), torch.enable_grad():
+        yield

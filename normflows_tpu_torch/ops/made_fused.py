@@ -12,10 +12,12 @@ tiles), and a backward that recomputes them.  Built with ``nvcc`` for
 
 It is opt-in, as in the JAX package: ``MADE.forward`` takes
 :func:`made_apply_fused` when ``backend.made_fusion_enabled()`` and
-:func:`fusable` hold.  One ``autograd.Function`` serves both devices: on a
-CUDA tensor its forward and backward launch the kernels, on a CPU tensor
-they call the plain versions :func:`fused_resmade_reference` and
-:func:`fused_resmade_backward_reference`.
+:func:`fusable` hold.  Each direction is an operator (``backend.kernel_op``):
+``normflows_tpu_torch::fused_resmade`` (:data:`OP`) and
+``normflows_tpu_torch::fused_resmade_backward`` (:data:`BACKWARD_OP`), the
+second registered as the first's autograd.  On a CUDA tensor each launches
+its kernels, on a CPU tensor it calls its plain version,
+:func:`fused_resmade_reference` or :func:`fused_resmade_backward_reference`.
 
 With bfloat16 weights (``set_compute_dtype(model, "bfloat16")``) the
 rounding points are JAX's: every product's activation operand is rounded to
@@ -39,6 +41,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from . import backend, cuda_build
 
@@ -49,6 +52,9 @@ SOURCE = cuda_build.CSRC / "made_fused.cu"
 # backward's four CUDA launches, each made by one C call, count once).
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# The same calls counted on the card, by [backward][0], when set to an int64
+# (2, 2) tensor there (see backend.count_launch); None: off.
+DEVICE_LAUNCHES = None
 
 # The gate's constants, as in the JAX package (made_pallas.py:45, :270)
 TILE_B = 256  # the least batch that is fused
@@ -77,14 +83,17 @@ def _library():
 def fusable(made, x, context) -> bool:
     """True when ``made`` and ``x`` (the input after preprocessing) fit the
     fused kernels: every condition of the JAX package's gate
-    (made_pallas.py:232-272), and H <= :data:`MAX_HIDDEN`."""
+    (made_pallas.py:232-272), a batch known to be at least :data:`TILE_B`,
+    and H <= :data:`MAX_HIDDEN`."""
     from ..nets.made import MaskedResidualBlock
 
     if context is not None:
         return False
     if x.dim() != 2 or x.dtype != torch.float32:
         return False
-    if x.shape[0] < TILE_B:
+    # a symbolic batch (torch.export) is not known to reach a tile: the
+    # unfused pass, as a symbolic export leaves the JAX package's Pallas path
+    if not statically_known_true(x.shape[0] >= TILE_B):
         return False
     blocks = list(made.blocks)
     if not blocks:
@@ -189,40 +198,106 @@ def _launch(name, pointers, x, dims, activation, bf16):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-class _FusedResMADE(torch.autograd.Function):
-    """Forward and backward of the fused MADE: the kernels on the card, the
-    plain versions on the CPU."""
+def _forward_cuda(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation):
+    global LAUNCHES
+    operands = tuple(t.contiguous() for t in (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf))
+    B, _, H, _, P = dims = _dims(x, w0, w1s, wf)
+    bf16 = w0.dtype == torch.bfloat16
+    out = torch.empty(B, P, dtype=torch.float32, device=x.device)
+    work = torch.empty(forward_workspace(B, H, P, bf16), dtype=torch.bfloat16,
+                       device=x.device)
+    _launch("made_fused_forward", (*operands, out, work), x, dims, activation, bf16)
+    LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, False, False)
+    return out
 
-    @staticmethod
-    def forward(ctx, x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation):
-        global LAUNCHES
-        operands = (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf)
-        ctx.save_for_backward(*operands)
-        ctx.activation = activation
-        if not backend.use_kernel(x):
-            return fused_resmade_reference(*operands, activation)
-        operands = tuple(t.contiguous() for t in operands)
-        B, _, H, _, P = dims = _dims(x, w0, w1s, wf)
-        bf16 = w0.dtype == torch.bfloat16
-        out = torch.empty(B, P, dtype=torch.float32, device=x.device)
-        work = torch.empty(forward_workspace(B, H, P, bf16), dtype=torch.bfloat16,
-                           device=x.device)
-        _launch("made_fused_forward", (*operands, out, work), x, dims, activation, bf16)
-        LAUNCHES += 1
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        grads = fused_resmade_backward(*ctx.saved_tensors, g.contiguous(), ctx.activation)
-        return (*(gr if want else None
-                  for gr, want in zip(grads, ctx.needs_input_grad)), None)
+def _forward_cpu(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation):
+    return fused_resmade_reference(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
+
+
+def _backward_cuda(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation, scratch):
+    global BACKWARD_LAUNCHES
+    operands = tuple(t.contiguous() for t in (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf))
+    B, F, H, R, P = dims = _dims(x, w0, w1s, wf)
+    new = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=x.device)  # noqa: E731
+    dx, grads = new(B, F), new(sum(_sizes(F, H, R, P)))
+    if scratch is None:
+        scratch = new((4 * R + 2) * B * H)
+    splits = -(-B // SPLIT)
+    part = new(splits * grads.numel()) if splits > 1 else grads
+    _launch("made_fused_backward", (*operands, g.contiguous(), dx, grads, scratch, part),
+            x, dims, activation, w0.dtype == torch.bfloat16)
+    BACKWARD_LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, True, False)
+    return dx, grads
+
+
+def _backward_cpu(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation, scratch):
+    dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf = fused_resmade_backward_reference(
+        x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation)
+    return dx, torch.cat([t.float().reshape(-1)
+                          for t in (dw0, dw1s, dw2s, dwf, db0, db1s, db2s, dbf)])
+
+
+def _sizes(F, H, R, P):
+    """Elements of the weight and bias gradients in the backward's flat
+    float32 output: dw0, dw1s, dw2s, dwf, then db0, db1s, db2s, dbf."""
+    return [H * F, R * H * H, R * H * H, P * H, H, R * H, R * H, P]
+
+
+def _unflatten(grads, w0, b0, w1s, b1s, w2s, b2s, wf, bf):
+    """The backward's flat float32 gradients as ``(dw0, db0, dw1s, db1s,
+    dw2s, db2s, dwf, dbf)``: the weights' in their dtype (one cast), the
+    biases' float32."""
+    sizes = _sizes(w0.shape[1], w0.shape[0], w1s.shape[0], wf.shape[0])
+    n_weights = sum(sizes[:4])
+    weights = grads[:n_weights].to(w0.dtype)
+    pieces = list(weights.split(sizes[:4])) + list(grads[n_weights:].split(sizes[4:]))
+    dw0, dw1s, dw2s, dwf, db0, db1s, db2s, dbf = (
+        p.view(t.shape) for p, t in zip(pieces, (w0, w1s, w2s, wf, b0, b1s, b2s, bf)))
+    return dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf
+
+
+def _backward_fake(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation, scratch):
+    B, F, H, R, P = _dims(x, w0, w1s, wf)
+    return x.new_empty((B, F)), x.new_empty((sum(_sizes(F, H, R, P)),))
+
+
+_OPERANDS = ("Tensor x, Tensor w0, Tensor b0, Tensor w1s, Tensor b1s, Tensor w2s, "
+             "Tensor b2s, Tensor wf, Tensor bf")
+
+BACKWARD_OP = backend.kernel_op(
+    "fused_resmade_backward",
+    f"({_OPERANDS}, Tensor g, str activation, Tensor(a!)? scratch) -> (Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda, fake=_backward_fake)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:9])
+    ctx.activation = inputs[9]
+
+
+def _backward(ctx, g):
+    operands = ctx.saved_tensors
+    dx, grads = BACKWARD_OP(*operands, g.contiguous(), ctx.activation, None)
+    grads = (dx, *_unflatten(grads, *operands[1:]))
+    return (*(gr if want else None for gr, want in zip(grads, ctx.needs_input_grad)), None)
+
+
+OP = backend.kernel_op(
+    "fused_resmade", f"({_OPERANDS}, str activation) -> Tensor",
+    cpu=_forward_cpu, cuda=_forward_cuda,
+    fake=lambda x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation:
+        x.new_empty((x.shape[0], wf.shape[0])),
+    backward=_backward, setup_context=_setup_context)
 
 
 def fused_resmade(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
     """The residual MADE MLP with its masks in the weights: x (B, F) float32,
     weights in the (out, in) layout, float32 or bfloat16 (w0 (H, F),
     w1s / w2s (R, H, H), wf (P, H)), float32 biases (b0 (H,), b1s / b2s
-    (R, H), bf (P,)) -> (B, P) float32.
+    (R, H), bf (P,)) -> (B, P) float32, through the operator :data:`OP`.
 
         h = x W0^T + b0;  R x  h += act(act(h) W1^T + b1) W2^T + b2;
         out = h Wf^T + bf
@@ -231,52 +306,35 @@ def fused_resmade(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation="relu"):
     CUDA tensor launches the kernel or raises; the backward follows the same
     rule."""
     _check(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
-    return _FusedResMADE.apply(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
+    return OP(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, activation)
 
 
 def fused_resmade_backward(x, w0, b0, w1s, b1s, w2s, b2s, wf, bf, g, activation="relu",
                            scratch=None):
     """Backward of :func:`fused_resmade`: the output cotangent ``g`` (B, P)
     -> ``(dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf)``, each shaped and
-    typed like its operand.  A CPU tensor takes
-    :func:`fused_resmade_backward_reference`; a CUDA tensor launches the
-    backward kernels or raises.  On the card ``scratch``, a contiguous
-    float32 tensor of (4R + 2) B H elements, takes the kernels' recompute in
-    place of a fresh buffer: viewed as (4R + 2, B, H), slabs 0 ... R are h
-    before each block (R: before the final layer) and slabs R + 1 ... 2R
-    each block's inner pre-activation z, as the kernels computed them."""
-    global BACKWARD_LAUNCHES
+    typed like its operand, through the operator :data:`BACKWARD_OP`.  A
+    CPU tensor takes :func:`fused_resmade_backward_reference`; a CUDA tensor
+    launches the backward kernels or raises.  On the card ``scratch``, a
+    contiguous float32 tensor of (4R + 2) B H elements, takes the kernels'
+    recompute in place of a fresh buffer: viewed as (4R + 2, B, H), slabs 0
+    ... R are h before each block (R: before the final layer) and slabs
+    R + 1 ... 2R each block's inner pre-activation z, as the kernels
+    computed them."""
     operands = (x, w0, b0, w1s, b1s, w2s, b2s, wf, bf)
     _check(*operands, activation)
     if tuple(g.shape) != (x.shape[0], wf.shape[0]) or g.dtype != torch.float32 \
             or g.device != x.device:
         raise ValueError(f"fused MADE backward: g must be a float32 "
                          f"{(x.shape[0], wf.shape[0])} tensor on {x.device}")
-    if not backend.use_kernel(x):
-        return fused_resmade_backward_reference(*operands, g, activation)
-    operands = tuple(t.contiguous() for t in operands)
-    B, F, H, R, P = dims = _dims(x, w0, w1s, wf)
-    sizes = [H * F, R * H * H, R * H * H, P * H, H, R * H, R * H, P]
-    n_weights = sum(sizes[:4])
-    new = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=x.device)  # noqa: E731
-    dx, grads = new(B, F), new(sum(sizes))
-    if scratch is None:
-        scratch = new((4 * R + 2) * B * H)
-    elif scratch.shape != ((4 * R + 2) * B * H,) or scratch.dtype != torch.float32 \
-            or scratch.device != x.device or not scratch.is_contiguous():
+    R, B, H = w1s.shape[0], x.shape[0], w0.shape[0]
+    if scratch is not None and (
+            scratch.shape != ((4 * R + 2) * B * H,) or scratch.dtype != torch.float32
+            or scratch.device != x.device or not scratch.is_contiguous()):
         raise ValueError(f"fused MADE backward: scratch must be a contiguous float32 "
                          f"tensor of {(4 * R + 2) * B * H} elements on {x.device}")
-    splits = -(-B // SPLIT)
-    part = new(splits * grads.numel()) if splits > 1 else grads
-    _launch("made_fused_backward", (*operands, g.contiguous(), dx, grads, scratch, part),
-            x, dims, activation, w0.dtype == torch.bfloat16)
-    BACKWARD_LAUNCHES += 1
-    # the weights' gradients in their dtype (one cast), the biases' float32
-    weights = grads[:n_weights].to(w0.dtype)
-    pieces = list(weights.split(sizes[:4])) + list(grads[n_weights:].split(sizes[4:]))
-    dw0, dw1s, dw2s, dwf, db0, db1s, db2s, dbf = (
-        p.view(t.shape) for p, t in zip(pieces, (w0, w1s, w2s, wf, b0, b1s, b2s, bf)))
-    return dx, dw0, db0, dw1s, db1s, dw2s, db2s, dwf, dbf
+    dx, grads = BACKWARD_OP(*operands, g, activation, scratch)
+    return (dx, *_unflatten(grads, *operands[1:]))
 
 
 # ---- plain versions -----------------------------------------------------------

@@ -7,10 +7,15 @@ each direction (counterpart of ``_t_fwd_kernel``) and the backward kernel
 (counterpart of ``_t_bwd_kernel``), built with ``nvcc`` for ``sm_90a`` at
 first use and loaded with ``ctypes`` (``ops/cuda_build.py``).
 
-:func:`rqs_transposed` is one ``autograd.Function`` for both devices: on a
-CUDA tensor its forward and backward launch the kernels, on a CPU tensor they
-call the plain versions :func:`rqs_transposed_reference` and
-:func:`rqs_transposed_backward_reference` (``ops/backend.py``).
+Each direction is an operator (``backend.kernel_op``):
+``normflows_tpu_torch::rqs_transposed`` (:data:`OP`) and
+``normflows_tpu_torch::rqs_transposed_backward`` (:data:`BACKWARD_OP`), the
+second registered as the first's autograd.  On a CUDA tensor each launches
+its kernel, on a CPU tensor it calls its plain version,
+:func:`rqs_transposed_reference` or :func:`rqs_transposed_backward_reference`
+(``ops/backend.py``).  :func:`rqs_transposed` and
+:func:`rqs_transposed_backward` check their operands and call the operators;
+under ``torch.export`` the checks become guards and each launch one node.
 """
 
 from __future__ import annotations
@@ -80,36 +85,83 @@ def _launch(fn, pointers, x_t, codes, bounds, K, inverse, mbw, mbh, md):
         raise RuntimeError(f"rqs_transposed kernel launch failed: CUDA error {rc}")
 
 
-class _RQSTransposed(torch.autograd.Function):
-    """Forward and backward of the planar spline: the kernels on the card,
-    the plain versions on the CPU."""
+def _forward_cuda(x_t, params_t, codes, bounds, inverse, mbw, mbh, md):
+    global LAUNCHES
+    # an exported program's views can differ from the traced ones at another
+    # batch: the kernels' layout is made here (no copy when it holds)
+    x_t, params_t = x_t.contiguous(), params_t.contiguous()
+    K = (params_t.shape[0] // x_t.shape[0] - 1) // 3
+    y_t = torch.empty_like(x_t)
+    ld_t = torch.empty_like(x_t)
+    _launch(_library().rqs_transposed_forward, (x_t, params_t, y_t, ld_t), x_t,
+            codes, bounds, K, inverse, mbw, mbh, md)
+    LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, False, inverse)
+    return y_t, ld_t
 
-    @staticmethod
-    def forward(ctx, x_t, params_t, codes, bounds, inverse, mbw, mbh, md):
-        global LAUNCHES
-        ctx.save_for_backward(x_t, params_t)
-        ctx.config = (codes, bounds, inverse, mbw, mbh, md)
-        if not backend.use_kernel(x_t):
-            return rqs_transposed_reference(x_t, params_t, codes, bounds, inverse,
-                                            mbw, mbh, md)
-        K = (params_t.shape[0] // x_t.shape[0] - 1) // 3
-        y_t = torch.empty_like(x_t)
-        ld_t = torch.empty_like(x_t)
-        _launch(_library().rqs_transposed_forward, (x_t, params_t, y_t, ld_t), x_t,
-                codes, bounds, K, inverse, mbw, mbh, md)
-        LAUNCHES += 1
-        backend.count_launch(DEVICE_LAUNCHES, False, inverse)
-        return y_t, ld_t
 
-    @staticmethod
-    def backward(ctx, ybar, lbar):
-        x_t, params_t = ctx.saved_tensors
-        want_x, want_p = ctx.needs_input_grad[:2]
-        # autograd hands over the layer's y_t.T as a transposed view and the
-        # sum over features of ld_t as a stride-0 expansion
-        dx, dp = rqs_transposed_backward(x_t, params_t, ybar.contiguous(),
-                                         lbar.contiguous(), *ctx.config)
-        return (dx if want_x else None, dp if want_p else None) + (None,) * 6
+def _forward_cpu(x_t, params_t, codes, bounds, inverse, mbw, mbh, md):
+    y_t, ld_t = rqs_transposed_reference(x_t, params_t, codes, bounds, inverse,
+                                         mbw, mbh, md)
+    return y_t.contiguous(), ld_t.contiguous()
+
+
+def _backward_cuda(x_t, params_t, ybar, lbar, codes, bounds, inverse, mbw, mbh, md):
+    global BACKWARD_LAUNCHES
+    x_t, params_t, ybar, lbar = (t.contiguous() for t in (x_t, params_t, ybar, lbar))
+    K = (params_t.shape[0] // x_t.shape[0] - 1) // 3
+    dx = torch.empty_like(x_t)
+    dp = torch.empty_like(params_t)
+    _launch(_library().rqs_transposed_backward, (x_t, params_t, ybar, lbar, dx, dp),
+            x_t, codes, bounds, K, inverse, mbw, mbh, md)
+    BACKWARD_LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, True, inverse)
+    return dx, dp
+
+
+def _backward_cpu(x_t, params_t, ybar, lbar, codes, bounds, inverse, mbw, mbh, md):
+    with backend.autograd_inside_op():
+        dx, dp = rqs_transposed_backward_reference(x_t, params_t, ybar, lbar, codes,
+                                                   bounds, inverse, mbw, mbh, md)
+    # fresh tensors: autograd may hand a cotangent itself back as a gradient
+    return (dx.clone(memory_format=torch.contiguous_format),
+            dp.clone(memory_format=torch.contiguous_format))
+
+
+_CONFIG = "int[] codes, float[] bounds, bool inverse, float mbw, float mbh, float md"
+
+BACKWARD_OP = backend.kernel_op(
+    "rqs_transposed_backward",
+    f"(Tensor x_t, Tensor params_t, Tensor ybar, Tensor lbar, {_CONFIG}) -> (Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda,
+    fake=lambda x_t, params_t, *_: (torch.empty_like(x_t), torch.empty_like(params_t)))
+
+
+def _setup_context(ctx, inputs, output):
+    x_t, params_t, *config = inputs
+    ctx.save_for_backward(x_t, params_t)
+    ctx.config = config
+
+
+def _backward(ctx, ybar, lbar):
+    x_t, params_t = ctx.saved_tensors
+    want_x, want_p = ctx.needs_input_grad[:2]
+    # autograd hands over the layer's y_t.T as a transposed view and the
+    # sum over features of ld_t as a stride-0 expansion
+    dx, dp = BACKWARD_OP(x_t, params_t, ybar.contiguous(), lbar.contiguous(), *ctx.config)
+    return (dx if want_x else None, dp if want_p else None) + (None,) * 6
+
+
+OP = backend.kernel_op(
+    "rqs_transposed", f"(Tensor x_t, Tensor params_t, {_CONFIG}) -> (Tensor, Tensor)",
+    cpu=_forward_cpu, cuda=_forward_cuda,
+    fake=lambda x_t, *_: (torch.empty_like(x_t), torch.empty_like(x_t)),
+    backward=_backward, setup_context=_setup_context)
+
+
+def _config(tail_codes, tail_bound, inverse, mbw, mbh, md):
+    return ([int(c) for c in tail_codes], [float(b) for b in tail_bound], bool(inverse),
+            float(mbw), float(mbh), float(md))
 
 
 def rqs_transposed_backward(x_t, params_t, ybar, lbar, tail_codes, tail_bound,
@@ -117,39 +169,27 @@ def rqs_transposed_backward(x_t, params_t, ybar, lbar, tail_codes, tail_bound,
                             min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
                             min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
     """Backward of :func:`rqs_transposed`: the cotangents ``ybar``, ``lbar``
-    (F, B) of ``(y_t, ld_t)`` -> ``(dx (F, B), dparams (P, B))``.
+    (F, B) of ``(y_t, ld_t)`` -> ``(dx (F, B), dparams (P, B))``, through the
+    operator :data:`BACKWARD_OP`.
 
     A CPU tensor takes :func:`rqs_transposed_backward_reference`; a CUDA
     tensor launches the backward kernel or raises."""
-    global BACKWARD_LAUNCHES
     _check(x_t, params_t, tail_codes, tail_bound)
     for name, t in (("ybar", ybar), ("lbar", lbar)):
         if t.shape != x_t.shape or t.dtype != x_t.dtype or t.device != x_t.device \
                 or not t.is_contiguous():
             raise ValueError(f"rqs_transposed_backward: {name} must be a contiguous "
                              f"float32 tensor like x_t {tuple(x_t.shape)} on {x_t.device}")
-    codes = tuple(int(c) for c in tail_codes)
-    bounds = tuple(float(b) for b in tail_bound)
-    cfg = (bool(inverse), float(min_bin_width), float(min_bin_height),
-           float(min_derivative))
-    if not backend.use_kernel(x_t):
-        return rqs_transposed_backward_reference(x_t, params_t, ybar, lbar, codes,
-                                                 bounds, *cfg)
-    K = (params_t.shape[0] // x_t.shape[0] - 1) // 3
-    dx = torch.empty_like(x_t)
-    dp = torch.empty_like(params_t)
-    _launch(_library().rqs_transposed_backward, (x_t, params_t, ybar, lbar, dx, dp),
-            x_t, codes, bounds, K, *cfg)
-    BACKWARD_LAUNCHES += 1
-    backend.count_launch(DEVICE_LAUNCHES, True, inverse)
-    return dx, dp
+    return BACKWARD_OP(x_t, params_t, ybar, lbar, *_config(
+        tail_codes, tail_bound, inverse, min_bin_width, min_bin_height, min_derivative))
 
 
 def rqs_transposed(x_t, params_t, tail_codes, tail_bound, inverse,
                    min_bin_width=splines.DEFAULT_MIN_BIN_WIDTH,
                    min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
                    min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
-    """Planar RQS: x_t (F, B), params_t (F*(3K+1), B) -> (y_t, ld_t), both (F, B).
+    """Planar RQS: x_t (F, B), params_t (F*(3K+1), B) -> (y_t, ld_t), both (F, B),
+    through the operator :data:`OP`.
 
     ``tail_codes`` / ``tail_bound`` hold one entry per feature; row
     ``f*(3K+1) + s`` of ``params_t`` holds widths | heights | slopes of feature f.
@@ -157,10 +197,8 @@ def rqs_transposed(x_t, params_t, tail_codes, tail_bound, inverse,
     the kernel or raises; either way the backward follows the same rule
     (:func:`rqs_transposed_backward`)."""
     _check(x_t, params_t, tail_codes, tail_bound)
-    return _RQSTransposed.apply(
-        x_t, params_t, tuple(int(c) for c in tail_codes),
-        tuple(float(b) for b in tail_bound), bool(inverse),
-        float(min_bin_width), float(min_bin_height), float(min_derivative))
+    return OP(x_t, params_t, *_config(tail_codes, tail_bound, inverse, min_bin_width,
+                                      min_bin_height, min_derivative))
 
 
 def rqs_transposed_reference(x_t, params_t, tail_codes, tail_bound, inverse,

@@ -19,9 +19,12 @@ and both are here:
   the operands out as ``_prepare`` (:408) does, the parameters (..., S) ->
   (S, N), and calls the first.
 
-One ``autograd.Function`` serves both devices: on a CUDA tensor its forward
-and backward launch the kernels, on a CPU tensor they call the plain versions
-:func:`unconstrained_rqs_dyncodes_reference` and
+Each kernel is an operator (``backend.kernel_op``):
+``normflows_tpu_torch::rqs_flat`` (:data:`OP`) and
+``normflows_tpu_torch::rqs_flat_backward`` (:data:`BACKWARD_OP`), the second
+registered as the first's autograd.  On a CUDA tensor each launches its
+kernel, on a CPU tensor it calls its plain version,
+:func:`unconstrained_rqs_dyncodes_reference` or
 :func:`unconstrained_rqs_dyncodes_backward_reference` (``ops/backend.py``).
 No gradient goes to the codes, a zero one to the bounds, as in the JAX
 package (:701-704).
@@ -34,6 +37,7 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from . import backend, cuda_build, splines
 
@@ -73,7 +77,8 @@ def _check(x, uw_t, uh_t, ud_t, codes, bounds):
         if t.dtype != torch.float32:
             raise TypeError(f"rqs_flat: {name} must be float32, got {t.dtype}")
     for name, t, _ in want:
-        if t.stride(-1) != 1 or (t.shape[0] > 1 and t.stride(0) != stride) or stride < N:
+        if (N > 1 and t.stride(-1) != 1) or (t.shape[0] > 1 and t.stride(0) != stride) \
+                or stride < N:
             raise ValueError(f"rqs_flat: {name} must hold contiguous rows, all "
                              f"three parameter tensors {stride} >= N floats apart")
     if codes.dtype != torch.int32:
@@ -95,40 +100,103 @@ def _launch(name, pointers, x, K, stride, config):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-class _RQSFlat(torch.autograd.Function):
-    """Forward and backward of the flat spline: the kernels on the card, the
-    plain versions on the CPU."""
-
-    @staticmethod
-    def forward(ctx, x, uw_t, uh_t, ud_t, codes, bounds, config):
-        global LAUNCHES
-        ctx.save_for_backward(x, uw_t, uh_t, ud_t, codes, bounds)
-        ctx.config = config
-        if not backend.use_kernel(x):
-            return unconstrained_rqs_dyncodes_reference(x, uw_t, uh_t, ud_t, codes,
-                                                        bounds, *config)
-        y = torch.empty_like(x)
-        ld = torch.empty_like(x)
-        _launch("rqs_flat_forward", (x, uw_t, uh_t, ud_t, codes, bounds, y, ld), x,
-                uw_t.shape[0], ud_t.stride(0), config)
-        LAUNCHES += 1
-        backend.count_launch(DEVICE_LAUNCHES, False, config[0])
-        return y, ld
-
-    @staticmethod
-    def backward(ctx, ybar, lbar):
-        x, uw_t, uh_t, ud_t, codes, bounds = ctx.saved_tensors
-        # the sum of the log-dets hands over a stride-0 expansion
-        grads = unconstrained_rqs_dyncodes_backward(
-            x, uw_t, uh_t, ud_t, codes, bounds, ybar.contiguous(), lbar.contiguous(),
-            *ctx.config)
-        grads = tuple(g if want else None for g, want in zip(grads, ctx.needs_input_grad))
-        dbounds = torch.zeros_like(bounds) if ctx.needs_input_grad[5] else None
-        return (*grads, None, dbounds, None)
-
-
 def _config(inverse, mbw, mbh, md):
     return bool(inverse), float(mbw), float(mbh), float(md)
+
+
+def _rows(uw_t, uh_t, ud_t):
+    """The parameters as the kernels take them: rows of unit stride, one
+    stride >= N apart, and that stride.  An exported program's views can
+    differ from the traced ones at another batch (a reshape that copied at
+    the traced batch may give a view at batch 1): rows that do not fit are
+    packed into one (3K+1, N) tensor, and the layout holds with no copy
+    otherwise."""
+    K, N = uw_t.shape
+    stride = ud_t.stride(0)
+    # ud_t has K + 1 >= 2 rows, so its stride is the rows' one; a row's
+    # own stride counts only where N > 1, and uw_t's and uh_t's row strides
+    # only where K > 1
+    if stride >= N and (N == 1 or uw_t.stride(1) == uh_t.stride(1) == ud_t.stride(1) == 1) \
+            and (K == 1 or uw_t.stride(0) == uh_t.stride(0) == stride):
+        return uw_t, uh_t, ud_t, stride
+    packed = torch.cat((uw_t, uh_t, ud_t))
+    return packed[:K], packed[K:2 * K], packed[2 * K:], N
+
+
+def _forward_cuda(x, uw_t, uh_t, ud_t, codes, bounds, inverse, mbw, mbh, md):
+    global LAUNCHES
+    x, codes, bounds = x.contiguous(), codes.contiguous(), bounds.contiguous()
+    uw_t, uh_t, ud_t, stride = _rows(uw_t, uh_t, ud_t)
+    y = torch.empty_like(x)
+    ld = torch.empty_like(x)
+    _launch("rqs_flat_forward", (x, uw_t, uh_t, ud_t, codes, bounds, y, ld), x,
+            uw_t.shape[0], stride, (inverse, mbw, mbh, md))
+    LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, False, inverse)
+    return y, ld
+
+
+def _forward_cpu(x, uw_t, uh_t, ud_t, codes, bounds, inverse, mbw, mbh, md):
+    y, ld = unconstrained_rqs_dyncodes_reference(x, uw_t, uh_t, ud_t, codes, bounds,
+                                                 inverse, mbw, mbh, md)
+    return y.contiguous(), ld.contiguous()
+
+
+def _backward_cuda(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse, mbw, mbh, md):
+    global BACKWARD_LAUNCHES
+    x, codes, bounds, ybar, lbar = (t.contiguous() for t in (x, codes, bounds, ybar, lbar))
+    uw_t, uh_t, ud_t, stride = _rows(uw_t, uh_t, ud_t)
+    K, N = uw_t.shape
+    dx = torch.empty_like(x)
+    dp = torch.empty(3 * K + 1, N, dtype=x.dtype, device=x.device)
+    _launch("rqs_flat_backward", (x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, dx, dp),
+            x, K, stride, (inverse, mbw, mbh, md))
+    BACKWARD_LAUNCHES += 1
+    backend.count_launch(DEVICE_LAUNCHES, True, inverse)
+    return dx, dp
+
+
+def _backward_cpu(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse, mbw, mbh, md):
+    with backend.autograd_inside_op():
+        dx, duw, duh, dud = unconstrained_rqs_dyncodes_backward_reference(
+            x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, inverse, mbw, mbh, md)
+    # fresh tensors: autograd may hand a cotangent itself back as a gradient
+    return dx.clone(memory_format=torch.contiguous_format), torch.cat((duw, duh, dud))
+
+
+_OPERANDS = "Tensor x, Tensor uw_t, Tensor uh_t, Tensor ud_t, Tensor codes, Tensor bounds"
+_CONFIG = "bool inverse, float mbw, float mbh, float md"
+
+BACKWARD_OP = backend.kernel_op(
+    "rqs_flat_backward",
+    f"({_OPERANDS}, Tensor ybar, Tensor lbar, {_CONFIG}) -> (Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda,
+    fake=lambda x, uw_t, *_: (torch.empty_like(x),
+                              x.new_empty((3 * uw_t.shape[0] + 1, x.shape[0]))))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:6])
+    ctx.config = inputs[6:]
+
+
+def _backward(ctx, ybar, lbar):
+    x, uw_t, uh_t, ud_t, codes, bounds = ctx.saved_tensors
+    K = uw_t.shape[0]
+    # the sum of the log-dets hands over a stride-0 expansion
+    dx, dp = BACKWARD_OP(x, uw_t, uh_t, ud_t, codes, bounds, ybar.contiguous(),
+                         lbar.contiguous(), *ctx.config)
+    grads = (dx, dp[:K], dp[K:2 * K], dp[2 * K:])
+    grads = tuple(g if want else None for g, want in zip(grads, ctx.needs_input_grad))
+    dbounds = torch.zeros_like(bounds) if ctx.needs_input_grad[5] else None
+    return (*grads, None, dbounds, None, None, None, None)
+
+
+OP = backend.kernel_op(
+    "rqs_flat", f"({_OPERANDS}, {_CONFIG}) -> (Tensor, Tensor)",
+    cpu=_forward_cpu, cuda=_forward_cuda,
+    fake=lambda x, *_: (torch.empty_like(x), torch.empty_like(x)),
+    backward=_backward, setup_context=_setup_context)
 
 
 def unconstrained_rqs_dyncodes(x, uw_t, uh_t, ud_t, codes, bounds, inverse,
@@ -136,15 +204,16 @@ def unconstrained_rqs_dyncodes(x, uw_t, uh_t, ud_t, codes, bounds, inverse,
                                min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
                                min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
     """Flat RQS with runtime tails: x (N,), uw_t / uh_t (K, N), ud_t (K+1, N),
-    codes (N,) int32, bounds (N,) float32 -> (y (N,), ld (N,)).
+    codes (N,) int32, bounds (N,) float32 -> (y (N,), ld (N,)), through the
+    operator :data:`OP`.
 
     The parameter tensors may be row slices of a larger tensor (their rows
     contiguous and one stride apart).  A CPU tensor takes
     :func:`unconstrained_rqs_dyncodes_reference`; a CUDA tensor launches the
     kernel or raises; the backward follows the same rule."""
     _check(x, uw_t, uh_t, ud_t, codes, bounds)
-    return _RQSFlat.apply(x, uw_t, uh_t, ud_t, codes, bounds,
-                          _config(inverse, min_bin_width, min_bin_height, min_derivative))
+    return OP(x, uw_t, uh_t, ud_t, codes, bounds,
+              *_config(inverse, min_bin_width, min_bin_height, min_derivative))
 
 
 def unconstrained_rqs_dyncodes_backward(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar,
@@ -154,28 +223,19 @@ def unconstrained_rqs_dyncodes_backward(x, uw_t, uh_t, ud_t, codes, bounds, ybar
                                         min_derivative=splines.DEFAULT_MIN_DERIVATIVE):
     """Backward of :func:`unconstrained_rqs_dyncodes`: the cotangents
     ``ybar``, ``lbar`` (N,) -> ``(dx (N,), duw_t (K, N), duh_t (K, N),
-    dud_t (K+1, N))``; on the card the three are rows of one (3K+1, N)
-    tensor.  A CPU tensor takes
+    dud_t (K+1, N))``, the three rows of one (3K+1, N) tensor, through the
+    operator :data:`BACKWARD_OP`.  A CPU tensor takes
     :func:`unconstrained_rqs_dyncodes_backward_reference`; a CUDA tensor
     launches the backward kernel or raises."""
-    global BACKWARD_LAUNCHES
     _check(x, uw_t, uh_t, ud_t, codes, bounds)
     for name, t in (("ybar", ybar), ("lbar", lbar)):
         if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(f"rqs_flat backward: {name} must be a contiguous float32 "
                              f"tensor like x {tuple(x.shape)} on {x.device}")
-    config = _config(inverse, min_bin_width, min_bin_height, min_derivative)
-    if not backend.use_kernel(x):
-        return unconstrained_rqs_dyncodes_backward_reference(
-            x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, *config)
-    K, N = uw_t.shape
-    dx = torch.empty_like(x)
-    dp = torch.empty(3 * K + 1, N, dtype=x.dtype, device=x.device)
-    _launch("rqs_flat_backward", (x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar, dx, dp),
-            x, K, ud_t.stride(0), config)
-    BACKWARD_LAUNCHES += 1
-    backend.count_launch(DEVICE_LAUNCHES, True, config[0])
+    K = uw_t.shape[0]
+    dx, dp = BACKWARD_OP(x, uw_t, uh_t, ud_t, codes, bounds, ybar, lbar,
+                         *_config(inverse, min_bin_width, min_bin_height, min_derivative))
     return dx, dp[:K], dp[K:2 * K], dp[2 * K:]
 
 
@@ -183,8 +243,9 @@ def unconstrained_rqs_dyncodes_backward(x, uw_t, uh_t, ud_t, codes, bounds, ybar
 def per_dim(values: tuple, dtype, device) -> torch.Tensor:
     """A static per-dim tuple as a tensor on ``device``, copied there once:
     later calls take no host-to-device copy.  Made outside inference mode,
-    so that any caller may use it."""
-    with torch.inference_mode(False):
+    so that any caller may use it, and outside ``torch.export``'s fake
+    tensors, so that an exported program holds it as a constant."""
+    with torch.inference_mode(False), unset_fake_temporarily():
         return torch.tensor(values, dtype=dtype, device=device)
 
 
@@ -193,7 +254,7 @@ def _align(v, shape, event_axis, dtype, device) -> torch.Tensor:
     axis at ``event_axis`` (``_align`` of the JAX package), flattened."""
     arr = np.asarray(v)
     if arr.ndim == 0:
-        return torch.full((int(np.prod(shape)),), arr.item(), dtype=dtype, device=device)
+        return torch.full(shape, arr.item(), dtype=dtype, device=device).reshape(-1)
     view = [1] * len(shape)
     view[event_axis % len(shape)] = arr.shape[0]
     # contiguous: a one-entry tuple expands to a stride-0 view, which the
@@ -212,18 +273,18 @@ def unconstrained_rational_quadratic_spline_flat(
 
     ``tail_codes`` / ``tail_bound`` are static: a scalar, or one entry per
     index of ``x``'s axis ``event_axis``.  The parameters are laid out as
-    (S, N) rows (one copy each), then :func:`unconstrained_rqs_dyncodes`
-    runs on the flat N = x.numel() elements: the kernel on the card, the
-    plain version on the CPU."""
+    the rows of one (3K+1, N) tensor (one copy, ``torch.cat`` of the three
+    moved to the front), then :func:`unconstrained_rqs_dyncodes` runs on
+    the flat N = x.numel() elements: the kernel on the card, the plain
+    version on the CPU."""
     shape = x.shape
     codes = _align(tail_codes, shape, event_axis, torch.int32, x.device)
     bounds = _align(tail_bound, shape, event_axis, x.dtype, x.device)
-
-    def rows(p):  # (..., S) -> (S, N)
-        return p.movedim(-1, 0).reshape(p.shape[-1], -1).contiguous()
-
+    K = uw.shape[-1]
+    rows = torch.cat([p.movedim(-1, 0) for p in (uw, uh, ud)])
+    rows = rows.view(rows.shape[0], -1)  # (3K+1, N): cat's output is contiguous
     y, ld = unconstrained_rqs_dyncodes(
-        x.reshape(-1), rows(uw), rows(uh), rows(ud), codes, bounds, inverse,
+        x.reshape(-1), rows[:K], rows[K:2 * K], rows[2 * K:], codes, bounds, inverse,
         min_bin_width, min_bin_height, min_derivative)
     return y.view(shape), ld.view(shape)
 

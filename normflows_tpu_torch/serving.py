@@ -1,0 +1,248 @@
+"""Model export for serving (port of ``normflows_tpu/serving.py``).
+
+A trained flow is frozen into ``torch.export`` programs: the parameters are
+held in the program, which ``torch.export.save`` writes as a ``.pt2`` file
+and any later process loads with ``torch.export.load`` and runs with no
+model class and nothing unpickled.  Every kernel on the path is an operator
+of the port (``normflows_tpu_torch::rqs_transposed`` and the others,
+``ops.backend.kernel_op``) and stays one opaque node of the program, so the
+loading process must import ``normflows_tpu_torch`` to register them; that
+is all the code of the port it needs.
+
+Two entry points are exported per model:
+
+* the sampler, ``eps -> (samples, log_q)`` at a fixed ``num_samples``:
+  ``eps`` (num_samples, *event) is the base distribution's unit noise, drawn
+  by its ``noise_spec`` (``distributions.base.draw_noise``).  JAX builds its
+  PRNG key from the seed inside the graph; ``torch.export`` takes no
+  ``torch.Generator``, so the noise is the program's input and
+  :meth:`ServingBundle.sample` draws it from
+  ``torch.Generator(device).manual_seed(seed)``: the draws the live model's
+  ``sample(num_samples, generator=...)`` makes from the same seed.
+* ``log_prob(x)``: densities for a data batch whose batch dimension is
+  symbolic (``torch.export.Dim``), so one program serves any batch size;
+  ``symbolic_batch=False`` with ``batch_size`` exports a concrete batch,
+  which the fused MADE needs (its gate asks for a known batch of at least
+  ``made_fused.TILE_B``; a symbolic batch takes the unfused pass, as the
+  JAX package's symbolic export leaves its Pallas path).
+
+On a card, :meth:`ServingBundle.sample` replays a CUDA graph of the loaded
+sampler program: the noise is drawn and copied into the graph's static input,
+the graph captured at the first call.  ``log_prob`` runs eagerly, since its
+batch is symbolic.  A program exported on the card keeps its device: the
+manifest records it, and loading a CUDA bundle without a card raises.
+
+Use :func:`save_bundle` / :func:`load_bundle` for a directory with a JSON
+manifest, or :func:`export_sampler` / :func:`export_log_prob` for the raw
+``torch.export.ExportedProgram``.  Class-conditional models wait for the
+Glow slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .core.facades import _LogProb, compact_copy
+from .distributions.base import draw_noise
+from .ops import backend, made_fused, spline_cuda, spline_flat  # noqa: F401  (the ops)
+from .ops.backend import resolve_device
+
+__all__ = ["export_sampler", "export_log_prob", "save_bundle", "load_bundle",
+           "ServingBundle"]
+
+SAMPLE_FILE, LOG_PROB_FILE, MANIFEST_FILE = "sample.pt2", "log_prob.pt2", "manifest.json"
+_CLASS_COND = ("class-conditional models (class_cond=True) wait for the Glow slice of "
+               "the PyTorch port (ROADMAP.md queue 1, item 8)")
+
+
+class _Sampler(nn.Module):
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, eps):
+        return self.model.from_noise(eps)
+
+
+def _prepared(model, device):
+    """A compact copy of ``model`` (``core.facades.compact_copy``) on
+    ``device`` (default: where the model lies), in eval mode."""
+    if device is None:
+        device = next(iter([*model.parameters(), *model.buffers()])).device
+    return compact_copy(model).to(resolve_device(device)).eval()
+
+
+def _noise_of(model):
+    q0 = model.q0
+    return tuple(q0.noise_spec), tuple(q0.event_shape)
+
+
+def export_sampler(model, num_samples: int, device=None, class_cond: bool = False):
+    """Export ``eps -> (samples, log_q)`` (``NormalizingFlow.from_noise``) at
+    ``num_samples`` with the parameters held in the program; ``eps`` is the
+    base's noise (num_samples, *event).  ``device`` (default: the model's)
+    is where the program runs."""
+    if class_cond:
+        raise NotImplementedError(_CLASS_COND)
+    model = _prepared(model, device)
+    spec, event = _noise_of(model)
+    dev = next(model.parameters()).device
+    eps = draw_noise(spec, event, num_samples, generator=torch.Generator(dev).manual_seed(0),
+                     device=dev)
+    with torch.no_grad():
+        return torch.export.export(_Sampler(model), (eps,))
+
+
+def export_log_prob(model, event_shape: Sequence[int], device=None,
+                    symbolic_batch: bool = True, class_cond: bool = False,
+                    batch_size: Optional[int] = None):
+    """Export ``x -> log_prob(x)`` with a symbolic batch dimension
+    (``torch.export.Dim("batch", min=1)``); ``symbolic_batch=False`` with
+    ``batch_size`` exports a concrete batch (default 1)."""
+    if class_cond:
+        raise NotImplementedError(_CLASS_COND)
+    if symbolic_batch and batch_size is not None:
+        raise ValueError(
+            "batch_size only applies with symbolic_batch=False: a symbolic-batch "
+            "export would drop it, and a fused MADE needs the concrete batch")
+    model = _prepared(model, device)
+    dev = next(model.parameters()).device
+    b = 8 if symbolic_batch else (batch_size if batch_size is not None else 1)
+    x = torch.zeros(b, *event_shape, device=dev)
+    dynamic = {"x": {0: torch.export.Dim("batch", min=1)}} if symbolic_batch else None
+    with torch.no_grad():
+        return torch.export.export(_LogProb(model), (x,), dynamic_shapes=dynamic)
+
+
+def kernel_ops(program) -> list:
+    """The port's operators that ``program`` (an ``ExportedProgram``) calls,
+    by name, each once."""
+    names = {node.target.name() for node in program.graph.nodes
+             if node.op == "call_function" and isinstance(node.target, torch._ops.OpOverload)
+             and node.target.namespace == backend.NAMESPACE}
+    return sorted(names)
+
+
+def save_bundle(model, path: str, num_samples: Optional[int], event_shape: Sequence[int],
+                device=None, symbolic_batch: bool = True, class_cond: bool = False,
+                batch_size: Optional[int] = None) -> dict:
+    """Write a serving bundle under ``path``: ``sample.pt2`` (none when
+    ``num_samples`` is None: a bundle of densities only), ``log_prob.pt2``
+    and ``manifest.json``, and return the manifest.  See
+    :func:`export_log_prob` for ``symbolic_batch`` / ``batch_size``."""
+    os.makedirs(path, exist_ok=True)
+    seconds, programs = {}, {}
+    if num_samples is not None:
+        t0 = time.perf_counter()
+        programs[SAMPLE_FILE] = export_sampler(model, num_samples, device, class_cond)
+        seconds["sample"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    programs[LOG_PROB_FILE] = export_log_prob(model, event_shape, device, symbolic_batch,
+                                              class_cond, batch_size)
+    seconds["log_prob"] = time.perf_counter() - t0
+    for name, program in programs.items():
+        torch.export.save(program, os.path.join(path, name))
+    lp = programs[LOG_PROB_FILE]
+    spec, _ = _noise_of(model)
+    manifest = {
+        "num_samples": num_samples,
+        "event_shape": list(event_shape),
+        "symbolic_batch": symbolic_batch,
+        "batch_size": batch_size,
+        "class_cond": class_cond,
+        "noise_spec": list(spec),
+        "device": str(next(iter(lp.state_dict.values())).device),
+        "torch": torch.__version__,
+        "kernel_ops": {name[:-len(".pt2")]: kernel_ops(p) for name, p in programs.items()},
+        "export_seconds": seconds,
+    }
+    with open(os.path.join(path, MANIFEST_FILE), "w") as f:
+        json.dump(manifest, f, indent=2)
+    return manifest
+
+
+class ServingBundle:
+    """Loaded serving endpoints: ``.sample(seed)`` and ``.log_prob(x)``."""
+
+    def __init__(self, sample_program, log_prob_program, manifest):
+        self.manifest = manifest
+        self.device = torch.device(manifest["device"])
+        self._sample = None if sample_program is None else sample_program.module()
+        self._log_prob = log_prob_program.module()
+        self._graph = None
+
+    def _check_y(self, y, method):
+        if y is not None:
+            raise ValueError(f"this bundle is unconditional; {method} does not accept y")
+
+    def noise(self, seed: int) -> torch.Tensor:
+        """The sampler's input for ``seed``: the base noise by the manifest's
+        ``noise_spec``, from ``torch.Generator(device).manual_seed(seed)``."""
+        m = self.manifest
+        return draw_noise(m["noise_spec"], m["event_shape"], m["num_samples"],
+                          generator=torch.Generator(self.device).manual_seed(int(seed)),
+                          device=self.device)
+
+    def sample(self, seed: int, y=None, graphed: bool = True):
+        """``(samples, log_q)`` of ``num_samples`` draws from ``seed``.  On a
+        card the sampler runs as a CUDA graph (captured at the first call)
+        unless ``graphed=False``; elsewhere it runs eagerly."""
+        self._check_y(y, "sample")
+        if self._sample is None:
+            raise ValueError("this bundle holds no sampler (saved with num_samples=None)")
+        eps = self.noise(seed)
+        with torch.no_grad():
+            if not graphed or self.device.type != "cuda":
+                return self._sample(eps)
+            if self._graph is None:
+                self._capture(eps)
+            self._eps.copy_(eps)
+            self._graph.replay()
+            return tuple(t.clone() for t in self._out)
+
+    def _capture(self, eps):
+        """Warm the sampler up on a side stream, then capture it once."""
+        self._eps = eps.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._sample(self._eps)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._graph):
+            self._out = self._sample(self._eps)
+
+    def log_prob(self, x, y=None):
+        self._check_y(y, "log_prob")
+        with torch.no_grad():
+            return self._log_prob(torch.as_tensor(x, dtype=torch.float32, device=self.device))
+
+
+def load_bundle(path: str) -> ServingBundle:
+    """Load a bundle written by :func:`save_bundle`.  It needs no model class
+    and unpickles nothing, but the process must have imported
+    ``normflows_tpu_torch`` (this module does), which registers the kernel
+    operators the programs call."""
+    with open(os.path.join(path, MANIFEST_FILE)) as f:
+        manifest = json.load(f)
+    if manifest.get("class_cond"):
+        raise NotImplementedError(_CLASS_COND)
+    device = torch.device(manifest["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the bundle at {path} was exported on {device}, and this "
+                           f"process has no CUDA card: export it again with device='cpu'")
+    ops = getattr(torch.ops, backend.NAMESPACE)
+    for name in sorted({n for names in manifest["kernel_ops"].values() for n in names}):
+        if not hasattr(ops, name.split("::")[-1]):
+            raise RuntimeError(f"the bundle at {path} calls the operator {name}, which "
+                               f"this version of normflows_tpu_torch does not register")
+    sample_path = os.path.join(path, SAMPLE_FILE)
+    sample = torch.export.load(sample_path) if os.path.exists(sample_path) else None
+    return ServingBundle(sample, torch.export.load(os.path.join(path, LOG_PROB_FILE)),
+                         manifest)

@@ -1,6 +1,7 @@
-"""NN helper layers (port of ``normflows_tpu/utils/nn.py``): only
+"""NN helper layers (port of ``normflows_tpu/utils/nn.py``):
 ``PeriodicFeaturesElementwise``, which the circular spline's MADE uses as its
-preprocessing, and the ``sum_except_batch`` helper."""
+preprocessing, ``ClampExp``, an output function of ``MLP``, and the
+``sum_except_batch`` helper."""
 
 from __future__ import annotations
 
@@ -11,7 +12,18 @@ from torch import nn
 from ..core.flow import sum_except_batch
 from ..ops.backend import resolve_device
 
-__all__ = ["PeriodicFeaturesElementwise", "sum_except_batch"]
+__all__ = ["ClampExp", "PeriodicFeaturesElementwise", "sum_except_batch"]
+
+
+class ClampExp(nn.Module):
+    """min(exp(lam x), 1) (JAX ``utils/nn.py:64-70``)."""
+
+    def __init__(self, lam: float = 1.0):
+        super().__init__()
+        self.lam = lam
+
+    def forward(self, x):
+        return torch.clamp(torch.exp(self.lam * x), max=1.0)
 
 
 class PeriodicFeaturesElementwise(nn.Module):

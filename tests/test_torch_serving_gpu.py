@@ -1,0 +1,78 @@
+"""Serving bundles on the card (``normflows_tpu_torch.serving``): exported,
+loaded and replayed as CUDA graphs, against the live model bit for bit,
+with the kernels' launches counted on the card.  The models are
+tests/test_torch_gpu.py's small ones.
+
+Every test is marked ``gpu`` and skips where no CUDA card is present.  This
+file imports no JAX, so that it runs on a machine without it:
+
+    python -m pytest tests/test_torch_gpu.py tests/test_torch_serving_gpu.py -m gpu \\
+        --noconftest -q
+"""
+
+import pytest
+import torch
+
+from normflows_tpu_torch.ops import spline_cuda, spline_flat
+from test_torch_gpu import coupled_model, cuda, large_d_model, small_model  # noqa: F401
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flagship", "coupled"])
+def test_bundle_on_the_card_is_bit_equal_eager_and_graphed(cuda, kind, tmp_path):
+    """A bundle (``serving.save_bundle``) of a small flagship and a small
+    coupled model, exported and loaded on the card: its sampler from a seed,
+    eagerly and as the CUDA graph it replays after the first call, gives the
+    live model's ``sample`` from the same seed bit for bit, and each request
+    launches its kernels (4 planar or 4 flat ones, counted on the card; the
+    graph replays them with no Python); one ``log_prob`` program serves
+    batches 1, 7 and 1000 bit-equal to the live model."""
+    from normflows_tpu_torch import serving
+
+    model = small_model(cuda) if kind == "flagship" else coupled_model(cuda)
+    module = spline_cuda if kind == "flagship" else spline_flat
+    manifest = serving.save_bundle(model, str(tmp_path), 1000, (2,))
+    assert manifest["device"] == "cuda:0"
+    bundle = serving.load_bundle(str(tmp_path))
+    with torch.inference_mode():
+        x, log_q = model.sample(1000, generator=torch.Generator(device=cuda).manual_seed(7))
+    on_card = torch.zeros(2, 2, dtype=torch.int64, device=cuda)
+    module.DEVICE_LAUNCHES = on_card
+    try:
+        eager = bundle.sample(7, graphed=False)
+        assert on_card.tolist() == [[0, 4], [0, 0]]
+        bundle.sample(8)  # captures
+        on_card.zero_()
+        before = module.LAUNCHES
+        graphed = bundle.sample(7)
+        assert on_card.tolist() == [[0, 4], [0, 0]] and module.LAUNCHES == before
+    finally:
+        module.DEVICE_LAUNCHES = None
+    for got in (eager, graphed):
+        assert torch.equal(got[0], x) and torch.equal(got[1], log_q)
+    for b in (1, 7, 1000):
+        with torch.inference_mode():
+            want = model.log_prob(x[:b])
+        assert torch.equal(bundle.log_prob(x[:b]), want)
+
+
+@pytest.mark.gpu
+def test_large_d_log_prob_bundle_serves_every_batch_on_the_card(cuda, tmp_path):
+    """The large-D model's log_prob bundle, one program with a symbolic
+    batch, at batches 1, 7 and 1000 on the card: bit-equal to the live
+    model, one flat launch a layer.  At batch 1 the program's relayout of
+    the parameters gives views that the traced batch gave as copies; the
+    operator lays them out as the kernel takes them."""
+    from normflows_tpu_torch import serving
+
+    model = large_d_model(cuda)
+    serving.save_bundle(model, str(tmp_path), None, (64,))
+    bundle = serving.load_bundle(str(tmp_path))
+    x = 1.5 * torch.randn(1000, 64, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(5))
+    for b in (1, 7, 1000):
+        before = spline_flat.LAUNCHES
+        got = bundle.log_prob(x[:b])
+        assert spline_flat.LAUNCHES == before + 2
+        with torch.inference_mode():
+            assert torch.equal(got, model.log_prob(x[:b]))
