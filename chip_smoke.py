@@ -51,6 +51,17 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   ``normflows_tpu_torch.examples.real_nvp_twomoons`` as a user runs it,
   4,000 chunked AdamW steps, its held-out log q and the ring radius of
   draws served from its bundle reported beside their bars: phase realnvp;
+* conditional flows (``ConditionalNormalizingFlow``): model A, the port of
+  ``examples/conditional_flow.py`` (4 conditional autoregressive RQ-spline
+  layers of hidden 128 on 2 features, context 4), and model B, the
+  conditional D = 64 layer of ``examples/ar_large_d_bench.py`` (hidden 256,
+  context 8, batch 4096), f32 and bf16: every planar and flat kernel call
+  of their paths against its plain version, exact launches, the card
+  against the CPU, model B's sliced inverse against the naive recursion,
+  the fused MADE off; then the example's first 50 steps on the card
+  against the CPU, the example trained as a user runs it (5,000 chunked
+  steps) to its held-out KL and moment bars, and times: phases
+  conditional_path, conditional_train;
 * serving export (``normflows_tpu_torch.serving``): bundles of the
   flagship (f32, bf16), the coupled NSF, the large-D ``log_prob`` with the
   fused MADE off and on, and Real NVP, each loaded and held bit
@@ -225,6 +236,33 @@ RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # serving: log_prob through one program at these batches; SERVE_REPS
 # requests a route's host median
 SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 20
+
+# conditional flows.  Model A: examples/conditional_flow.py as published
+# (4 x (AR RQ spline on 2 features, 2 blocks of hidden 128, context 4, 8
+# bins) + LULinearPermute, fixed DiagGaussian(2) base,
+# ConditionalDiagGaussianTarget, forward KL on batches of 128, Adam(3e-4)
+# with coupled weight decay 1e-5, 5,000 iterations), ported as
+# normflows_tpu_torch.examples.conditional_flow: COND_DRAWS draws and
+# pairs a card-against-CPU check, its first COND_PARITY_STEPS steps on
+# host-drawn inputs held against the CPU's within CPU_TOL.  Its trained
+# run's held-out KL(p||q) must be at most COND_KL = max(2 x JAX's, JAX's +
+# 0.01) nats, JAX's being 0.02261, the median of the JAX package's example
+# at seeds 0-2 on a CPU (0.02528, 0.02261, 0.02207; tests/test_torch_conditional.py
+# run as a script); its draws' largest |mean - [0.3, 0.9]| and |std - [0.6,
+# 0.6]| at most COND_MOMENT_GAP: those runs miss 0.05 themselves (median of
+# their largest gaps 0.0599 for the mean, 0.0887 for the std), so each bar
+# is JAX's gap + 0.02.  The moment bars are indicative only at SEED: JAX's
+# example misses them at 2 of its 8 seeds (gaps up to 0.1153 / 0.1074) and
+# the port on the card at 3 of 8 (PERF.md, PR 12); COND_KL is the bar that
+# tells a sound model from a faulty one.
+COND_LAYERS, COND_BATCH, COND_ITERS, COND_CHUNK, COND_LR = 4, 128, 5000, 100, 3e-4
+COND_DRAWS, COND_PARITY_STEPS = 4096, 50
+COND_KL = max(2 * 0.02261, 0.02261 + 0.01)
+COND_MOMENT_GAP = {"mean": 0.0599 + 0.02, "std": 0.0887 + 0.02}
+# Model B: examples/ar_large_d_bench.py:160-176's conditional layer (D = 64,
+# 1 block of hidden 256, context 8, 8 bins, permuted masks) at batch 4096
+CB_D, CB_HIDDEN, CB_CONTEXT, CB_BINS, CB_BATCH = 64, 256, 8, 8, 4096
+COND_CONTEXT = 4  # model A's context width, and the conditional coupled NSF's
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
@@ -850,14 +888,17 @@ def phase_train_path():
     return launches
 
 
-def step_against_cpu(phase, build, n, freeze_base, launches, loss_fn=None, batch=None):
+def step_against_cpu(phase, build, n, freeze_base, launches, loss_fn=None, batch=None,
+                     counts=None):
     """One f32 step, make_train_step + Adam, on the card and on the CPU from
     the same weights (``build`` makes the model): a reverse-KL step on the
     same ``n`` base draws (``freeze_base(card, cpu)`` gives both models'
     bases one fixed draw), or ``loss_fn`` on ``batch`` (on the card; its
     copy on the CPU); the card's step launches the kernels exactly
     ``launches`` times (``counted``).  Every gradient leaf within 2e-3 of its
-    norm, the loss within 1e-3."""
+    norm, the loss within 1e-3.  With the device counters ``counts``
+    (``device_counters``), the card's step also runs under ``on_card`` and
+    the result's ``device_launches`` holds what they counted."""
     from normflows_tpu_torch.training import make_train_step
 
     card = build(DEVICE)
@@ -869,9 +910,15 @@ def step_against_cpu(phase, build, n, freeze_base, launches, loss_fn=None, batch
         state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
                                       loss_fn or reverse_kld_loss(n))
         b = None if batch is None else (batch if where == "card" else batch.cpu())
+        on_device = counts is not None and where == "card"
+        run = lambda: step(state, b)  # noqa: E731
         t0 = time.perf_counter()
-        (_, metrics), _ = counted(f"{phase} step on the {where}", lambda: step(state, b),
-                                  **(launches if where == "card" else {}))
+        res, _ = counted(f"{phase} step on the {where}",
+                         (lambda: on_card(counts, run)) if on_device else run,
+                         **(launches if where == "card" else {}))
+        if on_device:
+            res, device_launches = res
+        _, metrics = res
         out[where] = (float(metrics["loss"]), time.perf_counter() - t0,
                       {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
     (loss_card, s_card, g_card), (loss_cpu, s_cpu, g_cpu) = out["card"], out["cpu"]
@@ -888,6 +935,8 @@ def step_against_cpu(phase, build, n, freeze_base, launches, loss_fn=None, batch
          "zero_leaves_equal": all(bool((g_card[k] == 0).all()) for k in g_cpu
                                   if k not in rel),
          "seconds_card_first_step": s_card, "seconds_cpu": s_cpu}
+    if counts is not None:
+        r["device_launches"] = device_launches
     if r["excess_loss"] > 0 or rel[worst] > STEP_G_TOL or not r["zero_leaves_equal"]:
         emit(phase, ok=False, card_vs_cpu=r)
         raise SystemExit(f"{phase}: the training step on the card disagrees with the CPU")
@@ -3324,6 +3373,461 @@ def phase_serving_export(root, real_nvp):
     return served
 
 
+# ---- conditional flows ------------------------------------------------------
+
+class KernelCalls:
+    """While entered, the planar and flat spline operators (forward and
+    backward) pass through here, and so does the static-tail flat entry: the
+    first ``keep`` calls of each (operator, direction) keep copies of their
+    operands and results, for holding each kernel against its plain version
+    on the very inputs a model's path gave it."""
+
+    def __init__(self, keep=2):
+        self.keep, self.calls, self.saved, self.in_entry = keep, {}, [], False
+
+    def _wrap(self, module, attr, name, inverse_at):
+        real = getattr(module, attr)
+
+        def through(*args, **kw):
+            if name == "entry":
+                self.in_entry = True
+                try:
+                    out = real(*args, **kw)
+                finally:
+                    self.in_entry = False
+            else:
+                out = real(*args, **kw)
+            # a flat launch made by the static-tail entry is held to its bars
+            key = ("flat_static" if name == "flat" and self.in_entry else name,
+                   bool(args[inverse_at]))
+            kept = self.calls.setdefault(key, [])
+            if len(kept) < self.keep:
+                def copy(v):
+                    return v.detach().clone() if isinstance(v, torch.Tensor) else v
+                kept.append(([copy(a) for a in args], kw, [copy(o) for o in out]))
+            return out
+
+        self.saved.append((module, attr, real))
+        setattr(module, attr, through)
+
+    def __enter__(self):
+        from normflows_tpu_torch.ops import spline_cuda, spline_flat
+
+        self._wrap(spline_cuda, "OP", "planar", 4)
+        self._wrap(spline_cuda, "BACKWARD_OP", "planar_backward", 6)
+        self._wrap(spline_flat, "OP", "flat", 6)
+        self._wrap(spline_flat, "BACKWARD_OP", "flat_backward", 8)
+        # the static-tail entry: (x, uw, uh, ud, codes, bound, inverse, ...)
+        self._wrap(spline_flat, "unconstrained_rational_quadratic_spline_flat", "entry", 6)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, real in reversed(self.saved):
+            setattr(module, attr, real)
+
+
+def hold_calls(phase, calls, errs):
+    """Each kept call of ``calls`` (a KernelCalls) against its plain version
+    in float64 on the same operands, by the bars of the kernel's own phase:
+    planar Y_TOL / LD_TOL and G_TOL, flat FLAT_Y_TOL / FLAT_LD_TOL (the
+    runtime-tail bars) and FLAT_G_TOL, the static-tail entry and the flat
+    launch it makes Y_TOL / LD_TOL (phase_kernel_flat's bars for each).  Adds the worst
+    |difference| of each (kind, direction) to ``errs``."""
+    from normflows_tpu_torch.ops import spline_cuda as sc
+    from normflows_tpu_torch.ops import spline_flat as sf
+
+    def d(v):
+        return v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+
+    for (name, inverse), kept in calls.calls.items():
+        direction = "inverse" if inverse else "forward"
+        for args, kw, out in kept:
+            a = [d(v) for v in args]
+            if name == "planar":
+                want, tols = sc.rqs_transposed_reference(*a), (Y_TOL, LD_TOL)
+            elif name == "planar_backward":
+                want, tols = sc.rqs_transposed_backward_reference(*a), (G_TOL, G_TOL)
+            elif name in ("flat", "flat_static"):
+                want = sf.unconstrained_rqs_dyncodes_reference(*a)
+                tols = (FLAT_Y_TOL, FLAT_LD_TOL) if name == "flat" else (Y_TOL, LD_TOL)
+            elif name == "flat_backward":
+                dx, *dp = sf.unconstrained_rqs_dyncodes_backward_reference(*a)
+                want, tols = (dx, torch.cat(dp)), (FLAT_G_TOL, FLAT_G_TOL)
+            else:
+                want, tols = flat_float64(*a, **kw), (Y_TOL, LD_TOL)
+            key = f"{name}_{direction}"
+            for label, got, w, tol in zip(("out", "second"), out, want, tols):
+                e = excess(got, w, tol, tol)
+                entry = errs.setdefault(key, {"calls": 0, "max_abs": 0.0, "excess": -1.0})
+                entry["max_abs"] = max(entry["max_abs"], float((got.double() - w).abs().max()))
+                entry["excess"] = max(entry["excess"], e)
+            errs[key]["calls"] += 1
+            errs[key]["n"] = int(args[0].numel())
+    bad = {k: v for k, v in errs.items() if v["excess"] > 0}
+    if bad:
+        emit(phase, ok=False, kernels=errs)
+        raise SystemExit(f"{phase}: a kernel disagrees with its plain version on the "
+                         f"conditional inputs: {sorted(bad)}")
+    return errs
+
+
+def exact_on_card(what, counts, fn, **want):
+    """``fn`` with every launch counter at 0 just before it: the device
+    counters (``on_card``) must give ``want`` (the ``kernels`` line's names;
+    the others 0), the Python counters the same sums (``counted``)."""
+    def total(stem, backward):
+        b = "backward_" if backward else ""
+        return want.get(f"{stem}_{b}forward", 0) + want.get(f"{stem}_{b}inverse", 0)
+
+    (out, got), _ = counted(
+        what, lambda: on_card(counts, fn),
+        planar=(total("rqs_transposed", False), total("rqs_transposed", True)),
+        flat=(total("rqs_flat", False), total("rqs_flat", True)))
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise SystemExit(f"{what}: device-counted launches {got}, expected {full}")
+    return out, got
+
+
+def add_launches(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def build_conditional(device, random_last=True):
+    """Model A, ``examples.conditional_flow``'s model at its widths; with
+    ``random_last``, each MADE's last layer drawn U(-1/sqrt(H), 1/sqrt(H))
+    (the torch init) from a CPU generator, so that the splines do real
+    work."""
+    from normflows_tpu_torch.examples import conditional_flow
+    from normflows_tpu_torch.nets.mlp import uniform_
+
+    model = conditional_flow.build_model(device, seed=SEED)
+    if random_last:
+        gen = torch.Generator().manual_seed(SEED + 40)
+        with torch.no_grad():
+            for layer in model.flows[::2]:
+                w = layer.mprqat.autoregressive_net.final_layer.weight
+                w.copy_(uniform_(tuple(w.shape), 1.0 / math.sqrt(w.shape[1]), gen, device))
+    return model
+
+
+def build_conditional_layer(device, context=True):
+    """Model B, ``examples/ar_large_d_bench.py:160-176``'s conditional layer:
+    the autoregressive RQ spline on D = 64 features, 1 block of hidden 256,
+    8 bins, a context of 8 features (none with ``context=False``, the
+    unconditional twin timed beside it), permuted masks."""
+    import normflows_tpu_torch as nft
+
+    return nft.flows.AutoregressiveRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(SEED + 7), CB_D, 1, CB_HIDDEN,
+        num_context_channels=CB_CONTEXT if context else None, num_bins=CB_BINS,
+        permute_mask=True, init_identity=False, device=device).mprqat
+
+
+def build_conditional_coupled(device):
+    """The coupled NSF of build_coupled with a context of COND_CONTEXT
+    features in every transform net, random nets and CDFs, on model A's
+    target."""
+    import normflows_tpu_torch as nft
+
+    layers = [nft.flows.CoupledRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(SEED + 90 + i), 2, CP_BLOCKS, CP_HIDDEN,
+        num_context_channels=COND_CONTEXT, reverse_mask=bool(i % 2), init_identity=False,
+        device=device) for i in range(CP_LAYERS)]
+    randomize_cdfs(layers)
+    return nft.ConditionalNormalizingFlow.create(
+        nft.distributions.DiagGaussian.create(2, device=device), layers,
+        p=nft.distributions.ConditionalDiagGaussianTarget(device=device), device=device)
+
+
+def conditional_pairs(n, seed):
+    """``n`` (context, x) pairs of model A's target, drawn on the host."""
+    from normflows_tpu_torch.examples import conditional_flow
+
+    c, x = conditional_flow.held_out_pairs(seed)
+    return c[:n].to(DEVICE), x[:n].to(DEVICE)
+
+
+def phase_conditional_path():
+    """Model A (``examples.conditional_flow``'s model, random last layers),
+    the conditional coupled NSF (build_conditional_coupled) and model B (the
+    conditional D = 64 layer, f32 and bf16) on the card:
+    every planar and flat kernel call of their paths against its plain
+    version (``KernelCalls``, ``hold_calls``); exact launches on the device
+    counters (A: 8 planar inverse a ``sample``, 4 forward a ``log_prob``,
+    4 + 4 a forward-KL step; the coupled NSF: 16 flat forward a
+    ``log_prob``, 16 inverse a ``from_noise``; B: 64 flat inverse an
+    ``inverse``, 1 flat forward a ``forward``, 64 + 64 the inverse's
+    gradient); the fused MADE
+    gate off; the card against the CPU (``log_prob`` and ``from_noise`` at
+    COND_DRAWS, 1e-3, for model A and the coupled NSF; one forward-KL step's gradient leaves within 2e-3 of
+    their norms, the context layers' included; model B at LD_CPU); model B's
+    sliced inverse against the naive recursion on the card (the JAX
+    package's bars, 1e-5 on values, 1e-4 on log-dets)."""
+    from normflows_tpu_torch.ops import backend, made_fused
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    results, errs, launches = {}, {}, {}
+    c, x = conditional_pairs(COND_DRAWS, SEED + 50)
+    model = build_conditional(DEVICE)
+    made = model.flows[0].mprqat.autoregressive_net
+    backend.set_made_fusion(True)
+    try:
+        gate_off = not made.fuses(x, c) and not made_fused.fusable(made, x, None)
+    finally:
+        backend.set_made_fusion(False)
+    with device_counters() as counts, KernelCalls() as calls, torch.inference_mode():
+        (z, log_q), got = exact_on_card(
+            "conditional sample", counts,
+            lambda: model.sample(COND_DRAWS, context=c,
+                                 generator=torch.Generator(DEVICE).manual_seed(SEED + 51)),
+            rqs_transposed_inverse=2 * COND_LAYERS)
+        add_launches(launches, got)
+        lp, got = exact_on_card("conditional log_prob", counts, lambda: model.log_prob(z, c),
+                                rqs_transposed_forward=COND_LAYERS)
+        add_launches(launches, got)
+    gap = (lp - log_q).abs()
+    a = {"finite": all(bool(torch.isfinite(v).all()) for v in (z, log_q, lp)),
+         "median_abs_logq_gap": float(gap.median()), "max_abs_logq_gap": float(gap.max()),
+         "fused_gate_off": gate_off}
+    # the card against the CPU: log_prob of target draws, from_noise
+    cpu = build_conditional("cpu")
+    cpu.load_state_dict(model.state_dict())
+    eps = torch.randn(COND_DRAWS, 2, generator=torch.Generator().manual_seed(SEED + 52))
+    with torch.inference_mode():
+        pairs = {"log_prob": (model.log_prob(x, c).cpu(), cpu.log_prob(x.cpu(), c.cpu()))}
+        xf, lf = model.from_noise(eps.to(DEVICE), c)
+        xc, lc = cpu.from_noise(eps, c.cpu())
+    pairs.update({"from_noise_x": (xf.cpu(), xc), "from_noise_log_q": (lf.cpu(), lc)})
+    a["cpu"] = {k: {"excess": excess(g, w, CPU_TOL, CPU_TOL),
+                    "max_abs": float((g - w).abs().max())} for k, (g, w) in pairs.items()}
+
+    def pair_batch(n):
+        cc, xx = conditional_pairs(n, SEED + 53)
+        return torch.cat([xx, cc], dim=1)
+
+    def kld(m, batch, generator):
+        return m.forward_kld(batch[:, :2], batch[:, 2:])
+
+    with device_counters() as counts, KernelCalls() as step_calls:
+        a["step_card_vs_cpu"] = step_against_cpu(
+            "conditional_path", build_conditional, COND_DRAWS, lambda card, cpu: None,
+            {"planar": (COND_LAYERS, COND_LAYERS)}, loss_fn=kld, batch=pair_batch(COND_DRAWS),
+            counts=counts)
+    got = a["step_card_vs_cpu"]["device_launches"]
+    want = {"rqs_transposed_forward": COND_LAYERS,
+            "rqs_transposed_backward_forward": COND_LAYERS}
+    if got != {k: want.get(k, 0) for k in got}:
+        raise SystemExit(f"conditional forward-KL step: device-counted launches {got}, "
+                         f"expected {want}")
+    add_launches(launches, got)
+    errs_a = hold_calls("conditional_path", calls, {})
+    errs_a = hold_calls("conditional_path", step_calls, errs_a)
+    a["kernels"] = errs_a
+    results["model_a"] = a
+    ok = a["finite"] and gate_off and a["median_abs_logq_gap"] <= LOGQ_F32 and all(
+        v["excess"] <= 0 for v in a["cpu"].values())
+    if not ok:
+        emit("conditional_path", ok=False, results=results)
+        raise SystemExit("conditional_path: model A failed its checks")
+
+    # the conditional coupled NSF: the static-tail entry along the coupling's
+    # and the CDF's layouts, 2 x CP_LAYERS flat launches a pass
+    cp = build_conditional_coupled(DEVICE)
+    with device_counters() as counts, KernelCalls() as calls, torch.inference_mode():
+        lp_c, got = exact_on_card("conditional coupled log_prob", counts,
+                                  lambda: cp.log_prob(x, c), rqs_flat_forward=2 * CP_LAYERS)
+        add_launches(launches, got)
+        (xf_c, lf_c), got = exact_on_card("conditional coupled from_noise", counts,
+                                          lambda: cp.from_noise(eps.to(DEVICE), c),
+                                          rqs_flat_inverse=2 * CP_LAYERS)
+        add_launches(launches, got)
+    cpu_c = build_conditional_coupled("cpu")
+    cpu_c.load_state_dict(cp.state_dict())
+    with torch.inference_mode():
+        pairs = {"log_prob": (lp_c.cpu(), cpu_c.log_prob(x.cpu(), c.cpu()))}
+        xc, lc = cpu_c.from_noise(eps, c.cpu())
+    pairs.update({"from_noise_x": (xf_c.cpu(), xc), "from_noise_log_q": (lf_c.cpu(), lc)})
+    coupled = {"cpu": {k: {"excess": excess(g, w, CPU_TOL, CPU_TOL),
+                           "max_abs": float((g - w).abs().max())}
+                       for k, (g, w) in pairs.items()},
+               "finite": all(bool(torch.isfinite(v).all()) for v in (lp_c, xf_c, lf_c)),
+               "kernels": hold_calls("conditional_path", calls, {})}
+    results["coupled"] = coupled
+    if not coupled["finite"] or any(v["excess"] > 0 for v in coupled["cpu"].values()):
+        emit("conditional_path", ok=False, results=results)
+        raise SystemExit("conditional_path: the conditional coupled NSF failed its checks")
+
+    # model B
+    layer = build_conditional_layer(DEVICE)
+    rng = np.random.default_rng(SEED + 54)
+    xb = torch.from_numpy(rng.normal(size=(CB_BATCH, CB_D)).astype(np.float32)).to(DEVICE)
+    cb = torch.from_numpy(rng.normal(size=(CB_BATCH, CB_CONTEXT)).astype(np.float32)).to(DEVICE)
+    b = {"fused_gate_off": not made_fused.fusable(layer.autoregressive_net, xb, None)}
+    for dtype in ("float32", "bfloat16"):
+        set_compute_dtype(layer, None if dtype == "float32" else dtype)
+        with device_counters() as counts, KernelCalls() as calls, torch.inference_mode():
+            (zi, ldi), got = exact_on_card(f"model B inverse {dtype}", counts,
+                                           lambda: layer.inverse(xb, cb),
+                                           rqs_flat_inverse=CB_D)
+            add_launches(launches, got)
+            (xr, ldr), got = exact_on_card(f"model B forward {dtype}", counts,
+                                           lambda: layer.forward(zi, cb),
+                                           rqs_flat_forward=1)
+            add_launches(launches, got)
+        r = {"finite": all(bool(torch.isfinite(v).all()) for v in (zi, ldi, xr, ldr)),
+             "round_trip_max_abs_x": float((xr - xb).abs().max()),
+             "round_trip_median_abs_ld": float((ldr + ldi).abs().median()),
+             "kernels": hold_calls("conditional_path", calls, {})}
+        if dtype == "float32":
+            with torch.inference_mode():
+                net = layer.autoregressive_net
+                out = torch.zeros_like(xb)
+                for _ in range(CB_D):  # the naive recursion, full width each pass
+                    out, ld_naive = layer._elementwise_t(
+                        xb.T.contiguous(), net(out, cb).T.contiguous(), inverse=True)
+                    out = out.T
+                ld_naive = ld_naive.sum(0)
+            r["vs_naive"] = {"excess_x": excess(zi, out, 1e-5, 1e-5),
+                             "max_abs_x": float((zi - out).abs().max()),
+                             "excess_ld": excess(ldi, ld_naive, 1e-4, 1e-4),
+                             "max_abs_ld": float((ldi - ld_naive).abs().max())}
+            zi32, ldi32 = zi, ldi
+            # the card against the CPU at LD_CPU, values and the gradient
+            cpu = build_conditional_layer("cpu")
+            cpu.load_state_dict(layer.state_dict())
+            n = LD_CPU
+            with torch.inference_mode():
+                for name, fn in (("inverse", "inverse"), ("forward", "forward")):
+                    yg, lg = getattr(layer, fn)(xb[:n], cb[:n])
+                    yc, lc = getattr(cpu, fn)(xb[:n].cpu(), cb[:n].cpu())
+                    r[f"cpu_{name}"] = {"excess_y": excess(yg.cpu(), yc, CPU_TOL, CPU_TOL),
+                                        "excess_ld": excess(lg.cpu(), lc, CPU_TOL, CPU_TOL)}
+            grads = {}
+            with device_counters() as counts, KernelCalls() as gcalls:
+                for where, m, xx, cc in (("card", layer, xb[:n], cb[:n]),
+                                         ("cpu", cpu, xb[:n].cpu(), cb[:n].cpu())):
+                    def loss(m=m, xx=xx, cc=cc):
+                        zz, ll = m.inverse(xx, cc)
+                        g = torch.autograd.grad((zz**2).sum() + ll.sum(),
+                                                list(m.parameters()))
+                        return dict(zip([k for k, _ in m.named_parameters()], g))
+                    if where == "card":
+                        grads[where], got = exact_on_card(
+                            "model B inverse gradient", counts, loss,
+                            rqs_flat_inverse=CB_D, rqs_flat_backward_inverse=CB_D)
+                        add_launches(launches, got)
+                    else:
+                        grads[where] = loss()
+            worst, gap_g = leaf_gap(grads["card"], grads["cpu"])
+            r["gradient_card_vs_cpu"] = {"worst_leaf": worst, "worst_relative_norm": gap_g,
+                                         "context_leaves": sorted(
+                                             k for k in grads["cpu"] if "context" in k)}
+            r["kernels_gradient"] = hold_calls("conditional_path", gcalls, {})
+            ok = (r["finite"] and r["vs_naive"]["excess_x"] <= 0
+                  and r["vs_naive"]["excess_ld"] <= 0 and gap_g <= STEP_G_TOL
+                  and max(v for k in ("cpu_inverse", "cpu_forward") for v in r[k].values())
+                  <= 0)
+        else:
+            vs = (ldi - ldi32).abs()
+            r["inverse_ld_vs_f32"] = {"median_abs": float(vs.median()),
+                                      "max_abs": float(vs.max())}
+            ok = r["finite"] and r["inverse_ld_vs_f32"]["median_abs"] <= LD_BF16_VS_F32
+        b[dtype] = r
+        if not ok:
+            results["model_b"] = b
+            emit("conditional_path", ok=False, results=results)
+            raise SystemExit(f"conditional_path: model B ({dtype}) failed its checks")
+    set_compute_dtype(layer, None)
+    results["model_b"] = b
+    emit("conditional_path", ok=True, results=results, launches=launches,
+         bars={"kernels": {"planar": [Y_TOL, LD_TOL, G_TOL],
+                           "flat": [FLAT_Y_TOL, FLAT_LD_TOL, FLAT_G_TOL],
+                           "entry_and_flat_static": [Y_TOL, LD_TOL]},
+               "cpu": CPU_TOL, "leaf_relative_norm": STEP_G_TOL, "logq": LOGQ_F32,
+               "vs_naive": [1e-5, 1e-4], "bf16_vs_f32": LD_BF16_VS_F32})
+    return launches, layer
+
+
+def conditional_parity():
+    """The example's first COND_PARITY_STEPS steps on host-drawn inputs
+    (``--host-inputs``) on the card (one captured chunk) and on the CPU:
+    every loss within CPU_TOL."""
+    from normflows_tpu_torch.examples import conditional_flow as example
+
+    inputs = example.host_inputs(COND_PARITY_STEPS, COND_BATCH, SEED)
+    losses = {}
+    for where in (DEVICE, "cpu"):
+        model = example.build_model(torch.device(where), seed=SEED)
+        state, chunk = example.make_chunk(model, COND_LR, COND_BATCH, COND_PARITY_STEPS,
+                                          inputs)
+        losses[where] = chunk(state)[1]["loss"].cpu()
+    gap = (losses[DEVICE] - losses["cpu"]).abs()
+    return {"steps": COND_PARITY_STEPS, "max_abs_loss_gap": float(gap.max()),
+            "loss_card_last": float(losses[DEVICE][-1]),
+            "loss_cpu_last": float(losses["cpu"][-1])}
+
+
+def phase_conditional_train(layer_b):
+    """(a) ``conditional_parity``; (b) ``examples.conditional_flow`` as a
+    user runs it: COND_ITERS chunked steps drawn on the card, then its
+    held-out KL(p||q) and its draws' moments at the example's context held
+    to COND_KL and COND_MOMENT_GAP (PERF.md §6); (c) model A's chunked
+    step time (``timed_chunk``); (d) model B's ``inverse`` and ``forward``,
+    f32 and bf16, conditional and its unconditional twin: host median of
+    LD_TIMED_REPS calls and one profiled call."""
+    from normflows_tpu_torch.examples import conditional_flow as example
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    r = {"parity": conditional_parity()}
+    if not r["parity"]["max_abs_loss_gap"] <= CPU_TOL:
+        emit("conditional_train", ok=False, results=r)
+        raise SystemExit("conditional_train: the example's first steps on the card "
+                         "disagree with the CPU")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, record = example.main(["--iters", str(COND_ITERS), "--chunk", str(COND_CHUNK),
+                                  "--seed", str(SEED), "--device", DEVICE])
+    target = np.asarray(example.SAMPLE_CONTEXT)
+    gaps = {"mean": float(np.abs(np.asarray(record["sample_mean"]) - target[:2]).max()),
+            "std": float(np.abs(np.asarray(record["sample_std"]) - target[2:]).max())}
+    r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1], "gaps": gaps}
+    ok = (record["held_out_kl"] <= COND_KL and record["draws_finite"]
+          and all(gaps[k] <= COND_MOMENT_GAP[k] for k in gaps))
+
+    def make(steps):
+        model = example.build_model(torch.device(DEVICE), seed=SEED)
+        state, chunk = example.make_chunk(model, COND_LR, COND_BATCH, steps)
+        return state, chunk, torch.Generator(DEVICE).manual_seed(SEED + 60)
+
+    r["chunked_step"], _ = timed_chunk(make, COND_BATCH)
+    times = {}
+    twin = build_conditional_layer(DEVICE, context=False)
+    rng = np.random.default_rng(SEED + 61)
+    xb = torch.from_numpy(rng.normal(size=(CB_BATCH, CB_D)).astype(np.float32)).to(DEVICE)
+    cb = torch.from_numpy(rng.normal(size=(CB_BATCH, CB_CONTEXT)).astype(np.float32)).to(DEVICE)
+    for dtype in ("float32", "bfloat16"):
+        for name, m, ctx in (("conditional", layer_b, cb), ("unconditional", twin, None)):
+            set_compute_dtype(m, None if dtype == "float32" else dtype)
+            for direction in ("inverse", "forward"):
+                def call(m=m, ctx=ctx, direction=direction):
+                    with torch.inference_mode():
+                        return getattr(m, direction)(xb, ctx)
+                ms = host_ms(call, LD_TIMED_REPS)
+                prof = profile(call)
+                times[f"{name}_{direction}_{dtype}"] = {
+                    "ms": ms, "device_ms": prof["device_ms"],
+                    "busy_share_of_median": prof["device_ms"] / ms,
+                    "kernel_launches": prof["kernel_launches"], "top": prof["top"][:3]}
+    r["model_b_times"] = times
+    emit("conditional_train", ok=ok, results=r,
+         bars={"parity_loss_gap": CPU_TOL, "held_out_kl": COND_KL,
+               "moment_gap": COND_MOMENT_GAP})
+    if not ok:
+        raise SystemExit("conditional_train: the trained example missed its bars")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -3370,6 +3874,9 @@ def main() -> int:
     coupled_replays = phase_chunked_data()
     phase_times_chunked(eager_flagship, eager_coupled)
     phase_convergence()
+    cond_launches, layer_b = phase_conditional_path()
+    phase_conditional_train(layer_b)
+    del layer_b
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bundles_") as root:
         served = phase_serving_export(root, phase_realnvp(root))
 
@@ -3502,6 +4009,9 @@ def main() -> int:
         })
     for entry in kernels:
         entry["launches_served"] = served.get(entry["name"], {})
+        # the conditional paths' launches (phase conditional_path) count too
+        entry["launches_conditional"] = cond_launches.get(entry["name"], 0)
+        entry["launches"] += entry["launches_conditional"]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,7 +25,12 @@ train many steps a call, one step captured in a CUDA graph and replayed;
 sampler and ``log_prob`` as ``torch.export`` programs over the kernels'
 operators (``ops.backend.kernel_op``), saves them as a bundle and serves a
 loaded bundle, the sampler as a CUDA graph on a card.
+``ConditionalNormalizingFlow`` holds the conditional flows: a context
+through MADE and ``ResidualNet`` and both autoregressive paths, with
+``distributions.ConditionalDiagGaussian`` (base) and
+``ConditionalDiagGaussianTarget``.
 ``examples.nsf_cylinder`` trains the flagship to convergence,
+``examples.conditional_flow`` trains the conditional NSF and samples it,
 ``examples.real_nvp_twomoons`` trains Real NVP and serves it, and
 ``examples.spline_bwd_ablate`` times the four variants of the flat spline
 backward's ablation kernel.
@@ -33,6 +38,6 @@ backward's ablation kernel.
 
 from . import core, distributions, flows, interop, nets, ops, serving, training, utils
 from .core.flow import Composite, Flow, Identity, Reverse
-from .core.facades import NormalizingFlow
+from .core.facades import ConditionalNormalizingFlow, NormalizingFlow
 
 __version__ = "0.1.0"

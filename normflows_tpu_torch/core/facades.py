@@ -1,9 +1,27 @@
-"""Model facade (port of ``NormalizingFlow`` in ``normflows_tpu/core/facades.py``).
+"""Model facades (port of ``NormalizingFlow`` and ``ConditionalNormalizingFlow``
+in ``normflows_tpu/core/facades.py``).
 
 ``forward`` is latent -> data (sampling); ``inverse`` is data -> latent
-(density).  ``sample`` and ``reverse_kld`` draw from an explicit
-``torch.Generator`` where the JAX version takes a key.  ``reverse_alpha_div``
-waits for a later slice of the port.
+(density).  Every method takes ``context`` and hands it to the base, to
+every flow and, in the reverse objectives, to the target.
+
+Randomness is a ``torch.Generator`` passed as ``generator=``, where the JAX
+version takes a key, and the dropout of the flows' parameter nets follows
+the JAX package's rule, method by method:
+
+* ``forward``, ``forward_and_log_det``, ``inverse``, ``inverse_and_log_det``,
+  ``log_prob`` and ``forward_kld`` hand the flows the caller's generator:
+  dropout acts only when one is passed;
+* ``sample``, ``sample_and_log_prob``, ``reverse_kld`` and
+  ``reverse_alpha_div`` always draw, so where a net has
+  ``dropout_probability > 0`` the flows get the generator (torch's default
+  one for the device when the caller passes None) and dropout acts.
+
+One generator serves the base and every layer in turn, where the JAX
+package splits its key into one per layer.  The detached second pass of
+``reverse_kld(score_fn=False)`` and of ``reverse_alpha_div(dreg=True)``
+gives each layer the generator's state at that layer's first pass, as the
+JAX package reuses each layer's key.
 
 Persistence (facades.py:220-335 of the JAX package): ``save`` pickles a
 :func:`compact_copy` of the model with ``torch.save``,
@@ -17,6 +35,7 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -24,16 +43,34 @@ from ..ops.backend import resolve_device
 from .flow import zero_log_det_like_z
 
 
+def _default_generator(device) -> torch.Generator:
+    """torch's default generator of ``device``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.default_generators[
+            device.index if device.index is not None else torch.cuda.current_device()]
+    return torch.default_generator
+
+
 class _LogProb(nn.Module):
     """A flow's ``log_prob`` as a module's ``forward``, so that
-    ``torch.func.functional_call`` can run it on other parameters."""
+    ``torch.func.functional_call`` can run it on other parameters.  With
+    ``states`` (one generator state a layer), each layer's inverse draws
+    from ``generator`` set to its state."""
 
     def __init__(self, flow: nn.Module):
         super().__init__()
         self.flow = flow
 
-    def forward(self, x, context=None):
-        return self.flow.log_prob(x, context)
+    def forward(self, x, context=None, generator=None, states=None):
+        if states is None:
+            return self.flow.log_prob(x, context)
+        log_q = zero_log_det_like_z(x)
+        for flow, state in zip(reversed(self.flow.flows), reversed(states)):
+            generator.set_state(state)
+            x, ld = flow.inverse(x, context, generator=generator)
+            log_q = log_q + ld
+        return log_q + self.flow.q0.log_prob(x, context)
 
 
 class NormalizingFlow(nn.Module):
@@ -56,46 +93,93 @@ class NormalizingFlow(nn.Module):
                                  f"not on {device}")
         return model
 
+    def _has_dropout(self) -> bool:
+        """Whether a block of a flow's net now has ``dropout_probability >
+        0``.  The blocks that carry the setting are found by a search of
+        every module (~0.3 ms of host time on the flagship), made again
+        whenever ``self.flows`` holds other flows than at the last search;
+        their settings are read at every call, as the flows read them.  A
+        net swapped inside a flow after a call is not seen."""
+        flows = tuple(self.flows)
+        found = self.__dict__.get("_dropout_blocks")
+        if found is None or found[0] != flows:
+            found = (flows, [m for m in self.flows.modules()
+                             if hasattr(m, "dropout_probability")])
+            self.__dict__["_dropout_blocks"] = found
+        return any(m.dropout_probability > 0.0 for m in found[1])
+
+    def _drawing(self, generator, device) -> Optional[torch.Generator]:
+        """The generator the flows get in a method that always draws: the
+        caller's, or the device's default one, where a net has dropout;
+        None (no dropout) otherwise."""
+        if not self._has_dropout():
+            return None
+        return generator if generator is not None else _default_generator(device)
+
     # ---- transport -------------------------------------------------------
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator: Optional[torch.Generator] = None):
         """Latent -> data, dropping the log-det."""
         for flow in self.flows:
-            z, _ = flow.forward(z, context)
+            z, _ = flow.forward(z, context, generator=generator)
         return z
 
-    def forward_and_log_det(self, z, context=None):
+    def forward_and_log_det(self, z, context=None, *,
+                            generator: Optional[torch.Generator] = None):
         log_det = zero_log_det_like_z(z)
         for flow in self.flows:
-            z, ld = flow.forward(z, context)
+            z, ld = flow.forward(z, context, generator=generator)
             log_det = log_det + ld
         return z, log_det
 
-    def inverse(self, x, context=None):
+    def inverse(self, x, context=None, *, generator: Optional[torch.Generator] = None):
         """Data -> latent, dropping the log-det."""
         for flow in reversed(self.flows):
-            x, _ = flow.inverse(x, context)
+            x, _ = flow.inverse(x, context, generator=generator)
         return x
 
-    def inverse_and_log_det(self, x, context=None):
+    def inverse_and_log_det(self, x, context=None, *,
+                            generator: Optional[torch.Generator] = None):
         log_det = zero_log_det_like_z(x)
         for flow in reversed(self.flows):
-            x, ld = flow.inverse(x, context)
+            x, ld = flow.inverse(x, context, generator=generator)
             log_det = log_det + ld
         return x, log_det
 
     # ---- densities -------------------------------------------------------
-    def log_prob(self, x, context=None):
-        z, log_q = self.inverse_and_log_det(x, context)
+    def log_prob(self, x, context=None, *, generator: Optional[torch.Generator] = None):
+        z, log_q = self.inverse_and_log_det(x, context, generator=generator)
         return log_q + self.q0.log_prob(z, context)
+
+    def _draw(self, num_samples, context, generator, states=None):
+        """Base draws through the flows: ``(x, log_q)``; with ``states`` (a
+        list), the flows' generator state before each layer is appended."""
+        z, log_q = self.q0.sample_and_log_prob(num_samples, context, generator=generator)
+        g = self._drawing(generator, z.device)
+        for flow in self.flows:
+            if states is not None and g is not None:
+                states.append(g.get_state())
+            z, ld = flow.forward(z, context, generator=g)
+            log_q = log_q - ld
+        return z, log_q
+
+    def _log_q_detached(self, z, context, generator, states):
+        """log q at ``z`` through a copy of the model whose parameters are
+        detached (its gradient reaches the parameters only through ``z``),
+        each layer's dropout drawn as in its first pass."""
+        detached = {f"flow.{name}": p.detach() for name, p in self.named_parameters()}
+        g = self._drawing(generator, z.device)
+        if g is None:
+            return torch.func.functional_call(_LogProb(self), detached, (z, context))
+        after = g.get_state()
+        log_q = torch.func.functional_call(_LogProb(self), detached, (z, context),
+                                           {"generator": g, "states": states})
+        g.set_state(after)
+        return log_q
 
     def sample(self, num_samples: int = 1, context=None, *,
                generator: Optional[torch.Generator] = None):
         """Returns ``(x, log_q)``: samples and their log-density."""
-        z, log_q = self.q0.sample_and_log_prob(num_samples, context, generator=generator)
-        for flow in self.flows:
-            z, ld = flow.forward(z, context)
-            log_q = log_q - ld
-        return z, log_q
+        return self._draw(num_samples, context, generator)
 
     # distribution-protocol alias: a flow serves wherever a base
     # distribution does
@@ -108,7 +192,8 @@ class NormalizingFlow(nn.Module):
         (num_samples, *event) is the base's noise, drawn by its
         ``noise_spec`` (``distributions.base.draw_noise``), so that
         ``sample(n, generator=g)`` is ``from_noise(draw_noise(...))`` on
-        the same draws.  The program ``serving.export_sampler`` exports."""
+        the same draws.  The program ``serving.export_sampler`` exports.
+        It draws nothing else, so dropout stays off."""
         z, log_q = self.q0.from_noise(eps, context)
         for flow in self.flows:
             z, ld = flow.forward(z, context)
@@ -116,9 +201,9 @@ class NormalizingFlow(nn.Module):
         return z, log_q
 
     # ---- training objectives --------------------------------------------
-    def forward_kld(self, x, context=None):
+    def forward_kld(self, x, context=None, *, generator: Optional[torch.Generator] = None):
         """-E_p[log q(x)], the maximum-likelihood loss."""
-        return -torch.mean(self.log_prob(x, context))
+        return -torch.mean(self.log_prob(x, context, generator=generator))
 
     def reverse_kld(self, num_samples: int = 1, context=None, beta: float = 1.0,
                     score_fn: bool = True, z_sharding=None, *,
@@ -134,12 +219,32 @@ class NormalizingFlow(nn.Module):
         if z_sharding is not None:
             raise NotImplementedError(
                 "z_sharding waits for the parallel slice of the PyTorch port")
-        z, log_q = self.sample(num_samples, context, generator=generator)
+        states = [] if not score_fn else None
+        z, log_q = self._draw(num_samples, context, generator, states)
         if not score_fn:
-            detached = {f"flow.{name}": p.detach() for name, p in self.named_parameters()}
-            log_q = torch.func.functional_call(_LogProb(self), detached, (z, context))
+            log_q = self._log_q_detached(z, context, generator, states)
         log_p = self.p.log_prob(z) if context is None else self.p.log_prob(z, context)
         return torch.mean(log_q) - beta * torch.mean(log_p)
+
+    def reverse_alpha_div(self, num_samples: int = 1, alpha: float = 1.0, dreg: bool = False,
+                          context=None, *, generator: Optional[torch.Generator] = None):
+        """The alpha-divergence loss on ``num_samples`` draws of the model:
+        sign(alpha - 1) logsumexp(alpha (log p - log q)); with ``dreg``, the
+        doubly reparameterised gradient estimator (Tucker et al. 2019), whose
+        log q is that of a detached copy of the model, as in
+        :meth:`reverse_kld`."""
+        states = [] if dreg else None
+        z, log_q = self._draw(num_samples, context, generator, states)
+        log_p = self.p.log_prob(z)
+        if not dreg:
+            return float(np.sign(alpha - 1)) * torch.logsumexp(alpha * (log_p - log_q), 0)
+        w_const = torch.exp(log_p - log_q).detach()
+        log_q = self._log_q_detached(z, context, generator, states)
+        w = torch.exp(log_p - log_q)
+        w_alpha = w_const**alpha
+        w_alpha = w_alpha / torch.mean(w_alpha)
+        weights = (1 - alpha) * w_alpha + alpha * w_alpha**2
+        return -alpha * torch.mean(weights * torch.log(w))
 
     # ---- persistence -----------------------------------------------------
     def save(self, path: str):
@@ -158,6 +263,13 @@ class NormalizingFlow(nn.Module):
             raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, "
                             f"not {cls.__name__}")
         return obj
+
+
+class ConditionalNormalizingFlow(NormalizingFlow):
+    """A flow conditioned on a context, which every method hands to the
+    base, to every layer and, in ``reverse_kld``, to the target's
+    ``log_prob``.  ``NormalizingFlow`` already does all of that; the class
+    mirrors the JAX package's API."""
 
 
 def compact_copy(model: nn.Module) -> nn.Module:

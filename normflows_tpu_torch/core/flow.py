@@ -4,6 +4,12 @@ Every flow maps ``z`` of shape ``(batch, *event_shape)`` to a tensor of the
 same shape plus a ``(batch,)`` log|det|.  ``forward`` is the latent -> data
 (sampling) direction; ``inverse`` is data -> latent (density).  Flows are
 ``nn.Module``s, so ``flow(z)`` is ``flow.forward(z)``.
+
+Both take ``generator=``, a ``torch.Generator``: the port's stand-in for the
+JAX package's per-call ``key``.  A flow whose parameter net has dropout runs
+it where a generator is passed (``utils.nn.net_dropout_active``); other
+flows take it and do not use it.  ``NormalizingFlow`` passes it on by the
+JAX package's rules (see ``core/facades.py``).
 """
 
 from __future__ import annotations
@@ -26,10 +32,10 @@ def sum_except_batch(x, num_batch_dims: int = 1):
 class Flow(nn.Module):
     """Abstract bijector: ``forward`` and ``inverse`` return ``(z_out, log_det)``."""
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         raise NotImplementedError("forward not implemented for this flow")
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         raise NotImplementedError("inverse not implemented for this flow")
 
 
@@ -40,11 +46,11 @@ class Reverse(Flow):
         super().__init__()
         self.flow = flow
 
-    def forward(self, z, context=None):
-        return self.flow.inverse(z, context)
+    def forward(self, z, context=None, *, generator=None):
+        return self.flow.inverse(z, context, generator=generator)
 
-    def inverse(self, z, context=None):
-        return self.flow.forward(z, context)
+    def inverse(self, z, context=None, *, generator=None):
+        return self.flow.forward(z, context, generator=generator)
 
 
 class Composite(Flow):
@@ -54,17 +60,17 @@ class Composite(Flow):
         super().__init__()
         self.flows = nn.ModuleList(flows)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         log_det = zero_log_det_like_z(z)
         for flow in self.flows:
-            z, ld = flow.forward(z, context)
+            z, ld = flow.forward(z, context, generator=generator)
             log_det = log_det + ld
         return z, log_det
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         log_det = zero_log_det_like_z(z)
         for flow in reversed(self.flows):
-            z, ld = flow.inverse(z, context)
+            z, ld = flow.inverse(z, context, generator=generator)
             log_det = log_det + ld
         return z, log_det
 
@@ -72,8 +78,8 @@ class Composite(Flow):
 class Identity(Flow):
     """No-op bijector."""
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         return z, zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         return z, zero_log_det_like_z(z)

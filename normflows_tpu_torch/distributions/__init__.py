@@ -1,4 +1,7 @@
 """Distributions."""
 
-from .base import BaseDistribution, DiagGaussian, UniformGaussian
-from .target import Target, GaussianVonMises, TwoMoons
+from .base import (BaseDistribution, ConditionalDiagGaussian, DiagGaussian, Uniform,
+                   UniformGaussian)
+from .target import (CircularGaussianMixture, GaussianVonMises, RingMixture, Target,
+                     TwoIndependent, TwoMoons)
+from .target import ConditionalDiagGaussian as ConditionalDiagGaussianTarget

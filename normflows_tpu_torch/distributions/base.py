@@ -1,5 +1,6 @@
 """Base distributions (port of ``normflows_tpu/distributions/base.py``):
-``BaseDistribution``, ``DiagGaussian`` and ``UniformGaussian``.
+``BaseDistribution``, ``DiagGaussian``, ``ConditionalDiagGaussian``,
+``Uniform`` and ``UniformGaussian``.
 
 Sampling draws from an explicit ``torch.Generator`` (``generator=``, on the
 distribution's device; ``None`` uses torch's default generator), where the
@@ -9,7 +10,7 @@ JAX package takes a PRNG key.  Contract:
     log_prob(z, context=None) -> (batch,)
     sample(num_samples, context=None, *, generator=None) -> z
 
-``DiagGaussian`` and ``UniformGaussian`` split a draw from its transform:
+Each base splits a draw from its transform:
 ``noise_spec`` names each event index's unit draw (``"normal"``, or
 ``"uniform"`` on [0, 1)), :func:`draw_noise` draws it, and
 ``from_noise(eps) -> (z, log_p)`` maps it; ``sample_and_log_prob`` is the
@@ -142,6 +143,97 @@ class DiagGaussian(BaseDistribution):
         dims = tuple(range(1, len(self.shape) + 1))
         return -0.5 * self.d * LOG2PI - torch.sum(
             log_scale + 0.5 * ((z - self.loc) / torch.exp(log_scale)) ** 2, dim=dims)
+
+
+class ConditionalDiagGaussian(BaseDistribution):
+    """Diagonal Gaussian whose mean and log-scale are the two halves of
+    ``context_encoder(context)`` (a module, such as ``nets.MLP``): one
+    Gaussian a context row."""
+
+    def __init__(self, shape, context_encoder: nn.Module):
+        super().__init__()
+        self.shape = _tuple_shape(shape)
+        self.d = int(np.prod(self.shape))
+        self.context_encoder = context_encoder
+
+    @classmethod
+    def create(cls, shape, context_encoder):
+        return cls(shape, context_encoder)
+
+    @property
+    def event_shape(self):
+        return self.shape
+
+    @property
+    def noise_spec(self):
+        return ("normal",) * self.d
+
+    def _params(self, context):
+        out = self.context_encoder(context)
+        split = out.shape[-1] // 2
+        return out[..., :split], out[..., split:]
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        eps = draw_noise(self.noise_spec, self.shape, num_samples, generator=generator,
+                         dtype=context.dtype, device=context.device)
+        return self.from_noise(eps, context)
+
+    def from_noise(self, eps, context=None):
+        mean, log_scale = self._params(context)
+        z = mean + torch.exp(log_scale) * eps
+        dims = tuple(range(1, len(self.shape) + 1))
+        log_p = -0.5 * self.d * LOG2PI - torch.sum(log_scale + 0.5 * eps**2, dim=dims)
+        return z, log_p
+
+    def log_prob(self, z, context=None):
+        mean, log_scale = self._params(context)
+        dims = tuple(range(1, len(self.shape) + 1))
+        return -0.5 * self.d * LOG2PI - torch.sum(
+            log_scale + 0.5 * ((z - mean) / torch.exp(log_scale)) ** 2, dim=dims)
+
+
+class Uniform(BaseDistribution):
+    """Uniform on the box [low, high]^shape; log-density -inf outside it."""
+
+    def __init__(self, shape, low: float = -1.0, high: float = 1.0, *, device="cuda"):
+        super().__init__()
+        self.shape = _tuple_shape(shape)
+        self.d = int(np.prod(self.shape))
+        self.low, self.high = float(low), float(high)
+        self.device = resolve_device(device)
+
+    @classmethod
+    def create(cls, shape, low=-1.0, high=1.0, *, device="cuda"):
+        return cls(shape, low, high, device=device)
+
+    @property
+    def event_shape(self):
+        return self.shape
+
+    @property
+    def noise_spec(self):
+        return ("uniform",) * self.d
+
+    @property
+    def log_prob_val(self) -> float:
+        return -self.d * math.log(self.high - self.low)
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        eps = draw_noise(self.noise_spec, self.shape, num_samples, generator=generator,
+                         device=self.device)
+        return self.from_noise(eps, context)
+
+    def from_noise(self, eps, context=None):
+        """``z = low + (high - low) * eps``."""
+        z = self.low + (self.high - self.low) * eps
+        return z, torch.full((eps.shape[0],), self.log_prob_val, dtype=eps.dtype,
+                             device=eps.device)
+
+    def log_prob(self, z, context=None):
+        out = ((z < self.low) | (z > self.high)).reshape(z.shape[0], -1).any(dim=-1)
+        return torch.where(out, -math.inf, self.log_prob_val).to(z.dtype)
 
 
 class UniformGaussian(BaseDistribution):

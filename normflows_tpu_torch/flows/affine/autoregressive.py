@@ -7,14 +7,17 @@ the two directions; a subclass supplies the elementwise transform
 :meth:`Autoregressive._elementwise_t` and, for more than 8 features, the
 one-feature inverse :meth:`Autoregressive._elementwise_inverse_row`.
 
-The inverse is the D-step recursion.  For D <= 8 features it is unrolled
-and its first pass is the batch-1 pass of the JAX package: the degree-1
-outputs of the MADE see no input, and every sample starts from the same zero
-carry, so one column broadcast over the batch is exact.  For D > 8 it is the
-sliced inverse of the JAX package (``Autoregressive._inverse_sliced``): step
-t runs the full MADE on the carry, but only the feature of degree t+1
-becomes final, so only its (mult, B) slab of the net's output goes through
-the elementwise inverse.
+The inverse is the D-step recursion.  For D <= 8 features it is unrolled.
+Without a context its first pass is the batch-1 pass of the JAX package:
+the degree-1 outputs of the MADE see no input, and every sample starts from
+the same zero carry, so one column broadcast over the batch is exact.  With
+a context those outputs differ from sample to sample, and the first pass is
+full width, as in the JAX package.  For D > 8 it is the sliced inverse of the
+JAX package (``Autoregressive._inverse_sliced``): step t runs the full MADE
+on the carry, but only the feature of degree t+1 becomes final, so only its
+(mult, B) slab of the net's output goes through the elementwise inverse.  A
+context is projected once a call for all the passes
+(``MADE.context_cache_t``).
 
 The density direction (:meth:`Autoregressive.forward`) is one MADE pass.
 Above 8 features, with the fused MADE on (``ops.backend.set_made_fusion``)
@@ -22,6 +25,13 @@ and its gate holding, that pass is the fused (B, F) kernel, as in the JAX
 package, whose ``_transposed_ok`` sends more than 8 features to
 ``MADE.__call__``; its (B, P) output goes to the elementwise transform as the
 transposed view (P, B).  The recursion stays on ``apply_t``.
+
+Dropout follows the JAX package: it acts where the caller passes a
+``torch.Generator`` as ``generator=`` (the JAX ``key``) and a block of the
+MADE has ``dropout_probability > 0`` (``utils.nn.net_dropout_active``).
+Then each pass is the (B, F) ``MADE.forward`` with that generator, a fresh
+mask each pass of the recursion, and the inverse never takes the batch-1
+pass or the sliced inverse.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from torch import nn
 
 from ...core.flow import Flow
 from ...nets.made import MADE
+from ...utils.nn import net_dropout_active
 
 MAX_UNROLLED_FEATURES = 8
 _LATER = "a later slice of the PyTorch port"
@@ -73,56 +84,78 @@ class Autoregressive(Flow):
         steps (the spline's tail rows); None by default."""
         return None
 
-    def _check(self, inputs, context):
-        if context is not None:
-            raise NotImplementedError(f"a conditional autoregressive flow waits for {_LATER}")
+    def _check(self, inputs):
         if inputs.dim() != 2:
             raise NotImplementedError(
                 f"autoregressive flows take (batch, features) inputs in this slice, "
                 f"got shape {tuple(inputs.shape)}")
 
-    def forward(self, inputs, context=None):
-        self._check(inputs, context)
+    def forward(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
+        self._check(inputs)
         net = self.autoregressive_net
         x_t = inputs.T.contiguous()
-        if inputs.shape[1] > MAX_UNROLLED_FEATURES and net.fuses(inputs):
+        if net_dropout_active(net, generator):
+            params_t = net(inputs, context, generator=generator).T.contiguous()
+        elif inputs.shape[1] > MAX_UNROLLED_FEATURES and net.fuses(inputs, context):
             params_t = net(inputs).T  # the fused (B, P) output, viewed (P, B)
         else:
-            params_t = net.apply_t(x_t)
+            params_t = net.apply_t(x_t, net.context_cache_t(context))
         y_t, ld_t = self._elementwise_t(x_t, params_t, inverse=False)
         return y_t.T, ld_t.sum(dim=0)
 
-    def inverse(self, inputs, context=None):
-        self._check(inputs, context)
+    def inverse(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
+        self._check(inputs)
         F, B = inputs.shape[1], inputs.shape[0]
-        if F > MAX_UNROLLED_FEATURES:
-            return self._inverse_sliced(inputs)
         net = self.autoregressive_net
+        if net_dropout_active(net, generator):
+            return self._inverse_dropout(inputs, context, generator)
+        if F > MAX_UNROLLED_FEATURES:
+            return self._inverse_sliced(inputs, context)
         x_t = inputs.T.contiguous()
-        # pass 1: batch-1 MADE pass, broadcast over the batch (exact)
-        p1 = net.apply_t(x_t.new_zeros(F, 1))
-        params_t = p1.expand(p1.shape[0], B).contiguous()
+        cache = net.context_cache_t(context)
+        if cache is None:
+            # pass 1: batch-1 MADE pass, broadcast over the batch (exact)
+            p1 = net.apply_t(x_t.new_zeros(F, 1))
+            params_t = p1.expand(p1.shape[0], B).contiguous()
+        else:
+            # the context differs between samples: a full-width pass 1
+            params_t = net.apply_t(torch.zeros_like(x_t), cache)
         out_t, ld_t = self._elementwise_t(x_t, params_t, inverse=True)
         for _ in range(1, F):
-            params_t = net.apply_t(out_t)
+            params_t = net.apply_t(out_t, cache)
             out_t, ld_t = self._elementwise_t(x_t, params_t, inverse=True)
         return out_t.T, ld_t.sum(dim=0)
 
-    def _inverse_sliced(self, inputs):
+    def _inverse_dropout(self, inputs, context, generator):
+        """The recursion with dropout on: D passes of the (B, F) MADE, each
+        with its own masks from ``generator``, as the JAX package's
+        recursion under a key."""
+        net = self.autoregressive_net
+        x_t = inputs.T.contiguous()
+        out = torch.zeros_like(inputs)
+        for _ in range(inputs.shape[1]):
+            params_t = net(out, context, generator=generator).T.contiguous()
+            out_t, ld_t = self._elementwise_t(x_t, params_t, inverse=True)
+            out = out_t.T
+        return out, ld_t.sum(dim=0)
+
+    def _inverse_sliced(self, inputs, context=None):
         """The sliced sequential inverse (JAX ``_inverse_sliced``): D full
         MADE passes, each followed by the one-feature inverse of the feature
         of the next degree.  The feature order is a host tuple, so no step
         waits on the device; the carry's row is replaced out of place,
-        because autograd has saved the carry for the MADE's backward."""
+        because autograd has saved the carry for the MADE's backward.  A
+        context is projected once, before the D passes."""
         net = self.autoregressive_net
         B, F = inputs.shape
         mult = net.final_layer.weight.shape[0] // F
         x_t = inputs.T.contiguous()
         tails = self._sliced_tails(x_t)
+        cache = net.context_cache_t(context)
         out_t = torch.zeros_like(x_t)
         ld = x_t.new_zeros(B)
         for p in net.input_order_host:
-            params_t = net.apply_t(out_t)  # (F * mult, B)
+            params_t = net.apply_t(out_t, cache)  # (F * mult, B)
             y_row, ld_row = self._elementwise_inverse_row(
                 x_t[p], params_t[p * mult:(p + 1) * mult], p, tails)
             out_t = torch.cat((out_t[:p], y_row[None].to(out_t.dtype), out_t[p + 1:]))
@@ -139,7 +172,9 @@ def _constrain_scale(unconstrained):
 class MaskedAffineAutoregressive(Autoregressive):
     """MAF layer; scale = sigmoid(s + 2) + 1e-3.  The MADE's output
     multiplier is 2: row ``2 f`` of its transposed output holds feature f's
-    unconstrained scale, row ``2 f + 1`` its shift."""
+    unconstrained scale, row ``2 f + 1`` its shift.  The MADE takes the
+    context, dropout, feedforward blocks and random masks of the JAX
+    package."""
 
     def __init__(self, autoregressive_net, features: int):
         super().__init__(autoregressive_net)

@@ -53,12 +53,12 @@ class AffineConstFlow(Flow):
                 n *= zi
         return float(n)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         s, t = self._s(z), self._t(z)
         log_det = self._n_broadcast(z) * torch.sum(s) * z.new_ones(z.shape[0])
         return z * torch.exp(s) + t, log_det
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         s, t = self._s(z), self._t(z)
         log_det = -self._n_broadcast(z) * torch.sum(s) * z.new_ones(z.shape[0])
         return (z - t) * torch.exp(-s), log_det
@@ -88,11 +88,11 @@ class CCAffineConst(Flow):
         t = self.t + (y @ self.t_cc).reshape(y.shape[0], *self.shape)
         return s, t
 
-    def forward(self, z, y):
+    def forward(self, z, y, *, generator=None):
         s, t = self._st(y)
         return z * torch.exp(s) + t, sum_except_batch(s)
 
-    def inverse(self, z, y):
+    def inverse(self, z, y, *, generator=None):
         s, t = self._st(y)
         return (z - t) * torch.exp(-s), -sum_except_batch(s)
 
@@ -128,7 +128,7 @@ class AffineCoupling(Flow):
     def _params(self, z1):
         return _affine_from_params(self.param_map(z1), self.scale, self.scale_map)
 
-    def forward(self, zpair, context=None):
+    def forward(self, zpair, context=None, *, generator=None):
         z1, z2 = zpair
         shift, log_scale, kind = self._params(z1)
         if log_scale is None:
@@ -137,7 +137,7 @@ class AffineCoupling(Flow):
             return [z1, z2 * torch.exp(-log_scale) + shift], -sum_except_batch(log_scale)
         return [z1, z2 * torch.exp(log_scale) + shift], sum_except_batch(log_scale)
 
-    def inverse(self, zpair, context=None):
+    def inverse(self, zpair, context=None, *, generator=None):
         z1, z2 = zpair
         shift, log_scale, kind = self._params(z1)
         if log_scale is None:
@@ -173,13 +173,13 @@ class MaskedAffineFlow(Flow):
 
         return call(self.s_net), call(self.t_net)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         z_masked = self.b * z
         scale, trans = self._st(z_masked)
         z_ = z_masked + (1 - self.b) * (z * torch.exp(scale) + trans)
         return z_, sum_except_batch((1 - self.b) * scale)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         z_masked = self.b * z
         scale, trans = self._st(z_masked)
         z_ = z_masked + (1 - self.b) * (z - trans) * torch.exp(-scale)
@@ -200,13 +200,13 @@ class AffineCouplingBlock(Flow):
     def create(cls, param_map, scale=True, scale_map="exp", split_mode="channel"):
         return cls(param_map, scale, scale_map, split_mode)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         zpair, ld0 = self.split.forward(z)
         zpair, ld1 = self.coupling.forward(zpair, context)
         z, ld2 = self.merge.forward(zpair)
         return z, ld0 + ld1 + ld2
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         zpair, ld0 = self.merge.inverse(z)
         zpair, ld1 = self.coupling.inverse(zpair, context)
         z, ld2 = self.split.inverse(zpair)

@@ -80,14 +80,14 @@ class _LULinear(Flow):
     def logabsdet(self):
         return torch.sum(torch.log(self.upper_diag))
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         """outputs = L (U z) + bias."""
         lower, upper = self._lower_upper()
         out = z @ upper.T
         out = out @ lower.T + self.bias
         return out, self.logabsdet().expand(z.shape[0])
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         lower, upper = self._lower_upper()
         rhs = (z - self.bias).T
         y = torch.linalg.solve_triangular(lower, rhs, upper=False, unitriangular=True)
@@ -103,11 +103,11 @@ class _Permutation(Flow):
         self.register_buffer("permutation", permutation)
         self.dim = dim
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         z = torch.index_select(z, self.dim, self.permutation)
         return z, zero_log_det_like_z(z)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         z = torch.index_select(z, self.dim, torch.argsort(self.permutation))
         return z, zero_log_det_like_z(z)
 
@@ -146,12 +146,12 @@ class LULinearPermute(Flow):
         ``key``; ``None`` uses torch's default generator)."""
         return cls(num_channels, identity_init, generator=generator, device=device)
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         z, log_det = self.linear.inverse(z, context)
         z, _ = self.permutation.inverse(z, context)
         return z, log_det
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         z, _ = self.permutation.forward(z, context)
         z, log_det = self.linear.forward(z, context)
         return z, log_det

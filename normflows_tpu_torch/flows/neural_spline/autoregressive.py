@@ -12,8 +12,16 @@ as JAX's ``_elementwise``), and the sampling direction the sliced inverse,
 whose steps each take one feature's slab
 (:func:`~normflows_tpu_torch.ops.spline_flat.unconstrained_rqs_dyncodes`, as
 JAX's ``_elementwise_inverse_row``).  Each is the CUDA kernel for a tensor on
-the card and its plain version for a CPU tensor.  Constrained tails, a
-context and dropout raise ``NotImplementedError``.
+the card and its plain version for a CPU tensor.  A context reaches the
+splines through the MADE (``MADE.context_cache_t`` in both directions); with
+dropout on, the (B, F) MADE feeds the same splines (see
+``flows/affine/autoregressive.py``).
+
+Constrained splines (``tails=None``: the K+1 slopes all learned, the spline
+on [0, 1] with no tails) run the plain
+:func:`~normflows_tpu_torch.ops.splines.constrained_rational_quadratic_spline`
+on every device, as the JAX package runs its jnp spline there and no Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from ...nets.made import MADE
 from ...ops import spline_cuda, spline_flat, splines
 from ...ops.backend import resolve_device
 from ...utils.nn import PeriodicFeaturesElementwise
-from ..affine.autoregressive import Autoregressive, MAX_UNROLLED_FEATURES, _LATER
+from ..affine.autoregressive import Autoregressive, MAX_UNROLLED_FEATURES
 
 
 class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
@@ -39,7 +47,9 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
                  min_bin_height: float = splines.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative: float = splines.DEFAULT_MIN_DERIVATIVE):
         super().__init__(autoregressive_net)
-        self.tail_codes = tuple(int(c) for c in tail_codes)
+        # None: constrained (tails=None)
+        self.constrained = tail_codes is None
+        self.tail_codes = None if tail_codes is None else tuple(int(c) for c in tail_codes)
         self.tail_bound = tuple(float(b) for b in tail_bound)
         self.features = features
         self.num_bins = num_bins
@@ -75,10 +85,9 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
         """``generator`` draws the initial weights (it takes the place of the
         JAX ``key``; ``None`` uses torch's default generator)."""
         device = resolve_device(device)
-        if tails is None:
-            raise NotImplementedError(f"constrained splines (tails=None) wait for {_LATER}")
         # circular preprocessing
         preprocessing = None
+        codes = None  # tails=None: constrained
         if isinstance(tails, (list, tuple)):
             ind_circ = [i for i in range(features) if tails[i] == "circular"]
             if ind_circ:
@@ -87,7 +96,7 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
                 preprocessing = PeriodicFeaturesElementwise(
                     features, ind_circ, scale_pf, device=device)
             codes = [splines.tail_code(t) for t in tails]
-        else:
+        elif tails is not None:
             codes = [splines.tail_code(tails)] * features
 
         made = MADE(
@@ -118,12 +127,23 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
         return cls(made, codes, bound, features, num_bins, min_bin_width,
                    min_bin_height, min_derivative)
 
+    def _constrained(self, x, p, inverse: bool):
+        """The plain constrained spline of ``x`` (...) on its parameters
+        ``p`` (..., 3K+1)."""
+        K = self.num_bins
+        return splines.constrained_rational_quadratic_spline(
+            x, p[..., :K], p[..., K:2 * K], p[..., 2 * K:], inverse, self.min_bin_width,
+            self.min_bin_height, self.min_derivative)
+
     # NOTE: unlike the coupling path, there is NO 1/sqrt(hidden) softmax
     # rescale here: the reference gates it on hasattr(net, "hidden_features")
     # and its MADE never sets that attribute, so the reference AR layer runs
     # unscaled (the JAX package checks this against the reference).
     def _elementwise_t(self, x_t, params_t, inverse: bool):
         F, B = x_t.shape
+        if self.constrained:
+            y, ld = self._constrained(x_t.T, params_t.T.reshape(B, F, -1), inverse)
+            return y.T, ld.T
         if F <= MAX_UNROLLED_FEATURES:
             return spline_cuda.rqs_transposed(
                 x_t, params_t, self.tail_codes, self.tail_bound, inverse,
@@ -138,7 +158,10 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
 
     def _sliced_tails(self, x_t):
         """Each feature's tail code and bound spread over the batch, (F, B)
-        each: made once a call, a row of each for every step."""
+        each: made once a call, a row of each for every step; None for a
+        constrained spline."""
+        if self.constrained:
+            return None
         F, B = x_t.shape
         rows = []
         for values, dtype in ((self.tail_codes, torch.int32), (self.tail_bound, x_t.dtype)):
@@ -149,7 +172,11 @@ class MaskedPiecewiseRationalQuadraticAutoregressive(Autoregressive):
     def _elementwise_inverse_row(self, x_row, params_rows, dim_idx: int, tails=None):
         """One feature's RQS inverse, for a step of the sliced inverse: its
         (3K+1, B) slab of the net's output, rows of one contiguous tensor,
-        goes to the flat kernel as it lies."""
+        goes to the flat kernel as it lies (a constrained spline takes the
+        plain spline)."""
+        if self.constrained:
+            y, ld = self._constrained(x_row[:, None], params_rows.T[:, None], True)
+            return y[:, 0], ld[:, 0]
         codes, bounds = tails
         K = self.num_bins
         return spline_flat.unconstrained_rqs_dyncodes(

@@ -16,8 +16,17 @@ does:
 * ``PiecewiseRationalQuadraticCDF``: its own (C, 3K+1) parameters broadcast
   over the batch, the per-dim tails along ``event_axis = 1``.
 
-Constrained splines (``tails=None``) wait for the conditional/constrained
-slice, image (4-D) inputs for the image slice; both raise
+A context goes to the transform net (``ResidualNet`` concatenates it to its
+input and gates its blocks with it); the CDF takes none.  The transform
+net's dropout acts where the caller passes a ``torch.Generator`` as
+``generator=`` (``utils.nn.net_dropout_active``), as the JAX package's key.
+
+Constrained splines (``tails=None``: all K+1 slopes learned, the spline on
+[0, 1] with no tails) run the plain
+:func:`~normflows_tpu_torch.ops.splines.constrained_rational_quadratic_spline`
+on every device, as the JAX package runs its jnp spline there and no Pallas
+kernel.
+Image (4-D) inputs wait for the image slice and raise
 ``NotImplementedError``.
 """
 
@@ -32,9 +41,8 @@ from torch import nn
 from ...core.flow import Flow, sum_except_batch
 from ...ops import spline_flat, splines
 from ...ops.backend import resolve_device
+from ...utils.nn import net_dropout_active
 
-_CONSTRAINED = ("constrained splines (tails=None) wait for a later slice of the PyTorch "
-                "port (ROADMAP.md queue 1, item 5)")
 _IMAGES = ("image (N, C, H, W) inputs wait for a later slice of the PyTorch port "
            "(ROADMAP.md queue 1, item 8)")
 
@@ -57,6 +65,14 @@ def _tail_codes_array(tails, indices):
         return np.full(len(indices), splines.tail_code(tails), np.int32)
     tails = list(tails)
     return np.asarray([splines.tail_code(tails[i]) for i in indices], np.int32)
+
+
+def _apply_net(net, x, context, generator):
+    """The transform net, with its dropout on where ``generator`` is given
+    and a block has dropout."""
+    if net_dropout_active(net, generator):
+        return net(x, context, generator=generator)
+    return net(x, context)
 
 
 def _tail_bound_array(tail_bound, indices):
@@ -90,32 +106,33 @@ class Coupling(Flow):
     def _coupling_transform(self, inputs, params, inverse: bool):
         raise NotImplementedError
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
         if inputs.dim() == 4:
             raise NotImplementedError(_IMAGES)
         id_split, tr_split = self._split(inputs)
-        params = self.transform_net(id_split, context)
+        params = _apply_net(self.transform_net, id_split, context, generator)
         tr_split, logabsdet = self._coupling_transform(tr_split, params, inverse=False)
         if self.unconditional_transform is not None:
             id_split, ld_id = self.unconditional_transform.forward(id_split, context)
             logabsdet = logabsdet + ld_id
         return self._join(id_split, tr_split), logabsdet
 
-    def inverse(self, inputs, context=None):
+    def inverse(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
         if inputs.dim() == 4:
             raise NotImplementedError(_IMAGES)
         id_split, tr_split = self._split(inputs)
         logabsdet = inputs.new_zeros(inputs.shape[0])
         if self.unconditional_transform is not None:
             id_split, logabsdet = self.unconditional_transform.inverse(id_split, context)
-        params = self.transform_net(id_split, context)
+        params = _apply_net(self.transform_net, id_split, context, generator)
         tr_split, ld = self._coupling_transform(tr_split, params, inverse=True)
         return self._join(id_split, tr_split), logabsdet + ld
 
 
 class PiecewiseRationalQuadraticCoupling(Coupling):
     """RQ-spline coupling with the uniform 3K+1 parameter layout and static
-    per-dim tails of the transformed features."""
+    per-dim tails of the transformed features (``tr_tail_codes`` None:
+    constrained)."""
 
     def __init__(self, mask, transform_net, unconditional_transform, tr_tail_codes,
                  tr_tail_bound, num_bins: int = 8, net_hidden: int = 0,
@@ -123,7 +140,8 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
                  min_bin_height: float = splines.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative: float = splines.DEFAULT_MIN_DERIVATIVE, *, device="cuda"):
         super().__init__(mask, transform_net, unconditional_transform, device=device)
-        self.tr_tail_codes = tuple(int(c) for c in tr_tail_codes)
+        self.constrained = tr_tail_codes is None
+        self.tr_tail_codes = None if self.constrained else tuple(int(c) for c in tr_tail_codes)
         self.tr_tail_bound = tuple(float(b) for b in tr_tail_bound)
         self.num_bins = num_bins
         self.net_hidden = int(net_hidden)
@@ -140,8 +158,6 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
         """``transform_net_create_fn(in_features, out_features)`` makes the
         transform net; a ``hidden_features`` attribute on it sets the
         1/sqrt scaling of the width and height logits."""
-        if tails is None:
-            raise NotImplementedError(_CONSTRAINED)
         if img_shape is not None:
             raise NotImplementedError(_IMAGES)
         mask = np.asarray(mask)
@@ -169,6 +185,11 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
             scale = 1.0 / np.sqrt(self.net_hidden)
             uw = uw * scale
             uh = uh * scale
+        if self.constrained:
+            outputs, logabsdet = splines.constrained_rational_quadratic_spline(
+                inputs, uw, uh, ud, inverse, self.min_bin_width, self.min_bin_height,
+                self.min_derivative)
+            return outputs, sum_except_batch(logabsdet)
         outputs, logabsdet = spline_flat.unconstrained_rational_quadratic_spline_flat(
             inputs, uw, uh, ud, self.tr_tail_codes, self.tr_tail_bound, inverse,
             self.min_bin_width, self.min_bin_height, self.min_derivative, event_axis=-1)
@@ -177,7 +198,8 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
 
 class PiecewiseRationalQuadraticCDF(Flow):
     """Elementwise learned RQ spline: per-dim parameters of shape
-    (C, K) / (C, K) / (C, K+1), shared by the batch."""
+    (C, K) / (C, K) / (C, K+1), shared by the batch; ``tails=None`` is the
+    constrained spline on [0, 1]."""
 
     def __init__(self, shape, num_bins: int = 10, tails=None, tail_bound=1.0,
                  identity_init: bool = True, generator: Optional[torch.Generator] = None,
@@ -187,11 +209,11 @@ class PiecewiseRationalQuadraticCDF(Flow):
         super().__init__()
         device = resolve_device(device)
         shape = (shape,) if isinstance(shape, int) else tuple(int(s) for s in shape)
-        if tails is None:
-            raise NotImplementedError(_CONSTRAINED)
         if len(shape) > 1:
             raise NotImplementedError(_IMAGES)
-        if isinstance(tails, str):
+        if tails is None:
+            codes = None
+        elif isinstance(tails, str):
             codes = np.full(shape[0], splines.tail_code(tails), np.int32)
         else:
             codes = np.asarray([splines.tail_code(t) for t in np.asarray(tails)], np.int32)
@@ -209,7 +231,8 @@ class PiecewiseRationalQuadraticCDF(Flow):
         self.unnormalized_widths = nn.Parameter(uw.to(device))
         self.unnormalized_heights = nn.Parameter(uh.to(device))
         self.unnormalized_derivatives = nn.Parameter(ud.to(device))
-        self.tail_codes = tuple(int(c) for c in codes)
+        self.constrained = codes is None
+        self.tail_codes = None if codes is None else tuple(int(c) for c in codes)
         self.tail_bound = tuple(float(b) for b in bound)
         self.min_bin_width = min_bin_width
         self.min_bin_height = min_bin_height
@@ -230,13 +253,18 @@ class PiecewiseRationalQuadraticCDF(Flow):
         uw, uh, ud = (p.expand(b, *p.shape) for p in (
             self.unnormalized_widths, self.unnormalized_heights,
             self.unnormalized_derivatives))
+        if self.constrained:
+            outputs, logabsdet = splines.constrained_rational_quadratic_spline(
+                inputs, uw, uh, ud, inverse, self.min_bin_width, self.min_bin_height,
+                self.min_derivative)
+            return outputs, sum_except_batch(logabsdet)
         outputs, logabsdet = spline_flat.unconstrained_rational_quadratic_spline_flat(
             inputs, uw, uh, ud, self.tail_codes, self.tail_bound, inverse,
             self.min_bin_width, self.min_bin_height, self.min_derivative, event_axis=1)
         return outputs, sum_except_batch(logabsdet)
 
-    def forward(self, inputs, context=None):
+    def forward(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
         return self._spline(inputs, inverse=False)
 
-    def inverse(self, inputs, context=None):
+    def inverse(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
         return self._spline(inputs, inverse=True)

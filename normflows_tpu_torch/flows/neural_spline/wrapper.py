@@ -6,7 +6,9 @@ is its inner transform's ``inverse``, and its ``inverse`` (data -> latent,
 for densities) the inner ``forward``.  For the autoregressive wrappers that
 makes sampling the D-step recursion and the density one pass of the MAF;
 for the coupling wrappers both directions are one pass of the transform
-net and two flat spline launches (the coupling's and its CDF's).
+net and two flat spline launches (the coupling's and its CDF's).  Each takes
+``num_context_channels`` (the context's width) and ``dropout_probability``
+of its net; ``generator=`` turns the dropout on in a call.
 """
 
 from __future__ import annotations
@@ -81,11 +83,11 @@ class CoupledRationalQuadraticSpline(Flow):
             device=device,
         ))
 
-    def forward(self, z, context=None):
-        return self.prqct.inverse(z, context)
+    def forward(self, z, context=None, *, generator: Optional[torch.Generator] = None):
+        return self.prqct.inverse(z, context, generator=generator)
 
-    def inverse(self, z, context=None):
-        return self.prqct.forward(z, context)
+    def inverse(self, z, context=None, *, generator: Optional[torch.Generator] = None):
+        return self.prqct.forward(z, context, generator=generator)
 
 
 class CircularCoupledRationalQuadraticSpline(CoupledRationalQuadraticSpline):
@@ -190,11 +192,11 @@ class AutoregressiveRationalQuadraticSpline(Flow):
             device=device,
         ))
 
-    def forward(self, z, context=None):
-        return self.mprqat.inverse(z, context)
+    def forward(self, z, context=None, *, generator: Optional[torch.Generator] = None):
+        return self.mprqat.inverse(z, context, generator=generator)
 
-    def inverse(self, z, context=None):
-        return self.mprqat.forward(z, context)
+    def inverse(self, z, context=None, *, generator: Optional[torch.Generator] = None):
+        return self.mprqat.forward(z, context, generator=generator)
 
 
 class CircularAutoregressiveRationalQuadraticSpline(AutoregressiveRationalQuadraticSpline):

@@ -50,7 +50,7 @@ class Split(Flow):
             raise NotImplementedError(f"Mode {mode} is not implemented.")
         self.mode = mode
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         if self.mode in ("channel", "channel_inv"):
             h = (z.shape[1] + 1) // 2
             first, second = z[:, :h], z[:, h:]
@@ -62,7 +62,7 @@ class Split(Flow):
             z2 = z_flat[:, idx2].reshape(*z.shape[:-1], -1)
         return [z1, z2], zero_log_det_like_z(z)
 
-    def inverse(self, zpair, context=None):
+    def inverse(self, zpair, context=None, *, generator=None):
         z1, z2 = zpair
         if self.mode == "channel":
             z = torch.cat([z1, z2], dim=1)
@@ -80,8 +80,8 @@ class Split(Flow):
 class Merge(Split):
     """``Split`` with forward and inverse interchanged."""
 
-    def forward(self, z, context=None):
+    def forward(self, z, context=None, *, generator=None):
         return super().inverse(z, context)
 
-    def inverse(self, z, context=None):
+    def inverse(self, z, context=None, *, generator=None):
         return super().forward(z, context)

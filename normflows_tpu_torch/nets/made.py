@@ -6,14 +6,22 @@ are bit-equal; they are buffers, and each masked matmul is a dense
 ``(weight * mask)`` product.  Weights are stored torch-style, (out, in), and
 so are the masks.
 
-Only what the context-free residual MADE of the autoregressive spline needs
-is ported: ``MaskedLinear``, ``MaskedResidualBlock`` and ``MADE`` with
-``apply_t``.  With ``ops.backend.set_made_fusion(True)``, ``MADE.forward``
-runs the whole MADE as the fused kernels of ``ops/made_fused.py`` where
-their gate ``fusable`` holds, as the JAX package's ``MADE.__call__`` does;
-``apply_t`` is never fused.  A conditional MADE (``context_features``),
-dropout and feedforward blocks (with their random masks) wait for a later
-slice of the port and raise ``NotImplementedError``.
+``MaskedLinear`` (with the JAX package's random masks, drawn from
+``np.random.default_rng(rng_seed)`` as there), ``MaskedFeedforwardBlock``,
+``MaskedResidualBlock`` and ``MADE`` with ``apply_t``.  A conditional MADE
+(``context_features``) adds a projection of the context to the first
+hidden layer and gates each residual block's output with the sigmoid of
+its own projection (the GLU gate); :meth:`MADE.context_cache_t` projects
+the context once for the transposed passes of a recursion.
+
+Dropout (``dropout_probability``) acts where a caller passes a
+``torch.Generator`` as ``generator=``, the stand-in for the JAX package's
+key: without one the net is the deterministic eval-mode function.  The
+masks come from ``nets.resnet._dropout_keep``.  With
+``ops.backend.set_made_fusion(True)``, ``MADE.forward`` runs the whole MADE
+as the fused kernels of ``ops/made_fused.py`` where their gate ``fusable``
+holds and no generator is passed, as the JAX package's ``MADE.__call__``
+does; ``apply_t`` is never fused.
 """
 
 from __future__ import annotations
@@ -26,9 +34,8 @@ from torch import nn
 
 from ..ops import backend, made_fused
 from ..ops.backend import resolve_device
+from . import resnet
 from .mlp import Linear, uniform_
-
-_LATER = "a later slice of the PyTorch port"
 
 
 def _input_degrees(features: int) -> np.ndarray:
@@ -112,8 +119,39 @@ class MaskedLinear(Linear):
         return y + self.bias[:, None] if self.bias is not None else y
 
 
+
+
+class MaskedFeedforwardBlock(nn.Module):
+    """A masked linear (random or cyclic degrees) and its activation, with
+    dropout after it; a context does not enter it (as in the JAX
+    package)."""
+
+    def __init__(self, in_degrees, autoregressive_features: int,
+                 random_mask: bool = False, activation: str = "relu",
+                 dropout_probability: float = 0.0, rng_seed: int = 0, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.linear = MaskedLinear(in_degrees, len(in_degrees), autoregressive_features,
+                                   random_mask=random_mask, rng_seed=rng_seed,
+                                   generator=generator, device=device)
+        self.activation = activation
+        self.dropout_probability = dropout_probability
+
+    def np_degrees(self) -> np.ndarray:
+        return self.linear.np_degrees()
+
+    def forward(self, x, context=None, *, generator: Optional[torch.Generator] = None):
+        return resnet._dropout(_act(self.activation, self.linear(x)),
+                               self.dropout_probability, generator)
+
+    def apply_t(self, x_t, gate_t=None):
+        return _act(self.activation, self.linear.apply_t(x_t))
+
+
 class MaskedResidualBlock(nn.Module):
-    """Two masked linears with a residual connection.
+    """Two masked linears with a residual connection; with
+    ``context_features``, the second linear's output is gated by
+    sigmoid(context_layer(context)) (GLU).
 
     ``zero_initialization`` draws the second linear's weight and bias from
     U(-1e-3, 1e-3), as the JAX package does, so the block starts near the
@@ -125,10 +163,6 @@ class MaskedResidualBlock(nn.Module):
                  zero_initialization: bool = True, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
-        if context_features is not None:
-            raise NotImplementedError(f"a conditional MADE block waits for {_LATER}")
-        if dropout_probability:
-            raise NotImplementedError(f"MADE dropout waits for {_LATER}")
         device = resolve_device(device)
         f = len(in_degrees)
         self.linear_0 = MaskedLinear(in_degrees, f, autoregressive_features,
@@ -144,21 +178,36 @@ class MaskedResidualBlock(nn.Module):
             with torch.no_grad():
                 self.linear_1.weight.copy_(uniform_((f, f), 1e-3, generator, device))
                 self.linear_1.bias.copy_(uniform_((f,), 1e-3, generator, device))
+        self.context_layer = (Linear(context_features, f, generator=generator, device=device)
+                              if context_features is not None else None)
         self.activation = activation
+        self.dropout_probability = dropout_probability
 
-    def forward(self, x):
+    def np_degrees(self) -> np.ndarray:
+        return self.linear_1.np_degrees()
+
+    def forward(self, x, context=None, *, generator: Optional[torch.Generator] = None):
         temps = self.linear_0(_act(self.activation, x))
-        temps = self.linear_1(_act(self.activation, temps))
+        temps = _act(self.activation, temps)
+        temps = resnet._dropout(temps, self.dropout_probability, generator)
+        temps = self.linear_1(temps)
+        if context is not None and self.context_layer is not None:
+            gate = torch.sigmoid(self.context_layer(context))
+            temps = temps * gate.to(temps.dtype)
         return x + temps
 
-    def apply_t(self, x_t):
+    def apply_t(self, x_t, gate_t=None):
+        """Transposed block; ``gate_t`` is the (H, B) or (H, 1) GLU gate
+        that :meth:`MADE.context_cache_t` made."""
         temps = self.linear_0.apply_t(_act(self.activation, x_t))
         temps = self.linear_1.apply_t(_act(self.activation, temps))
+        if gate_t is not None:
+            temps = temps * gate_t.to(temps.dtype)
         return x_t + temps
 
 
 class MADE(nn.Module):
-    """MADE with residual blocks.
+    """MADE with residual or feedforward blocks.
 
     ``input_order`` holds the feature positions sorted by autoregressive
     degree (the argsort of the possibly permuted input degrees), and
@@ -178,26 +227,31 @@ class MADE(nn.Module):
                 "use_batch_norm=True is not supported (nor by the JAX package)")
         if use_residual_blocks and random_mask:
             raise ValueError("Residual blocks can't be used with random masks.")
-        if not use_residual_blocks:
-            raise NotImplementedError(f"feedforward MADE blocks wait for {_LATER}")
-        if context_features is not None:
-            raise NotImplementedError(f"a conditional MADE waits for {_LATER}")
-        if dropout_probability:
-            raise NotImplementedError(f"MADE dropout waits for {_LATER}")
         device = resolve_device(device)
         input_degrees_ = _input_degrees(features)
         if permute_mask:
             rng = np.random.default_rng(rng_seed)
             input_degrees_ = input_degrees_[rng.permutation(features)]
         self.initial_layer = MaskedLinear(
-            input_degrees_, hidden_features, features, rng_seed=rng_seed,
-            generator=generator, device=device)
+            input_degrees_, hidden_features, features, random_mask=random_mask,
+            rng_seed=rng_seed, generator=generator, device=device)
+        self.context_layer = (
+            Linear(context_features, hidden_features, generator=generator, device=device)
+            if context_features is not None else None)
         blocks = []
         prev = self.initial_layer.np_degrees()
-        for _ in range(num_blocks):
-            block = MaskedResidualBlock(prev, features, activation=activation,
-                                        generator=generator, device=device)
-            prev = block.linear_1.np_degrees()
+        for i in range(num_blocks):
+            if use_residual_blocks:
+                block = MaskedResidualBlock(
+                    prev, features, context_features=context_features,
+                    activation=activation, dropout_probability=dropout_probability,
+                    generator=generator, device=device)
+            else:
+                block = MaskedFeedforwardBlock(
+                    prev, features, random_mask=random_mask, activation=activation,
+                    dropout_probability=dropout_probability, rng_seed=rng_seed + i + 1,
+                    generator=generator, device=device)
+            prev = block.np_degrees()
             blocks.append(block)
         self.blocks = nn.ModuleList(blocks)
         self.final_layer = MaskedLinear(
@@ -211,21 +265,22 @@ class MADE(nn.Module):
         self.input_order_host = tuple(int(i) for i in order)
 
     def fuses(self, x, context=None) -> bool:
-        """Whether :meth:`forward` on ``x`` takes the fused kernels: fusion
-        is on and ``made_fused.fusable`` holds (the preprocessing is
-        elementwise, so ``x`` stands for its output)."""
+        """Whether :meth:`forward` on ``x`` with no generator takes the fused
+        kernels: fusion is on and ``made_fused.fusable`` holds (the
+        preprocessing is elementwise, so ``x`` stands for its output)."""
         return backend.made_fusion_enabled() and made_fused.fusable(self, x, context)
 
-    def forward(self, x, context=None):
-        """(B, F) -> (B, F * output_multiplier)."""
-        if context is not None:
-            raise NotImplementedError(f"a conditional MADE waits for {_LATER}")
+    def forward(self, x, context=None, *, generator: Optional[torch.Generator] = None):
+        """(B, F) -> (B, F * output_multiplier).  ``generator`` turns dropout
+        on (the JAX package's ``key=..., train=True``) and fusion off."""
         out = self.preprocessing(x) if self.preprocessing is not None else x
-        if self.fuses(out, context):
+        if generator is None and self.fuses(out, context):
             return made_fused.made_apply_fused(self, out).to(x.dtype)
         out = self.initial_layer(out)
+        if context is not None and self.context_layer is not None:
+            out = out + self.context_layer(context).to(out.dtype)
         for block in self.blocks:
-            out = block(out)
+            out = block(out, context, generator=generator)
         return self.final_layer(out).to(x.dtype)
 
     def supports_t(self) -> bool:
@@ -233,11 +288,37 @@ class MADE(nn.Module):
         have a transposed form too."""
         return self.preprocessing is None or hasattr(self.preprocessing, "apply_t")
 
-    def apply_t(self, x_t):
+    def context_cache_t(self, context):
+        """The context's terms of :meth:`apply_t`, projected once for the
+        passes of a recursion, which all see the same context: the first
+        hidden layer's additive (H, B) term and each residual block's
+        (H, B) GLU gate (None for a block without one).  None when there is
+        nothing to cache.  A 1-D (unbatched) context becomes an (H, 1)
+        column, which broadcasts over the batch: an (H,) row would broadcast
+        along the wrong axis, silently where B == H."""
+        if context is None or self.context_layer is None:
+            return None
+        context = torch.atleast_2d(context)
+        # each term in the dtype :meth:`apply_t` adds it in (the compute
+        # dtype of the layer it meets), cast once here, not once a pass
+        dt = self.initial_layer.compute_dtype
+        init_t = self.context_layer(context).T
+        gates = tuple(
+            torch.sigmoid(b.context_layer(context)).T.to(b.linear_1.compute_dtype or
+                                                          context.dtype)
+            if getattr(b, "context_layer", None) is not None else None
+            for b in self.blocks)
+        return init_t.to(dt or init_t.dtype), gates
+
+    def apply_t(self, x_t, ctx_cache=None):
         """Transposed layout, (F, B) -> (P, B), with the batch on the last
-        axis from the MADE input to the spline kernel."""
+        axis from the MADE input to the spline kernel.  ``ctx_cache`` is
+        :meth:`context_cache_t`'s output."""
         out = self.preprocessing.apply_t(x_t) if self.preprocessing is not None else x_t
         out = self.initial_layer.apply_t(out)
-        for block in self.blocks:
-            out = block.apply_t(out)
+        if ctx_cache is not None:
+            out = out + ctx_cache[0].to(out.dtype)
+        gates = ctx_cache[1] if ctx_cache is not None else (None,) * len(self.blocks)
+        for block, gate_t in zip(self.blocks, gates):
+            out = block.apply_t(out, gate_t)
         return self.final_layer.apply_t(out).to(x_t.dtype)

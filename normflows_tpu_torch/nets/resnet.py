@@ -3,12 +3,17 @@
 
 Pre-activation blocks, x + linear_1(act(linear_0(act(x)))), whose second
 linear starts within +-1e-3 (``zero_initialization``), and an optional
-elementwise ``preprocessing`` module before the first layer.  Every layer is
-a ``Linear``, so ``utils.set_compute_dtype`` reaches them all.  A context
-(the concatenated input and the blocks' GLU gate) and dropout wait for a
-later slice of the port and raise ``NotImplementedError``, as
-``use_batch_norm=True`` does in the JAX package; ``ConvResidualNet`` waits
-for the image slice.
+elementwise ``preprocessing`` module before the first layer.  With
+``context_features`` the context is concatenated to the net's input and
+gates each block's output with sigmoid(context_layer(context)) (GLU).
+Every layer is a ``Linear``, so ``utils.set_compute_dtype`` reaches them all.
+
+Dropout acts between a block's second activation and its second linear
+where the caller passes a ``torch.Generator`` as ``generator=`` (the JAX
+package's ``key=..., train=True``); without one the net is the
+deterministic eval-mode function.  Every dropout mask of the package comes
+from :func:`_dropout_keep`.  ``use_batch_norm=True`` raises, as in the JAX
+package; ``ConvResidualNet`` waits for the image slice.
 """
 
 from __future__ import annotations
@@ -21,10 +26,19 @@ from torch import nn
 from ..ops.backend import resolve_device
 from .mlp import Linear, uniform_
 
-_CONTEXT = ("a context (the blocks' GLU gate) waits for a later slice of the PyTorch port "
-            "(ROADMAP.md queue 1, item 5)")
-_DROPOUT = ("ResidualNet dropout waits for a later slice of the PyTorch port "
-            "(ROADMAP.md queue 1, item 5)")
+
+def _dropout_keep(shape, p: float, generator: torch.Generator, device):
+    """The keep mask of one dropout: True with probability 1 - p."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def _dropout(x, p: float, generator: Optional[torch.Generator]):
+    """Inverted dropout: the kept entries scaled by 1 / (1 - p).  The
+    identity without a generator or at p == 0."""
+    if generator is None or p == 0.0:
+        return x
+    keep = 1.0 - p
+    return torch.where(_dropout_keep(x.shape, p, generator, x.device), x / keep, 0.0)
 
 
 def _act(name, x):
@@ -35,21 +49,13 @@ def _act(name, x):
     raise NotImplementedError(name)
 
 
-def _refuse(context_features, dropout_probability):
-    if context_features is not None:
-        raise NotImplementedError(_CONTEXT)
-    if dropout_probability:
-        raise NotImplementedError(_DROPOUT)
-
-
 class ResidualBlock(nn.Module):
-    """Pre-activation residual MLP block."""
+    """Pre-activation residual MLP block with an optional GLU context gate."""
 
     def __init__(self, features: int, context_features=None, activation: str = "relu",
                  dropout_probability: float = 0.0, zero_initialization: bool = True, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
-        _refuse(context_features, dropout_probability)
         device = resolve_device(device)
         self.linear_0 = Linear(features, features, generator=generator, device=device)
         self.linear_1 = Linear(features, features, generator=generator, device=device)
@@ -58,19 +64,26 @@ class ResidualBlock(nn.Module):
                 self.linear_1.weight.copy_(uniform_((features, features), 1e-3, generator,
                                                     device))
                 self.linear_1.bias.copy_(uniform_((features,), 1e-3, generator, device))
+        self.context_layer = (Linear(context_features, features, generator=generator,
+                                     device=device)
+                              if context_features is not None else None)
         self.activation = activation
+        self.dropout_probability = dropout_probability
 
-    def forward(self, x, context=None):
-        if context is not None:
-            raise NotImplementedError(_CONTEXT)
+    def forward(self, x, context=None, *, generator: Optional[torch.Generator] = None):
         temps = self.linear_0(_act(self.activation, x))
-        temps = self.linear_1(_act(self.activation, temps))
+        temps = _act(self.activation, temps)
+        temps = _dropout(temps, self.dropout_probability, generator)
+        temps = self.linear_1(temps)
+        if context is not None and self.context_layer is not None:
+            temps = temps * torch.sigmoid(self.context_layer(context))
         return x + temps
 
 
 class ResidualNet(nn.Module):
-    """Residual MLP: initial linear, ``num_blocks`` residual blocks, final
-    linear; ``hidden_features`` sets the coupling's logit scaling."""
+    """Residual MLP: initial linear (on the input and the context, side by
+    side), ``num_blocks`` residual blocks, final linear;
+    ``hidden_features`` sets the coupling's logit scaling."""
 
     def __init__(self, in_features: int, out_features: int, hidden_features: int,
                  context_features=None, num_blocks: int = 2, activation: str = "relu",
@@ -81,13 +94,14 @@ class ResidualNet(nn.Module):
         if use_batch_norm:
             raise NotImplementedError(
                 "use_batch_norm=True is not supported (nor by the JAX package)")
-        _refuse(context_features, dropout_probability)
         device = resolve_device(device)
-        self.initial_layer = Linear(in_features, hidden_features, generator=generator,
-                                    device=device)
+        self.initial_layer = Linear(in_features + (context_features or 0), hidden_features,
+                                    generator=generator, device=device)
         self.blocks = nn.ModuleList(
-            ResidualBlock(hidden_features, activation=activation, generator=generator,
-                          device=device) for _ in range(num_blocks))
+            ResidualBlock(hidden_features, context_features=context_features,
+                          activation=activation, dropout_probability=dropout_probability,
+                          generator=generator, device=device)
+            for _ in range(num_blocks))
         self.final_layer = Linear(hidden_features, out_features, generator=generator,
                                   device=device)
         self.preprocessing = preprocessing
@@ -105,11 +119,11 @@ class ResidualNet(nn.Module):
                    activation, dropout_probability, use_batch_norm, preprocessing,
                    generator=generator, device=device)
 
-    def forward(self, x, context=None):
-        if context is not None:
-            raise NotImplementedError(_CONTEXT)
+    def forward(self, x, context=None, *, generator: Optional[torch.Generator] = None):
         temps = self.preprocessing(x) if self.preprocessing is not None else x
+        if context is not None:
+            temps = torch.cat([temps, context], dim=1)
         temps = self.initial_layer(temps)
         for block in self.blocks:
-            temps = block(temps)
+            temps = block(temps, context, generator=generator)
         return self.final_layer(temps)

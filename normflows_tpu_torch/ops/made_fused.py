@@ -84,10 +84,11 @@ def fusable(made, x, context) -> bool:
     """True when ``made`` and ``x`` (the input after preprocessing) fit the
     fused kernels: every condition of the JAX package's gate
     (made_pallas.py:232-272), a batch known to be at least :data:`TILE_B`,
-    and H <= :data:`MAX_HIDDEN`."""
+    and H <= :data:`MAX_HIDDEN`.  A MADE with a context layer is refused
+    with or without a context at the call, as JAX's gate refuses it."""
     from ..nets.made import MaskedResidualBlock
 
-    if context is not None:
+    if context is not None or made.context_layer is not None:
         return False
     if x.dim() != 2 or x.dtype != torch.float32:
         return False
@@ -102,7 +103,7 @@ def fusable(made, x, context) -> bool:
     if cd not in (None, torch.bfloat16):
         return False
     for blk in blocks:
-        if not isinstance(blk, MaskedResidualBlock):
+        if not isinstance(blk, MaskedResidualBlock) or blk.context_layer is not None:
             return False
         if blk.activation != blocks[0].activation:
             return False

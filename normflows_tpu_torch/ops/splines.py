@@ -161,6 +161,27 @@ def rational_quadratic_spline(
     return outputs, logabsdet
 
 
+def constrained_rational_quadratic_spline(
+    inputs,
+    unnormalized_widths,
+    unnormalized_heights,
+    unnormalized_derivatives,
+    inverse: bool = False,
+    min_bin_width: float = DEFAULT_MIN_BIN_WIDTH,
+    min_bin_height: float = DEFAULT_MIN_BIN_HEIGHT,
+    min_derivative: float = DEFAULT_MIN_DERIVATIVE,
+):
+    """The constrained spline (``tails=None``) on [0, 1] from raw
+    parameters: all K+1 slopes learned (:func:`make_knot_derivatives` with
+    ``TAIL_NONE``), no tails.  The JAX package's splines with
+    ``tails=None`` run this on the jnp path, never a kernel."""
+    derivatives = make_knot_derivatives(unnormalized_derivatives, TAIL_NONE, min_derivative)
+    return rational_quadratic_spline(inputs, unnormalized_widths, unnormalized_heights,
+                                     derivatives, inverse=inverse,
+                                     min_bin_width=min_bin_width,
+                                     min_bin_height=min_bin_height)
+
+
 def make_knot_derivatives(
     unnormalized_derivatives,
     tail_codes,

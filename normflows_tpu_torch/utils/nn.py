@@ -1,7 +1,7 @@
 """NN helper layers (port of ``normflows_tpu/utils/nn.py``):
 ``PeriodicFeaturesElementwise``, which the circular spline's MADE uses as its
-preprocessing, ``ClampExp``, an output function of ``MLP``, and the
-``sum_except_batch`` helper."""
+preprocessing, ``ClampExp``, an output function of ``MLP``, the
+``sum_except_batch`` helper and ``net_dropout_active``."""
 
 from __future__ import annotations
 
@@ -12,7 +12,16 @@ from torch import nn
 from ..core.flow import sum_except_batch
 from ..ops.backend import resolve_device
 
-__all__ = ["ClampExp", "PeriodicFeaturesElementwise", "sum_except_batch"]
+__all__ = ["ClampExp", "PeriodicFeaturesElementwise", "net_dropout_active",
+           "sum_except_batch"]
+
+
+def net_dropout_active(net, generator) -> bool:
+    """True when a block of the parameter net has dropout and the caller
+    passed a generator: dropout acts exactly where randomness is supplied
+    (the JAX package's key; the reference's ``model.train()``)."""
+    return generator is not None and any(
+        getattr(b, "dropout_probability", 0.0) > 0.0 for b in getattr(net, "blocks", ()))
 
 
 class ClampExp(nn.Module):

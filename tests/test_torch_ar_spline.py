@@ -93,23 +93,54 @@ def test_round_trip():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    # above 8 features the layer is built (the sliced inverse), and refuses
-    # a context as below it
     ({"features": 9, "context_features": 2}, "conditional"),
     ({"tails": None}, "constrained"),
     ({"context_features": 2}, "conditional"),
     ({"dropout_probability": 0.1}, "dropout"),
 ], ids=["F>8", "constrained", "context", "dropout"])
 def test_refused_features_name_the_later_slice(kwargs, match):
+    """The features that earlier slices refused (a context above and below
+    8 features, constrained tails, dropout) now match the JAX layer in both
+    directions: with a context where the layer has one, on [0, 1] inputs for
+    the constrained spline, and, with dropout, as the deterministic function
+    that a call without randomness is in both packages."""
     args = dict(features=2, hidden_features=16, tails="linear", tail_bound=3.0,
-                device="cpu")
+                init_identity=False, num_bins=4)
     args.update(kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        tflows.MaskedPiecewiseRationalQuadraticAutoregressive.create(None, **args)
+    j = jflows.MaskedPiecewiseRationalQuadraticAutoregressive.create(jax.random.key(4), **args)
+    t = tflows.MaskedPiecewiseRationalQuadraticAutoregressive.create(None, device="cpu",
+                                                                     **args)
+    leaves = {jax.tree_util.keystr(p): np.asarray(l)
+              for p, l in jax.tree_util.tree_flatten_with_path(j)[0]}
+    load_jax_leaves(t, leaves)
+    rng = np.random.default_rng(5)
+    F = args["features"]
+    x = (rng.uniform(0.05, 0.95, (64, F)) if match == "constrained"
+         else rng.normal(size=(64, F)) * 2.0).astype(np.float32)
+    c = rng.normal(size=(64, 2)).astype(np.float32) if match == "conditional" else None
+    for direction in ("forward", "inverse"):
+        yj, ldj = jax.jit(lambda m, x, c: getattr(m, direction)(x, c))(
+            j, jnp.asarray(x), None if c is None else jnp.asarray(c))
+        with torch.no_grad():
+            yt, ldt = getattr(t, direction)(torch.from_numpy(x),
+                                            None if c is None else torch.from_numpy(c))
+        assert_close(yt.numpy(), np.asarray(yj), atol=Y_TOL, rtol=Y_TOL)
+        assert_close(ldt.numpy(), np.asarray(ldj), atol=LD_TOL, rtol=LD_TOL)
 
 
 def test_context_at_call_raises():
-    _, t = layer_pair("linear", 2)
-    x = torch.from_numpy(inputs(2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.forward(x, context=torch.zeros(B, 2))
+    """A context given to a layer built without one is taken and not used,
+    as in the JAX package (its MADE has no context layer): the layer gives
+    its context-free values."""
+    j, t = layer_pair("linear", 2)
+    x = inputs(2)
+    c = np.random.default_rng(3).normal(size=(B, 2)).astype(np.float32)
+    for direction in ("forward", "inverse"):
+        with torch.no_grad():
+            yt, ldt = getattr(t, direction)(torch.from_numpy(x), context=torch.from_numpy(c))
+            y0, ld0 = getattr(t, direction)(torch.from_numpy(x))
+        yj, ldj = jax.jit(lambda m, x, c: getattr(m, direction)(x, c))(
+            j, jnp.asarray(x), jnp.asarray(c))
+        assert torch.equal(yt, y0) and torch.equal(ldt, ld0)
+        assert_close(yt.numpy(), np.asarray(yj), atol=Y_TOL, rtol=Y_TOL)
+        assert_close(ldt.numpy(), np.asarray(ldj), atol=LD_TOL, rtol=LD_TOL)

@@ -395,21 +395,35 @@ def test_three_train_steps_match_jax(jm):
 
 
 def test_what_the_port_refuses():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ResidualNet(2, 4, 8, context_features=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ResidualNet(2, 4, 8, dropout_probability=0.1, device="cpu")
+    """4-D (image) inputs and batch norm stay refused.  A context, dropout
+    and constrained tails (``tails=None``), refused before, are built and
+    run: the context widens the net's input and gates its blocks, dropout
+    acts only with a generator, and the constrained spline keeps [0, 1]."""
+    net = ResidualNet(2, 4, 8, context_features=3, device="cpu")
+    assert net.initial_layer.weight.shape == (8, 5)
+    assert all(b.context_layer is not None for b in net.blocks)
+    assert net(torch.zeros(3, 2), torch.ones(3, 3)).shape == (3, 4)
+    drop = ResidualNet(2, 4, 8, dropout_probability=0.1, device="cpu")
+    x = torch.randn(3, 2, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(drop(x), drop(x))
     with pytest.raises(NotImplementedError, match="batch_norm"):
         ResidualNet(2, 4, 8, use_batch_norm=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tflows.CoupledRationalQuadraticSpline.create(None, 2, 1, 8, num_context_channels=3,
-                                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tflows.CoupledRationalQuadraticSpline.create(None, 2, 1, 8, tails=None, device="cpu")
+    cond = tflows.CoupledRationalQuadraticSpline.create(None, 2, 1, 8, num_context_channels=3,
+                                                        device="cpu")
+    y, ld = cond.forward(torch.zeros(3, 2), torch.ones(3, 3))
+    assert y.shape == (3, 2) and ld.shape == (3,)
+    constrained = tflows.CoupledRationalQuadraticSpline.create(None, 2, 1, 8, tails=None,
+                                                               device="cpu")
+    assert constrained.prqct.constrained
+    with torch.no_grad():
+        y, _ = constrained.forward(torch.full((3, 2), 0.5))
+    assert float(y.min()) >= 0.0 and float(y.max()) <= 1.0
     with pytest.raises(NotImplementedError, match="later slice"):
         tcoupling.PiecewiseRationalQuadraticCDF.create((2, 4, 4), tails="linear", device="cpu")
     layer = tflows.CoupledRationalQuadraticSpline.create(None, 2, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         layer.forward(torch.zeros(3, 2, 4, 4))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # a context given to a net built without one: its input is one wider than
+    # the layer takes, as in the JAX package
+    with pytest.raises(RuntimeError):
         layer.prqct.transform_net(torch.zeros(3, 1), torch.zeros(3, 2))

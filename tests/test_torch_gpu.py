@@ -6,7 +6,8 @@ training step through the planar kernels, a D = 64 autoregressive model's
 through the flat kernels and, with fusion on, the fused MADE, and a coupled
 NSF's through the flat kernels; the chunked trainer, its step captured in a
 CUDA graph and replayed, against eager steps, with no host sync inside a
-chunk and its kernels read from the profiler in every replay.
+chunk and its kernels read from the profiler in every replay; conditional
+models through the planar kernels and the sliced inverse.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -861,3 +862,69 @@ def test_sequential_data_chunk_on_the_card(cuda):
         assert float((p - q).detach().norm()) <= G_TOL * float(q.detach().norm()) + 1e-6, n
     assert profiled_as(counts, "rqs_flat_kernel", 12)
     assert profiled_as(counts, "rqs_flat_backward_kernel", 12)
+
+
+def _randomize_last_layers(model, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.flows[::2]:
+            w = layer.mprqat.autoregressive_net.final_layer.weight
+            w.copy_(0.2 * torch.randn(w.shape, generator=gen))
+
+
+@pytest.mark.gpu
+def test_conditional_planar_model_matches_cpu(cuda):
+    """The conditional example's model (hidden 32, random last layers) on the
+    card against the CPU: log_prob and from_noise with a per-sample context,
+    through the planar kernels (4 layers: 4 forward launches, 8 inverse)."""
+    from normflows_tpu_torch.examples import conditional_flow as ex
+
+    card = ex.build_model(cuda, hidden=32)
+    _randomize_last_layers(card, 3)
+    cpu = ex.build_model("cpu", hidden=32)
+    cpu.load_state_dict(card.state_dict())
+    c, x = ex.draw_pairs(cpu.p, 1024, torch.Generator().manual_seed(4))
+    eps = torch.randn(1024, 2, generator=torch.Generator().manual_seed(5))
+    spline_cuda.LAUNCHES = 0
+    with torch.no_grad():
+        lp = card.log_prob(x.to(cuda), c.to(cuda))
+        forward_launches = spline_cuda.LAUNCHES
+        xf, lf = card.from_noise(eps.to(cuda), c.to(cuda))
+        torch.cuda.synchronize()
+        assert (forward_launches, spline_cuda.LAUNCHES) == (4, 12)
+        close(lp, cpu.log_prob(x, c), 1e-3)
+        xc, lc = cpu.from_noise(eps, c)
+    close(xf, xc, 1e-3)
+    close(lf, lc, 1e-3)
+
+
+@pytest.mark.gpu
+def test_conditional_sliced_inverse_matches_naive(cuda):
+    """A conditional D = 16 AR spline on the card: the sliced inverse (16
+    flat launches, the context projected once) against the naive recursion
+    on the (B, F) MADE, and against the CPU."""
+    layer = nft.flows.AutoregressiveRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(6), 16, 1, 64, num_context_channels=3, num_bins=8,
+        permute_mask=True, init_identity=False, device=cuda).mprqat
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(size=(512, 3)).astype(np.float32)).to(cuda)
+    spline_flat.LAUNCHES = 0
+    with torch.no_grad():
+        z, ld = layer.inverse(x, c)
+        torch.cuda.synchronize()
+        assert spline_flat.LAUNCHES == 16
+        out = torch.zeros_like(x)
+        for _ in range(16):
+            out_t, ld_t = layer._elementwise_t(
+                x.T.contiguous(), layer.autoregressive_net(out, c).T.contiguous(), True)
+            out = out_t.T
+        cpu = nft.flows.AutoregressiveRationalQuadraticSpline.create(
+            torch.Generator().manual_seed(6), 16, 1, 64, num_context_channels=3,
+            num_bins=8, permute_mask=True, init_identity=False, device="cpu").mprqat
+        cpu.load_state_dict(layer.state_dict())
+        zc, ldc = cpu.inverse(x.cpu(), c.cpu())
+    close(z, out, 1e-5)
+    close(ld, ld_t.sum(0), 1e-4)
+    close(z, zc, 1e-3)
+    close(ld, ldc, 1e-3)

@@ -93,8 +93,26 @@ def test_bf16_compute_dtype_matches_jax():
     {"use_residual_blocks": False},
 ], ids=["context", "dropout", "feedforward"])
 def test_later_slice_features_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MADE(2, 16, output_multiplier=3, device="cpu", **kwargs)
+    """The MADEs that earlier slices refused (a context, dropout,
+    feedforward blocks) now match the JAX package's: masks and degrees
+    bit-equal (``load_jax_leaves`` holds them), ``__call__`` and ``apply_t``
+    at 1e-5 (with the context, and its cache for ``apply_t``; dropout as the
+    deterministic function of a call without randomness)."""
+    jm = JMADE.create(jax.random.key(6), 4, 16, output_multiplier=3, rng_seed=6, **kwargs)
+    tm = MADE(4, 16, output_multiplier=3, rng_seed=6, device="cpu", **kwargs)
+    load_jax_leaves(tm, leaves_of(jm))
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(33, 4)).astype(np.float32)
+    c = rng.normal(size=(33, 3)).astype(np.float32) if "context_features" in kwargs else None
+    jc = None if c is None else jnp.asarray(c)
+    tc = None if c is None else torch.from_numpy(c)
+    want = np.asarray(jm(jnp.asarray(x), jc))
+    want_t = np.asarray(jm.apply_t(jnp.asarray(x.T), jm.context_cache_t(jc)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), tc).numpy()
+        got_t = tm.apply_t(torch.from_numpy(x.T.copy()), tm.context_cache_t(tc)).numpy()
+    assert_close(got, want, atol=TOL, rtol=TOL)
+    assert_close(got_t, want_t, atol=TOL, rtol=TOL)
 
 
 def test_default_device_is_cuda():

@@ -224,10 +224,12 @@ def test_fusable_agrees_with_jax():
     assert not made_fused.fusable(tm, tx.double(), None)
     odd_j, odd_t = made_pair(hidden=100, mult=3, seed=11)
     assert not made_fused.fusable(odd_t, tx, None) and not made_pallas.fusable(odd_j, jx, None)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MADE(2, 512, output_multiplier=3, use_residual_blocks=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MADE(2, 512, output_multiplier=3, context_features=3, device="cpu")
+    # feedforward blocks and a context layer are built, and neither fuses, as
+    # in the JAX package
+    ff = MADE(2, 512, output_multiplier=3, use_residual_blocks=False, device="cpu")
+    assert not made_fused.fusable(ff, tx, None)
+    ctx = MADE(2, 512, output_multiplier=3, context_features=3, device="cpu")
+    assert ctx.context_layer is not None and not made_fused.fusable(ctx, tx, None)
     # compute dtypes: bf16 fuses, "float32" does not, in both packages
     for dtype in ("bfloat16", "float32"):
         assert made_fused.fusable(set_compute_dtype(made_pair()[1], dtype), tx, None) == \
