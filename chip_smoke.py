@@ -80,6 +80,7 @@ printing anything.  It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import io
@@ -149,7 +150,7 @@ LD_D, LD_HIDDEN, LD_BINS, LD_LAYERS, LD_BATCH = 64, 256, 8, 4, 4096
 LD_TAIL_BOUND = 3.0
 LD_CPU = 512  # samples of the card-against-CPU checks
 LD_TRAIN_STEPS = 20
-LD_TIMED_REPS = 5  # host medians of the large-D requests and steps
+LD_TIMED_REPS = 3  # host medians of the large-D requests and steps (5 before PR 13)
 # Flat kernel against its plain version: the JAX package's bars for the
 # runtime-tail entry (tests/test_pallas.py:427-428), 1e-5 on outputs and
 # 1e-4 on log-dets, for the static-tail entry (:41-42) 2e-5 and 2e-4, and
@@ -207,7 +208,7 @@ CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 100
 # norm), TIMED_CHUNK steps a timed chunk, the step made non-finite at
 # NAN_STEP; the coupled model's data set of CP_DATA TwoMoons points;
 # PROFILED_CHUNK steps a chunk profiled for the device time of a step
-CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 100, 3, 3, 2**16
+CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 100, 2, 3, 2**16
 PROFILED_CHUNK = 10
 # bf16 flagship, CONV_STEPS chunked steps (chunks of CONV_CHUNK) under cosine
 # decay over CONV_STEPS from bench.py's init, then KL(q||p) on CONV_HELD_OUT
@@ -235,7 +236,11 @@ RNVP_LR, RNVP_PARITY_STEPS = 5e-4, 50
 RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # serving: log_prob through one program at these batches; SERVE_REPS
 # requests a route's host median
-SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 20
+SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 10
+# host medians of the flagship's requests and eager steps (20 before PR 13;
+# PR 13 cut this, SERVE_REPS, LD_TIMED_REPS and TIMED_CHUNKS to make room for
+# the Glow phases)
+REQUEST_REPS = 10
 
 # conditional flows.  Model A: examples/conditional_flow.py as published
 # (4 x (AR RQ spline on 2 features, 2 blocks of hidden 128, context 4, 8
@@ -264,13 +269,80 @@ COND_MOMENT_GAP = {"mean": 0.0599 + 0.02, "std": 0.0887 + 0.02}
 CB_D, CB_HIDDEN, CB_CONTEXT, CB_BINS, CB_BATCH = 64, 256, 8, 8, 4096
 COND_CONTEXT = 4  # model A's context width, and the conditional coupled NSF's
 
+# Glow, the image path (PR 13).  Model A: examples/glow_image.py's defaults
+# (the reference notebook's CIFAR-10 configuration): a class-conditional
+# MultiscaleFlow of L = 3 levels of K = 16 GlowBlocks (hidden 256), 10
+# classes, 3 x 32 x 32 images drawn by normflows_tpu_torch.examples.glow_image
+# from SEED, batch 128, Adamax(1e-3) with L2 1e-5.  Its output convolutions
+# are drawn at random (the torch init) for the path's checks, so that the
+# couplings do work; training starts from the example's init.
+GLOW_L, GLOW_K, GLOW_HIDDEN, GLOW_CLASSES, GLOW_BATCH = 3, 16, 256, 10, 128
+GLOW_CPU = 8  # images of the card-against-CPU checks
+# Card against CPU, f32, same weights and images: model A on the CPU at
+# batch 4 gives, float32 against float64, latents within 1.0e-5, log-dets
+# within 1.7e-3 nats and log_prob within 1.4e-3 (of ~4,000); with its
+# convolution operands rounded to TF32 (as cuDNN's default runs float32),
+# 2.5e-3, 1.4e-2 and 6.2e-2.  So the bars, 1e-4 on latents and 1e-2 nats on
+# log-dets and log_prob (absolute), pass float32 and fail TF32; the phase
+# runs the card once with cuDNN's TF32 on and reports that it fails them.
+GLOW_Z_TOL, GLOW_LP_TOL = 1e-4, 1e-2
+# bf16 card against bf16 CPU: each convolution output rounds to bfloat16
+# after float32 sums in different orders; the CPU's bf16 model against its
+# f32 one differs by 2.1e-2 on latents and 0.23 nats on log_prob, so the
+# bars are 5e-2 and 0.5 nats
+GLOW_BF16_Z_TOL, GLOW_BF16_LP_TOL = 5e-2, 0.5
+# sample's log_q against log_prob of its draws at the same temperature,
+# inverse(forward) round trips: relative to |log_q| (~4,000 nats), 1e-5
+GLOW_LOGQ_REL = 1e-5
+# One forward-KL gradient at GLOW_CPU images, the card against float64: model
+# A's random output convolutions leave many leaves' gradients ill-conditioned
+# (sums over few positions that cancel); on the CPU its float32 gradient lies
+# from float64 by a median of 3.3e-4 of a leaf's norm (90% within 6.9e-4),
+# the worst leaf 1.19e-2.  The bars: the median within 4x and the worst
+# within 2x of the CPU's.  (Model B's leaves: median 4.4e-6, worst 7.8e-4;
+# held to STEP_G_TOL each.)
+GLOW_G_MEDIAN, GLOW_G_MAX = 4 * 3.3e-4, 2 * 1.19e-2
+GLOW_TRAIN_ITERS = 1000  # model A, bf16, the example as a user runs it
+GLOW_F32_STEPS = 50  # model A, f32: chunked, timed, against eager steps
+# steps of the profiled chunk of model A: ~8,700 kernels a step, and
+# processing a profile takes host time by the kernel
+GLOW_PROFILED_CHUNK = 4
+GLOW_SERVED = 64  # draws a request of model A's bundle
+# Model Q: examples/quality_compare.py's GLOW_CFG (L = 2, K = 4, hidden 64,
+# 8 x 8 x 3 images of 4 classes, 4,096 images with the last 1,024 held out,
+# batch 64, Adamax 1e-3 with L2 1e-5, 800 steps), the example's host-drawn
+# inputs (--host-inputs).  Its held-out bits/dim must be at most Q_BPD:
+# the JAX package on the same model and inputs at seeds 0-2 on a CPU
+# (tests/test_torch_multiscale.py run as a script, before any card run):
+# 2.6603, 2.7259, 2.7107; median 2.7107, spread 0.0656; bar = median +
+# max(0.05, spread).  Its first Q_PARITY_STEPS steps on the card within
+# CPU_TOL of the CPU's losses.
+Q_ARGS = ["--L", "2", "--K", "4", "--hidden", "64", "--batch", "64", "--lr", "1e-3",
+          "--image-size", "8", "--classes", "4", "--images", "4096"]
+Q_ITERS, Q_PARITY_STEPS = 800, 50
+Q_BPD = 2.7107 + max(0.05, 2.7259 - 2.6603)
+# Model B: the image NSF of the JAX package's tests/test_autoregressive_nsf.py:124-134
+# at the squeezed CIFAR geometry: DiagGaussian((12, 16, 16)), 4 x (coupling
+# on an alternating channel mask, ConvResidualNet of 2 blocks of hidden 128,
+# 8 bins, linear tails at 3; Invertible1x1Conv with LU; ActNorm), batch
+# 128: each flat launch covers 128 x 6 x 16 x 16 = 196,608 elements.  Bars
+# against the CPU as model A's f32 (3,072 dims, as model A).
+IMG_C, IMG_HW, IMG_HIDDEN, IMG_BINS, IMG_LAYERS, IMG_BATCH = 12, 16, 128, 8, 4, 128
+IMG_N = IMG_BATCH * (IMG_C // 2) * IMG_HW * IMG_HW
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores, same source
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``; ``seconds`` is the time since the script
+    started, so that each phase's share of the run can be read off."""
+    print(json.dumps({"phase": phase, "seconds": time.perf_counter() - START, **fields}),
+          flush=True)
 
 
 def excess(a, b, atol, rtol):
@@ -691,13 +763,13 @@ def phase_requests(model):
             r = {}
             for what, fn in (("sample", lambda: model.sample(N, generator=gen)),
                              ("log_prob", lambda: model.log_prob(x))):
-                ms = host_ms(fn, reps=20)
+                ms = host_ms(fn, reps=REQUEST_REPS)
                 prof = profile(fn)
                 r[what] = {"ms": ms, "samples_per_s": N / (ms / 1e3), "profile": prof,
                            "busy_share_of_median": prof["device_ms"] / ms}
         requests[dtype] = r
     emit("times_requests", requests=requests, batch=N,
-         note="ms: host median of 20 requests, each ending in a synchronise; "
+         note=f"ms: host median of {REQUEST_REPS} requests, each ending in a synchronise; "
          "profile: one request under torch.profiler, device time summed over "
          "its CUDA kernels, busy_share = that over the profiled wall time; "
          "busy_share_of_median: the same device time over the unprofiled median")
@@ -944,7 +1016,7 @@ def step_against_cpu(phase, build, n, freeze_base, launches, loss_fn=None, batch
 
 
 def phase_times_train():
-    """Step time and samples/s (host median of 20 steps, each ending in a
+    """Step time and samples/s (host median of REQUEST_REPS steps, each ending in a
     synchronise), the profiler's view of one step, in f32 and bf16; and the
     backward kernel's own times at 2^14."""
     from normflows_tpu_torch.ops import spline_cuda as sc
@@ -959,7 +1031,7 @@ def phase_times_train():
         state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
                                       reverse_kld_loss(N))
         fn = lambda: step(state, None, gen)  # noqa: E731
-        ms = host_ms(fn, reps=20)
+        ms = host_ms(fn, reps=REQUEST_REPS)
         prof = profile(fn, top=8)
         steps[dtype] = {"ms": ms, "samples_per_s": N / (ms / 1e3), "profile": prof,
                         "busy_share_of_median": prof["device_ms"] / ms}
@@ -991,7 +1063,7 @@ def phase_times_train():
     emit("times_train", steps=steps, batch=N, backward_kernel={
         "kernel_ms": kernel, "call_ms": call, "plain_ms": plain, "bound_ms": bound_ms,
         "bound_by": bound_by, "floor_ms": floor, "bytes": bytes_moved, "ops": ops},
-        note="ms: host median of 20 reverse-KL + Adam steps from bench.py's init, "
+        note=f"ms: host median of {REQUEST_REPS} reverse-KL + Adam steps from bench.py's init, "
         "each ending in a synchronise; profile: one step under torch.profiler; "
         "kernel_ms: device time, 64 launches in one CUDA graph, inputs rotated "
         "through 69 MB; call_ms and plain_ms: CUDA events over a loop of calls; "
@@ -3069,7 +3141,7 @@ def phase_times_chunked(eager_flagship, eager_coupled):
     emit("times_chunked", steps=out, chunk=TIMED_CHUNK, profiled_chunk=PROFILED_CHUNK,
          flagship_batch=N, coupled_batch=CP_BATCH,
          note="ms: host time of a chunk of 100 steps ending in a synchronise, over 100, "
-         "median of 3 chunks after the first; device_ms: the kernels' device time of "
+         f"median of {TIMED_CHUNKS} chunks after the first; device_ms: the kernels' device time of "
          "a 10-step chunk of another model built alike, under torch.profiler after "
          "its capture, over 10; busy_share_of_median: device_ms over ms; eager: "
          "the same model's make_train_step in times_train / times_coupled; the flagship "
@@ -3227,7 +3299,7 @@ def route_times(fns):
 
 
 def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batches,
-          num_samples=N, timed=False, path=None, **export_kw):
+          num_samples=N, timed=False, path=None, labels=None, **export_kw):
     """Export ``model`` (``serving.save_bundle``) under ``root`` (or take
     the bundle it was saved to at ``path``), load the bundle and hold it
     against the live model, bit for bit:
@@ -3240,9 +3312,11 @@ def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batc
     * ``log_prob`` of ``x[:b]`` for each ``b`` of ``batches`` through the one
       program, ``log_prob_launches`` each.
 
-    With ``timed``: the three routes of a request (the live model eager, the
-    bundle eager, the bundle graphed) and ``log_prob`` live and from the
-    bundle at each batch (``route_times``)."""
+    With ``labels`` (a class-conditional model, exported with
+    ``class_cond=True``) the requests take ``labels[:n]``.  With ``timed``:
+    the three routes of a request (the live model eager, the bundle eager,
+    the bundle graphed) and ``log_prob`` live and from the bundle at each
+    batch (``route_times``)."""
     from normflows_tpu_torch import serving
 
     if path is None:
@@ -3257,18 +3331,23 @@ def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batc
          "launches": {}}
     equal = {}
     seed = SEED + 40
+    ys = None if labels is None else labels[:num_samples]
+
+    def y_of(b):
+        return () if labels is None else (labels[:b],)
+
     with torch.inference_mode():
         if sample_launches is not None:
-            live = model.sample(num_samples,
+            live = model.sample(num_samples, ys,
                                 generator=torch.Generator(device=DEVICE).manual_seed(seed))
-        lives = {b: model.log_prob(x[:b]) for b in batches}
+        lives = {b: model.log_prob(x[:b], *y_of(b)) for b in batches}
     if sample_launches is not None:
-        eager, got = on_card(counts, lambda: bundle.sample(seed, graphed=False))
+        eager, got = on_card(counts, lambda: bundle.sample(seed, ys, graphed=False))
         r["launches"]["sample_eager"] = expect_launches(f"{what} sample, eager", got,
                                                         sample_launches)
-        bundle.sample(seed + 1)  # captures the graph
+        bundle.sample(seed + 1, ys)  # captures the graph
         before = python_launches()
-        graphed, got = on_card(counts, lambda: bundle.sample(seed))
+        graphed, got = on_card(counts, lambda: bundle.sample(seed, ys))
         r["launches"]["sample_graphed"] = expect_launches(f"{what} sample, graphed", got,
                                                           sample_launches)
         r["python_launches_graphed"] = python_launches() - before
@@ -3277,7 +3356,7 @@ def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batc
                                             and torch.equal(lq, live[1]))
         r["finite"] = bool(torch.isfinite(graphed[0]).all() and torch.isfinite(graphed[1]).all())
     for b in batches:
-        lp, got = on_card(counts, lambda: bundle.log_prob(x[:b]))
+        lp, got = on_card(counts, lambda: bundle.log_prob(x[:b], *y_of(b)))
         r["launches"][f"log_prob_{b}"] = expect_launches(f"{what} log_prob at {b}", got,
                                                          log_prob_launches)
         equal[f"log_prob_{b}"] = bool(torch.equal(lp, lives[b]))
@@ -3316,8 +3395,10 @@ def phase_serving_export(root, real_nvp):
     against its live model, eager and graphed (``serve``), with exact
     launches on the device counters: 24 planar inverse launches a flagship
     sample, 12 forward a log_prob; 16 flat a coupled request; 4 flat and 4
-    fused a large-D log_prob with fusion on.  The request routes timed for
-    the flagship and the coupled model at 2^14.  Returns, for each kernel,
+    fused a large-D log_prob with fusion on; Glow's model A class-conditional
+    (f32, GLOW_SERVED draws a request at given labels; no spline kernel) and
+    model B's ``log_prob`` (IMG_LAYERS flat inverse launches a request).
+    The request routes timed for the flagship and the coupled model at 2^14.  Returns, for each kernel,
     its launches by bundle and request."""
     from normflows_tpu_torch.ops import backend
     from normflows_tpu_torch.utils import set_compute_dtype
@@ -3358,10 +3439,26 @@ def phase_serving_export(root, real_nvp):
         results["real_nvp"] = serve("real_nvp", real_nvp, root, counts, {}, {},
                                     docs_data(SEED + 44, RNVP_SERVED), (1, RNVP_SERVED),
                                     num_samples=RNVP_SERVED)
+        # model A (class-conditional, f32): sample(seed, y) and log_prob(x, y)
+        glow = build_glow(DEVICE)
+        xg, yg = glow_images(GLOW_BATCH)
+        glow.init_actnorm(xg, yg)
+        results["glow_class_cond_float32"] = serve(
+            "glow_class_cond_float32", glow, root, counts, {}, {}, xg, (1, GLOW_SERVED),
+            num_samples=GLOW_SERVED, labels=yg, class_cond=True)
+        del glow
+        # model B's log_prob: IMG_LAYERS flat launches a request
+        img = build_image_nsf(DEVICE)
+        xi = image_nsf_data(IMG_BATCH)
+        img.init_actnorm(xi)
+        results["image_nsf_log_prob"] = serve(
+            "image_nsf_log_prob", img, root, counts, None, {"rqs_flat_inverse": IMG_LAYERS},
+            xi, (1, IMG_BATCH))
+        del img
     emit("serving_export", ok=True, results=results, batch=N,
          note="export_seconds: torch.export of the sampler and of log_prob (save_bundle); "
          "bytes: the bundle's files; launches: the device counters over one request; "
-         "sample_ms: the request by three routes, host median of 20 calls each ending in "
+         f"sample_ms: the request by three routes, host median of {SERVE_REPS} calls each ending in "
          "a synchronise, device_ms of one call under torch.profiler, busy share that over "
          "the median; log_prob_ms_<b>: the same at batch b, live and from the bundle's "
          "one program")
@@ -3828,6 +3925,506 @@ def phase_conditional_train(layer_b):
         raise SystemExit("conditional_train: the trained example missed its bars")
 
 
+# ---- Glow, the image path -------------------------------------------------------
+
+def glow_images(n, seed=SEED, hw=32):
+    """``n`` images of the example's generator (CIFAR geometry: 3 x 32 x 32,
+    10 classes), dequantised on the host, and their labels, on the card."""
+    from normflows_tpu_torch.examples import glow_image
+
+    x, y = glow_image.synthetic_images(1024 + n, (3, hw, hw), seed=seed)
+    x, y = glow_image.init_inputs(x, y, n, seed)
+    return x.to(DEVICE), y.to(DEVICE)
+
+
+def build_glow(device, random_last=True):
+    """Model A, ``examples.glow_image.build_glow`` at its defaults; with
+    ``random_last`` each block's output convolution drawn U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) from a CPU generator."""
+    from normflows_tpu_torch.examples import glow_image
+    from normflows_tpu_torch.nets.mlp import uniform_
+
+    model = glow_image.build_glow(GLOW_L, GLOW_K, GLOW_HIDDEN, num_classes=GLOW_CLASSES,
+                                  device=device, seed=SEED)
+    if random_last:
+        gen = torch.Generator().manual_seed(SEED + 120)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("convs.2.weight"):
+                    fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                    p.copy_(uniform_(tuple(p.shape), 1.0 / math.sqrt(fan_in), gen, device))
+    return model
+
+
+def glow_gaps(card, cpu, x, y):
+    """Model ``card`` against its copy ``cpu`` on ``x`` (on the card) and
+    labels ``y``: max |difference| of every level's latents, of the log-det
+    and of log_prob."""
+    with torch.no_grad():
+        zg, lg = card.inverse_and_log_det(x)
+        zc, lc = cpu.inverse_and_log_det(x.cpu())
+        pg, pc = card.log_prob(x, y), cpu.log_prob(x.cpu(), y.cpu())
+    return {"latents": [float((a.cpu() - b).abs().max()) for a, b in zip(zg, zc)],
+            "log_det": float((lg.cpu() - lc).abs().max()),
+            "log_prob": float((pg.cpu() - pc).abs().max())}
+
+
+def within(gaps, z_tol, lp_tol):
+    return max(gaps["latents"]) <= z_tol and max(gaps["log_det"], gaps["log_prob"]) <= lp_tol
+
+
+def spline_launches_none(counts, what, fn):
+    """``fn`` with the device counters at 0: no spline or MADE kernel."""
+    out, got = on_card(counts, fn)
+    if any(got.values()):
+        raise SystemExit(f"{what}: launched {got}; the Glow path has no spline kernel")
+    return out
+
+
+def gradient_gaps(card, cpu, loss, counts=None):
+    """The card's gradient of ``loss(model, device)`` against the CPU's, in
+    float32 and in float64 (a copy of ``cpu``; the flat spline's plain
+    version in float64, ``FlatCalls``): each leaf's |difference| over its
+    norm, the worst and the median; the CPU's float32 against float64
+    beside.  With ``counts``, the card's pass launches no spline or MADE
+    kernel."""
+    grads = {}
+    for where, m in (("card", card), ("float32", cpu), ("float64", copy.deepcopy(cpu).double())):
+        m.zero_grad(set_to_none=True)
+        device = next(m.parameters()).device
+        if where == "card" and counts is not None:
+            spline_launches_none(counts, "a forward-KL gradient",
+                                 lambda: loss(m, device).backward())
+        elif where == "float64":
+            with FlatCalls():
+                loss(m, device).backward()
+        else:
+            loss(m, device).backward()
+        grads[where] = {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()}
+    out = {"leaves": len(grads["float64"])}
+    for name, got, want in (("card_vs_float32", "card", "float32"),
+                            ("card_vs_float64", "card", "float64"),
+                            ("cpu_float32_vs_float64", "float32", "float64")):
+        rel = relative_norms(grads[got], grads[want])
+        worst = max(rel, key=rel.get)
+        out[name] = {"worst_leaf": worst, "worst_relative_norm": rel[worst],
+                     "median_relative_norm": float(np.median(list(rel.values())))}
+    return out
+
+
+def gradient_within(gaps):
+    return (gaps["median_relative_norm"] <= GLOW_G_MEDIAN
+            and gaps["worst_relative_norm"] <= GLOW_G_MAX)
+
+
+def phase_glow_path():
+    """Model A on the card, f32 and bf16, random output convolutions:
+    ``init_actnorm`` on one batch, then ``sample(GLOW_BATCH, y, temperature=
+    0.7)`` and ``log_prob``; the card against the CPU on the same weights
+    and GLOW_CPU images (every level's latents, the log-det, log_prob; f32
+    within GLOW_Z_TOL / GLOW_LP_TOL, bf16 within GLOW_BF16_*); the f32 card
+    once more with cuDNN's TF32 on (the bars must fail it); the inverse /
+    forward round trip and sample's log_q against log_prob of its draws at
+    the same temperature; one forward-KL gradient on the card against the
+    CPU in float64 (the leaves' relative gaps, median within GLOW_G_MEDIAN
+    and worst within GLOW_G_MAX), and once more with TF32 on (which must
+    miss them); no spline or MADE kernel launched anywhere (device
+    counters)."""
+    from normflows_tpu_torch.nets import cnn
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    model = build_glow(DEVICE)
+    x, y = glow_images(GLOW_BATCH)
+    r = {}
+    with device_counters() as counts:
+        spline_launches_none(counts, "glow init_actnorm", lambda: model.init_actnorm(x, y))
+        cpu = build_glow("cpu")
+        cpu.load_state_dict(model.state_dict())
+        gen = torch.Generator(DEVICE).manual_seed(SEED + 121)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            xs, lq = spline_launches_none(
+                counts, "glow sample", lambda: model.sample(GLOW_BATCH, y, temperature=0.7,
+                                                            generator=gen))
+            sync()
+            r["sample_seconds"] = time.perf_counter() - t0
+            model.set_temperature(0.7)
+            lq_again = model.log_prob(xs, y)
+            model.reset_temperature()
+            lp = spline_launches_none(counts, "glow log_prob", lambda: model.log_prob(x, y))
+            zr, ldr = model.inverse_and_log_det(x)
+            xr, ldf = model.forward_and_log_det(zr)
+        scale = float(lq.abs().median())
+        r["sample"] = {"finite": bool(torch.isfinite(xs).all() and torch.isfinite(lq).all()),
+                       "shape": list(xs.shape), "median_abs_log_q": scale,
+                       "max_abs_log_q_gap": float((lq_again - lq).abs().max())}
+        r["round_trip"] = {"max_abs_x": float((xr - x).abs().max()),
+                           "max_abs_log_det": float((ldr + ldf).abs().max())}
+        r["log_prob_finite"] = bool(torch.isfinite(lp).all())
+        xb, yb = x[:GLOW_CPU], y[:GLOW_CPU]
+        r["f32_vs_cpu"] = glow_gaps(model, cpu, xb, yb)
+        prior = torch.backends.cudnn.allow_tf32
+        real = cnn.fp32_convs
+        try:  # the same card pass with cuDNN's TF32 on, for the bars' power
+            torch.backends.cudnn.allow_tf32 = True
+            cnn.fp32_convs = contextlib.nullcontext
+            r["tf32_vs_cpu"] = glow_gaps(model, cpu, xb, yb)
+        finally:
+            cnn.fp32_convs = real
+            torch.backends.cudnn.allow_tf32 = prior
+        # one forward-KL gradient, the card against the CPU in float64; then
+        # the card's again with cuDNN's TF32 on, forward and backward
+        grad = gradient_gaps(model, cpu, lambda m, d: m.forward_kld(xb.to(d), yb.to(d)),
+                             counts)
+        try:
+            torch.backends.cudnn.allow_tf32 = True
+            cnn.fp32_convs = contextlib.nullcontext
+            tf32 = gradient_gaps(model, cpu, lambda m, d: m.forward_kld(xb.to(d), yb.to(d)))
+        finally:
+            cnn.fp32_convs = real
+            torch.backends.cudnn.allow_tf32 = prior
+        grad["tf32_card_vs_float64"] = tf32["card_vs_float64"]
+        r["gradient"] = grad
+        f32_lp = lp
+        set_compute_dtype(model, "bfloat16")
+        set_compute_dtype(cpu, "bfloat16")
+        with torch.no_grad():
+            lp16 = spline_launches_none(counts, "glow bf16 log_prob",
+                                        lambda: model.log_prob(x, y))
+            xs16, _ = model.sample(GLOW_BATCH, y, temperature=0.7, generator=gen)
+        r["bf16_vs_cpu"] = glow_gaps(model, cpu, xb, yb)
+        r["bf16_vs_f32_card"] = {"max_abs_log_prob": float((lp16 - f32_lp).abs().max()),
+                                 "median_abs_log_prob": float((lp16 - f32_lp).abs().median()),
+                                 "sample_finite": bool(torch.isfinite(xs16).all())}
+    r["parameters"] = sum(p.numel() for p in model.parameters())
+    r["tensors"] = len(model.state_dict())
+    ok = (r["sample"]["finite"] and r["log_prob_finite"] and r["bf16_vs_f32_card"]["sample_finite"]
+          and r["sample"]["max_abs_log_q_gap"] <= GLOW_LOGQ_REL * scale
+          and r["round_trip"]["max_abs_x"] <= GLOW_Z_TOL
+          and r["round_trip"]["max_abs_log_det"] <= GLOW_LOGQ_REL * scale
+          and within(r["f32_vs_cpu"], GLOW_Z_TOL, GLOW_LP_TOL)
+          and not within(r["tf32_vs_cpu"], GLOW_Z_TOL, GLOW_LP_TOL)
+          and within(r["bf16_vs_cpu"], GLOW_BF16_Z_TOL, GLOW_BF16_LP_TOL)
+          and gradient_within(grad["card_vs_float64"])
+          and not gradient_within(grad["tf32_card_vs_float64"]))
+    emit("glow_path", ok=ok, results=r, batch=GLOW_BATCH, cpu_batch=GLOW_CPU,
+         bars={"f32": [GLOW_Z_TOL, GLOW_LP_TOL], "bf16": [GLOW_BF16_Z_TOL, GLOW_BF16_LP_TOL],
+               "tf32_must_fail": [GLOW_Z_TOL, GLOW_LP_TOL], "log_q_rel": GLOW_LOGQ_REL,
+               "gradient_vs_float64": {"median": GLOW_G_MEDIAN, "max": GLOW_G_MAX}})
+    if not ok:
+        raise SystemExit("glow_path: model A failed its checks")
+
+
+def build_image_nsf(device):
+    """Model B: DiagGaussian((12, 16, 16)) and IMG_LAYERS x (an image RQ
+    coupling on an alternating channel mask, its net a ConvResidualNet of 2
+    blocks of hidden 128, 8 bins, linear tails at 3; Invertible1x1Conv with
+    LU; ActNorm((12, 1, 1))), layer i's weights from a CPU generator."""
+    import normflows_tpu_torch as nft
+    from normflows_tpu_torch.nets import ConvResidualNet
+    from normflows_tpu_torch.utils import create_alternating_binary_mask
+
+    layers = []
+    for i in range(IMG_LAYERS):
+        gen = torch.Generator().manual_seed(SEED + 130 + i)
+        layers += [
+            nft.flows.PiecewiseRationalQuadraticCoupling.create(
+                create_alternating_binary_mask(IMG_C, even=i % 2 == 0),
+                lambda c_in, c_out: ConvResidualNet(c_in, c_out, IMG_HIDDEN, num_blocks=2,
+                                                    generator=gen, device=device),
+                num_bins=IMG_BINS, tails="linear", tail_bound=3.0, device=device),
+            nft.flows.Invertible1x1Conv(IMG_C, use_lu=True, generator=gen, device=device),
+            nft.flows.ActNorm((IMG_C, 1, 1), device=device)]
+    return nft.NormalizingFlow.create(
+        nft.distributions.DiagGaussian((IMG_C, IMG_HW, IMG_HW), device=device), layers,
+        device=device)
+
+
+def image_nsf_data(n, seed=SEED):
+    """The example's CIFAR images, squeezed to (12, 16, 16) and spread over
+    [-2, 2] (the splines' interior and both tails at bound 3 meet them)."""
+    from normflows_tpu_torch import flows
+
+    x, _ = glow_images(n, seed, hw=2 * IMG_HW)
+    return 4.0 * (flows.Squeeze().inverse(x)[0] - 0.5)
+
+
+def phase_image_nsf_path():
+    """Model B on the card, f32: every flat call of ``log_prob``, ``sample``
+    and a forward-KL step held against its plain version in float64 on the
+    card's operands (``KernelCalls``; the static-tail entry's bars, 2e-5 /
+    2e-4, and the backward's FLAT_G_TOL); exact launches on the device
+    counters (the couplings run the spline's inverse in the density
+    direction: IMG_LAYERS flat inverse a ``log_prob``, IMG_LAYERS forward a
+    ``sample``, IMG_LAYERS inverse + IMG_LAYERS backward a step); the card
+    against the CPU (log_prob and latents at GLOW_CPU; the step's gradient
+    leaves within STEP_G_TOL of their norms in float64); the flat kernels'
+    device time
+    at this N along ``event_axis = 1`` (CUDA graph), the static-tail
+    entry's with its relayout, their plain versions' and bounds; the
+    requests' times.  Returns the launches and the kernels' times."""
+    from normflows_tpu_torch.ops import spline_flat as sf
+
+    model = build_image_nsf(DEVICE)
+    x = image_nsf_data(IMG_BATCH)
+    model.init_actnorm(x)
+    launches, r = {}, {}
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 131)
+    with device_counters() as counts, KernelCalls(keep=IMG_LAYERS) as calls:
+        with torch.inference_mode():
+            lp, got = exact_on_card("image NSF log_prob", counts, lambda: model.log_prob(x),
+                                    rqs_flat_inverse=IMG_LAYERS)
+            add_launches(launches, got)
+            (xs, lq), got = exact_on_card(
+                "image NSF sample", counts,
+                lambda: model.sample(IMG_BATCH, generator=gen), rqs_flat_forward=IMG_LAYERS)
+            add_launches(launches, got)
+            lp_again = model.log_prob(xs)
+        model.zero_grad(set_to_none=True)
+        _, got = exact_on_card("image NSF forward-KL gradient", counts,
+                               lambda: model.forward_kld(x).backward(),
+                               rqs_flat_inverse=IMG_LAYERS,
+                               rqs_flat_backward_inverse=IMG_LAYERS)
+        add_launches(launches, got)
+    r["kernels"] = hold_calls("image_nsf_path", calls, {})
+    scale = float(lq.abs().median())
+    r["finite"] = all(bool(torch.isfinite(v).all()) for v in (lp, xs, lq))
+    r["sample_log_q_gap"] = float((lp_again - lq).abs().max())
+    cpu = build_image_nsf("cpu")
+    cpu.load_state_dict(model.state_dict())
+    xb = x[:GLOW_CPU]
+    with torch.no_grad():
+        zg, lg = model.inverse_and_log_det(xb)
+        zc, lc = cpu.inverse_and_log_det(xb.cpu())
+        pg, pc = model.log_prob(xb), cpu.log_prob(xb.cpu())
+    r["f32_vs_cpu"] = {"latents": [float((zg.cpu() - zc).abs().max())],
+                       "log_det": float((lg.cpu() - lc).abs().max()),
+                       "log_prob": float((pg.cpu() - pc).abs().max())}
+    r["gradient"] = gradient_gaps(model, cpu, lambda m, d: m.forward_kld(xb.to(d)))
+    gap = r["gradient"]["card_vs_float64"]["worst_relative_norm"]
+    ok = (r["finite"] and r["sample_log_q_gap"] <= GLOW_LOGQ_REL * scale
+          and within(r["f32_vs_cpu"], GLOW_Z_TOL, GLOW_LP_TOL) and gap <= STEP_G_TOL)
+    if not ok:
+        emit("image_nsf_path", ok=False, results=r)
+        raise SystemExit("image_nsf_path: model B failed its checks")
+    # the flat kernels at this N: the kept calls' operands, rotated
+    times = {}
+    for (name, inverse), kept in calls.calls.items():
+        if name not in ("flat_static", "flat_backward", "entry"):
+            continue
+        d = "inverse" if inverse else "forward"
+        sets = [[a for a in args] for args, kw, _ in kept]
+        kws = kept[0][1]
+        if name == "entry":
+            rotation = itertools.cycle(sets)
+            times[f"static_tail_entry_{d}"] = {
+                "ms": graph_ms(lambda: sf.unconstrained_rational_quadratic_spline_flat(
+                    *next(rotation), **kws), reps=16),
+                "call_ms": cuda_ms(lambda: sf.unconstrained_rational_quadratic_spline_flat(
+                    *next(rotation), **kws), reps=50)}
+            continue
+        backward = name == "flat_backward"
+        fn = sf.unconstrained_rqs_dyncodes_backward if backward else sf.unconstrained_rqs_dyncodes
+        plain = sf.unconstrained_rqs_dyncodes_backward_reference if backward else \
+            sf.unconstrained_rqs_dyncodes_reference
+        key = f"rqs_flat_{'backward_' if backward else ''}{d}"
+        t = {}
+        for label, f, timer, reps in (("ms", fn, graph_ms, 32), ("call_ms", fn, cuda_ms, 100),
+                                      ("plain_ms", plain, cuda_ms, 5)):
+            rotation = itertools.cycle(sets)
+            t[label] = timer(lambda: f(*next(rotation)), reps=reps)
+        t["bound_ms"], t["bound_by"], _ = flat_bound(IMG_N, backward)
+        t["n"] = int(sets[0][0].numel())
+        times[key] = t
+    requests = {}
+    for label, fn in (("log_prob", lambda: model.log_prob(x)),
+                      ("sample", lambda: model.sample(IMG_BATCH, generator=gen))):
+        def call(fn=fn):
+            with torch.inference_mode():
+                return fn()
+        ms = host_ms(call, LD_TIMED_REPS)
+        prof = profile(call)
+        requests[label] = {"ms": ms, "device_ms": prof["device_ms"],
+                           "busy_share_of_median": prof["device_ms"] / ms,
+                           "kernel_launches": prof["kernel_launches"], "top": prof["top"][:4]}
+    r["times"], r["requests"] = times, requests
+    emit("image_nsf_path", ok=True, results=r, launches=launches, n=IMG_N,
+         bars={"entry_and_flat_static": [Y_TOL, LD_TOL], "flat_backward": FLAT_G_TOL,
+               "cpu": [GLOW_Z_TOL, GLOW_LP_TOL], "leaf_relative_norm": STEP_G_TOL,
+               "log_q_rel": GLOW_LOGQ_REL},
+         note="times: ms, device time of 32 launches in one CUDA graph over the kept "
+         "calls' operands (4 sets rotated, 84 MB); call_ms, plain_ms: CUDA events over "
+         "a loop of calls; static_tail_entry: the coupling's call (the (B, C*(3K+1), H, "
+         "W) parameters copied into (3K+1, N) rows, the code and bound rows, the "
+         "kernel); requests: host median of LD_TIMED_REPS calls, one profiled call")
+    return launches, times
+
+
+def kernel_shares(fn, top=12):
+    """``fn`` under torch.profiler: its kernels' device time, the share of
+    the convolutions' kernels (cuDNN's: names with conv, fprop, dgrad,
+    wgrad, implicit or xmma, and its layout transforms), and the heaviest."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host]
+    total = sum(e.self_device_time_total for e in kernels)
+    words = ("conv", "fprop", "dgrad", "wgrad", "implicit", "xmma", "nchwtonhwc",
+             "nhwctonchw")
+    conv = sum(e.self_device_time_total for e in kernels
+               if any(w in e.key.lower() for w in words))
+    heavy = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"device_ms": total / 1e3, "conv_share": conv / total if total else 0.0,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in heavy]}
+
+
+def glow_parity():
+    """Model Q's first Q_PARITY_STEPS steps of the example (host inputs) on
+    the card and on the CPU: the losses within CPU_TOL."""
+    from normflows_tpu_torch.examples import glow_image
+
+    args = glow_image.parse([*Q_ARGS, "--iters", str(Q_PARITY_STEPS), "--chunked",
+                             "--host-inputs", "--seed", str(SEED)])
+    x, y = glow_image.load_data(args)
+    x_train, y_train = x[:-glow_image.HELD_OUT], y[:-glow_image.HELD_OUT]
+    inputs = glow_image.host_inputs(x_train, y_train, Q_PARITY_STEPS, args.batch, SEED)
+    losses = {}
+    for where in (DEVICE, "cpu"):
+        model = glow_image.build_glow(args.L, args.K, args.hidden, tuple(x.shape[1:]),
+                                      args.classes, device=where, seed=SEED)
+        model.init_actnorm(*(t.to(where) for t in glow_image.init_inputs(
+            x_train, y_train, args.batch, SEED)))
+        state, chunk = glow_image.make_chunk(model, args.lr, args.batch, x_train, y_train,
+                                             inputs, chunk=Q_PARITY_STEPS)
+        losses[where] = chunk(state)[1]["loss"].cpu()
+    return {"steps": Q_PARITY_STEPS,
+            "excess": excess(losses[DEVICE], losses["cpu"], CPU_TOL, CPU_TOL),
+            "max_abs_loss_gap": float((losses[DEVICE] - losses["cpu"]).abs().max()),
+            "loss_card_last": float(losses[DEVICE][-1]),
+            "loss_cpu_last": float(losses["cpu"][-1])}
+
+
+def run_example(args):
+    """``examples.glow_image.main(args)`` with its printed lines kept."""
+    from normflows_tpu_torch.examples import glow_image
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, record = glow_image.main([*args, "--seed", str(SEED), "--device", DEVICE])
+    return {**record, "printed": printed.getvalue().splitlines()[:-1]}
+
+
+def glow_chunk(compute, steps):
+    """A fresh model A (the example's init, ActNorm set on its first batch)
+    and its chunked trainer of ``steps`` steps a call on the example's
+    training images, as ``examples.glow_image --chunked`` builds it."""
+    from normflows_tpu_torch.examples import glow_image
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    x, y = glow_image.synthetic_images(8192, seed=SEED)
+    x_train, y_train = x[:-glow_image.HELD_OUT], y[:-glow_image.HELD_OUT]
+    model = set_compute_dtype(build_glow(DEVICE, random_last=False), compute)
+    model.init_actnorm(*(t.to(DEVICE) for t in glow_image.init_inputs(
+        x_train, y_train, GLOW_BATCH, SEED)))
+    state, chunk = glow_image.make_chunk(model, 1e-3, GLOW_BATCH, x_train, y_train,
+                                         chunk=steps)
+    return model, state, chunk, (x_train.to(DEVICE), y_train.to(DEVICE))
+
+
+def phase_glow_train():
+    """(a) Model Q: its first steps on the card against the CPU
+    (``glow_parity``), then the example as a replay runs it, Q_ITERS chunked
+    steps on host-drawn inputs, its held-out bits/dim held to Q_BPD; (b)
+    model A in bf16 as a user runs it (``examples.glow_image --chunked
+    --bf16 --iters GLOW_TRAIN_ITERS``): finite losses, the mean of the last
+    100 below that of the first 100; its held-out bits/dim, ms a step and
+    images a second reported; for bf16 and f32, a profiled chunk of
+    GLOW_PROFILED_CHUNK steps of a fresh model (device time a step, busy
+    share, the convolutions' share, the heaviest kernels); (c) model A in
+    f32: a captured chunk of GLOW_F32_STEPS steps against as many eager
+    steps (make_train_step, the same capturable Adamax, windows and
+    generator), then a timed chunk."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import glow_image
+
+    r = {"q_parity": glow_parity()}
+    if r["q_parity"]["excess"] > 0:
+        emit("glow_train", ok=False, results=r)
+        raise SystemExit("glow_train: model Q's first steps on the card disagree with the CPU")
+    r["q"] = run_example([*Q_ARGS, "--iters", str(Q_ITERS), "--chunked", "--host-inputs"])
+    ok = r["q"]["held_out_bits_per_dim"] <= Q_BPD and r["q"]["non_finite_steps"] == 0
+    a = run_example(["--chunked", "--bf16", "--iters", str(GLOW_TRAIN_ITERS), "--L",
+                     str(GLOW_L), "--K", str(GLOW_K), "--hidden", str(GLOW_HIDDEN), "--batch",
+                     str(GLOW_BATCH)])
+    a_ok = (a["non_finite_steps"] == 0 and a["loss_mean_last_100"] < a["loss_mean_first_100"]
+            and a["samples_finite"])
+    r["a_bf16"] = a
+    for dtype, compute in (("bfloat16", "bfloat16"), ("float32", None)):
+        model, state, chunk, _ = glow_chunk(compute, GLOW_PROFILED_CHUNK)
+        gen = torch.Generator(DEVICE).manual_seed(SEED + 140)
+        chunk(state, gen)
+        sync()
+        t0 = time.perf_counter()
+        chunk(state, gen)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / GLOW_PROFILED_CHUNK
+        prof = kernel_shares(lambda: chunk(state, gen))
+        r[f"a_{dtype}_profile"] = {**prof, "ms": ms, "device_ms": prof["device_ms"] /
+                                   GLOW_PROFILED_CHUNK,
+                                   "busy_share": prof["device_ms"] / GLOW_PROFILED_CHUNK / ms}
+        del model, state, chunk
+    # (c) f32: captured against eager
+    model, state, chunk, (xt, yt) = glow_chunk(None, GLOW_F32_STEPS)
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 141)
+    t0 = time.perf_counter()
+    first = chunk(state, gen)[1]["loss"]
+    sync()
+    first_s = time.perf_counter() - t0
+    eager, _, _, _ = glow_chunk(None, GLOW_F32_STEPS)
+    opt = glow_image.make_optimizer(eager, 1e-3)
+    estate, step = training.make_train_step(
+        eager, opt, lambda m, b, g: m.forward_kld(glow_image.dequantise(b[0], g), b[1]))
+    egen = torch.Generator(DEVICE).manual_seed(SEED + 141)
+    n_train = xt.shape[0]
+    eager_losses = []
+    for i in range(GLOW_F32_STEPS):
+        s = (i * GLOW_BATCH) % (n_train - GLOW_BATCH + 1)
+        estate, m = step(estate, (xt[s:s + GLOW_BATCH], yt[s:s + GLOW_BATCH]), egen)
+        eager_losses.append(m["loss"])
+    c = {"first_call_seconds": first_s,
+         "against_eager": against_eager("glow_train", first, torch.stack(eager_losses), model,
+                                        eager)}
+    t0 = time.perf_counter()
+    second = chunk(state, gen)[1]["loss"]
+    sync()
+    c["ms"] = (time.perf_counter() - t0) * 1e3 / GLOW_F32_STEPS
+    c["images_per_s"] = GLOW_BATCH / (c["ms"] / 1e3)
+    losses = torch.cat([first, second]).cpu()
+    c["finite"] = bool(torch.isfinite(losses).all())
+    r["a_float32"] = c
+    emit("glow_train", ok=ok and a_ok and c["finite"], results=r,
+         bars={"q_held_out_bits_per_dim": Q_BPD, "parity_loss": CPU_TOL,
+               "against_eager": [CPU_TOL, STEP_G_TOL]},
+         note="q: model Q (examples/quality_compare.py's GLOW_CFG) through "
+         "examples.glow_image --chunked --host-inputs; a_bf16: model A as "
+         "examples.glow_image --chunked --bf16 runs it (seconds include the first "
+         "chunk's capture; steady_step_ms leaves it out); a_<dtype>_profile: a "
+         f"{GLOW_PROFILED_CHUNK}-step chunk after its capture, host ms a step, device ms "
+         "a step, busy "
+         "share, conv_share of the device time; a_float32: a captured chunk against "
+         "as many eager steps, then a timed chunk")
+    if not (ok and a_ok and c["finite"]):
+        raise SystemExit("glow_train: a Glow run missed its bars")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -3877,6 +4474,9 @@ def main() -> int:
     cond_launches, layer_b = phase_conditional_path()
     phase_conditional_train(layer_b)
     del layer_b
+    phase_glow_path()
+    img_launches, img_times = phase_image_nsf_path()
+    phase_glow_train()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bundles_") as root:
         served = phase_serving_export(root, phase_realnvp(root))
 
@@ -4009,9 +4609,13 @@ def main() -> int:
         })
     for entry in kernels:
         entry["launches_served"] = served.get(entry["name"], {})
-        # the conditional paths' launches (phase conditional_path) count too
+        # the conditional paths' launches (phase conditional_path) count too,
+        # and the image path's (phase image_nsf_path)
         entry["launches_conditional"] = cond_launches.get(entry["name"], 0)
-        entry["launches"] += entry["launches_conditional"]
+        entry["launches_image"] = img_launches.get(entry["name"], 0)
+        entry["launches"] += entry["launches_conditional"] + entry["launches_image"]
+        if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
+            entry["image_nsf"] = img_times[entry["name"]]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

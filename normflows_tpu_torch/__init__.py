@@ -29,6 +29,12 @@ loaded bundle, the sampler as a CUDA graph on a card.
 through MADE and ``ResidualNet`` and both autoregressive paths, with
 ``distributions.ConditionalDiagGaussian`` (base) and
 ``ConditionalDiagGaussianTarget``.
+Glow's image path: ``MultiscaleFlow`` (class-conditional or not) of
+``flows.GlowBlock`` levels with ``flows.Squeeze`` and ``flows.Merge``, on
+``distributions.ClassCondDiagGaussian`` or ``GlowBase`` bases, ``ClassCondFlow``,
+``transforms.Logit``, ``utils.preprocessing`` and ``utils.eval``
+(bits/dim); the coupling splines on images through ``nets.ConvResidualNet``.
+``examples.glow_image`` trains a class-conditional Glow.
 ``examples.nsf_cylinder`` trains the flagship to convergence,
 ``examples.conditional_flow`` trains the conditional NSF and samples it,
 ``examples.real_nvp_twomoons`` trains Real NVP and serves it, and
@@ -36,8 +42,10 @@ through MADE and ``ResidualNet`` and both autoregressive paths, with
 backward's ablation kernel.
 """
 
-from . import core, distributions, flows, interop, nets, ops, serving, training, utils
+from . import (core, distributions, flows, interop, nets, ops, serving, training,
+               transforms, utils)
 from .core.flow import Composite, Flow, Identity, Reverse
-from .core.facades import ConditionalNormalizingFlow, NormalizingFlow
+from .core.facades import (ClassCondFlow, ConditionalNormalizingFlow, MultiscaleFlow,
+                           NormalizingFlow)
 
 __version__ = "0.1.0"

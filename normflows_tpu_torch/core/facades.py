@@ -1,5 +1,5 @@
-"""Model facades (port of ``NormalizingFlow`` and ``ConditionalNormalizingFlow``
-in ``normflows_tpu/core/facades.py``).
+"""Model facades (port of ``NormalizingFlow``, ``ConditionalNormalizingFlow``,
+``ClassCondFlow`` and ``MultiscaleFlow`` in ``normflows_tpu/core/facades.py``).
 
 ``forward`` is latent -> data (sampling); ``inverse`` is data -> latent
 (density).  Every method takes ``context`` and hands it to the base, to
@@ -23,6 +23,19 @@ package splits its key into one per layer.  The detached second pass of
 gives each layer the generator's state at that layer's first pass, as the
 JAX package reuses each layer's key.
 
+ActNorm layers are initialised once, explicitly, from data: ``init_actnorm``
+(a density-direction batch; ``MultiscaleFlow`` walks its levels in reverse
+through the merges' ``inverse``) or ``init_actnorm_sampling`` (the model's
+own draws), in place, as the JAX package's functional passes do.
+
+``MultiscaleFlow`` (Glow's multiscale architecture) takes a class label
+``y`` where its bases are class-conditional; ``sample`` with ``y=None``
+draws the labels first (``distributions.base.draw_labels``), then each
+level's noise, from the generator.  Its temperature is set in place
+(``set_temperature``), where the JAX package returns a new model;
+``sample(..., temperature=t)`` sets it for the call and restores the
+bases' own after it.
+
 Persistence (facades.py:220-335 of the JAX package): ``save`` pickles a
 :func:`compact_copy` of the model with ``torch.save``,
 ``NormalizingFlow.load`` rebuilds it, and :func:`load_params_like` copies a
@@ -39,8 +52,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributions.base import draw_labels, draw_noise
 from ..ops.backend import resolve_device
-from .flow import zero_log_det_like_z
+from .flow import forward_data_dep_init, zero_log_det_like_z
 
 
 def _default_generator(device) -> torch.Generator:
@@ -73,7 +87,28 @@ class _LogProb(nn.Module):
         return log_q + self.flow.q0.log_prob(x, context)
 
 
-class NormalizingFlow(nn.Module):
+class _Saved:
+    """``save`` / ``load`` of a whole model."""
+
+    def save(self, path: str):
+        """Pickle the whole model (its classes by import path, every tensor
+        where it lies) with ``torch.save``, as :func:`compact_copy` gives
+        it: no storage beyond the model's own tensors goes into the file."""
+        torch.save(compact_copy(self), path)
+
+    @classmethod
+    def load(cls, path: str):
+        """Rebuild a model written by :meth:`save`; a file that holds
+        another class raises ``TypeError``.  This unpickles the file, which
+        can run code: load only files this program wrote."""
+        obj = torch.load(path, weights_only=False)
+        if not isinstance(obj, cls):
+            raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, "
+                            f"not {cls.__name__}")
+        return obj
+
+
+class NormalizingFlow(_Saved, nn.Module):
     """Base distribution ``q0``, flow chain ``flows`` and optional target ``p``."""
 
     def __init__(self, q0: nn.Module, flows, p: Optional[nn.Module] = None):
@@ -246,23 +281,24 @@ class NormalizingFlow(nn.Module):
         weights = (1 - alpha) * w_alpha + alpha * w_alpha**2
         return -alpha * torch.mean(weights * torch.log(w))
 
-    # ---- persistence -----------------------------------------------------
-    def save(self, path: str):
-        """Pickle the whole model (its classes by import path, every tensor
-        where it lies) with ``torch.save``, as :func:`compact_copy` gives
-        it: no storage beyond the model's own tensors goes into the file."""
-        torch.save(compact_copy(self), path)
+    # ---- data-dependent init (ActNorm) -----------------------------------
+    @torch.no_grad()
+    def init_actnorm(self, x, context=None):
+        """One density-direction pass over ``x`` that initialises every
+        ActNorm layer from the data it meets, in place; returns the model."""
+        for flow in reversed(self.flows):
+            x = flow.data_dep_init(x, context)
+        return self
 
-    @classmethod
-    def load(cls, path: str):
-        """Rebuild a model written by :meth:`save`; a file that holds
-        another class raises ``TypeError``.  This unpickles the file, which
-        can run code: load only files this program wrote."""
-        obj = torch.load(path, weights_only=False)
-        if not isinstance(obj, cls):
-            raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, "
-                            f"not {cls.__name__}")
-        return obj
+    @torch.no_grad()
+    def init_actnorm_sampling(self, num_samples: int = 128, context=None, *,
+                              generator: Optional[torch.Generator] = None):
+        """The same from a sampling-direction pass of ``num_samples`` base
+        draws (the initialisation a model trained by reverse KL takes)."""
+        z, _ = self.q0.sample_and_log_prob(num_samples, context, generator=generator)
+        for flow in self.flows:
+            z = forward_data_dep_init(flow, z, context)
+        return self
 
 
 class ConditionalNormalizingFlow(NormalizingFlow):
@@ -270,6 +306,212 @@ class ConditionalNormalizingFlow(NormalizingFlow):
     base, to every layer and, in ``reverse_kld``, to the target's
     ``log_prob``.  ``NormalizingFlow`` already does all of that; the class
     mirrors the JAX package's API."""
+
+
+class ClassCondFlow(_Saved, nn.Module):
+    """A flow whose class label ``y`` conditions only the base ``q0``."""
+
+    def __init__(self, q0: nn.Module, flows):
+        super().__init__()
+        self.q0 = q0
+        self.flows = nn.ModuleList(flows)
+
+    @classmethod
+    def create(cls, q0, flows):
+        return cls(q0, flows)
+
+    def log_prob(self, x, y):
+        log_q = zero_log_det_like_z(x)
+        z = x
+        for flow in reversed(self.flows):
+            z, ld = flow.inverse(z)
+            log_q = log_q + ld
+        return log_q + self.q0.log_prob(z, y)
+
+    def forward_kld(self, x, y):
+        return -torch.mean(self.log_prob(x, y))
+
+    def from_noise(self, eps, y):
+        """``(x, log_q)`` of the base's unit draws ``eps`` at labels ``y``."""
+        z, log_q = self.q0.from_noise(eps, y)
+        for flow in self.flows:
+            z, ld = flow.forward(z)
+            log_q = log_q - ld
+        return z, log_q
+
+    def sample(self, num_samples: int = 1, y=None, *,
+               generator: Optional[torch.Generator] = None):
+        """``(x, log_q)``; without ``y`` the base draws the labels."""
+        z, log_q = self.q0.sample_and_log_prob(num_samples, y, generator=generator)
+        for flow in self.flows:
+            z, ld = flow.forward(z)
+            log_q = log_q - ld
+        return z, log_q
+
+
+class MultiscaleFlow(_Saved, nn.Module):
+    """Glow / Real NVP's multiscale architecture: ``q0`` one base a level
+    (level 0 the innermost), ``flows`` one list of flows a level, ``merges``
+    the ``Merge`` flows between levels, an optional data-space
+    ``transform`` (``transforms.Logit``), and ``class_cond``: whether the
+    bases take the class label ``y``."""
+
+    def __init__(self, q0, flows, merges, transform: Optional[nn.Module] = None,
+                 class_cond: bool = True):
+        super().__init__()
+        self.q0 = nn.ModuleList(q0)
+        self.flows = nn.ModuleList(nn.ModuleList(level) for level in flows)
+        self.merges = nn.ModuleList(merges)
+        self.transform = transform
+        self.class_cond = class_cond
+
+    @classmethod
+    def create(cls, q0, flows, merges, transform=None, class_cond: bool = True):
+        return cls(q0, flows, merges, transform, class_cond)
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.q0)
+
+    @property
+    def noise_levels(self):
+        """``(noise_spec, event_shape)`` of each level's base."""
+        return [(tuple(q.noise_spec), tuple(q.event_shape)) for q in self.q0]
+
+    def _context(self, y):
+        return y if self.class_cond else None
+
+    def _base_tensor(self):
+        """A tensor of the bases (a parameter, or a buffer of a fixed base):
+        where and in which dtype their draws are made."""
+        return next(iter([*self.q0.parameters(), *self.q0.buffers()]))
+
+    # ---- transport -------------------------------------------------------
+    def forward_and_log_det(self, z_list):
+        """The latents of every level -> data, and the log-det."""
+        log_det = zero_log_det_like_z(z_list[0])
+        z = None
+        for i in range(self.num_levels):
+            if i == 0:
+                z = z_list[0]
+            else:
+                z, ld = self.merges[i - 1].forward([z, z_list[i]])
+                log_det = log_det + ld
+            for flow in self.flows[i]:
+                z, ld = flow.forward(z)
+                log_det = log_det + ld
+        if self.transform is not None:
+            z, ld = self.transform.forward(z)
+            log_det = log_det + ld
+        return z, log_det
+
+    def inverse_and_log_det(self, x):
+        """Data -> the latents of every level (level 0 first), and the
+        log-det."""
+        log_det = zero_log_det_like_z(x)
+        if self.transform is not None:
+            x, ld = self.transform.inverse(x)
+            log_det = log_det + ld
+        z_list, z = [], x
+        for i in range(self.num_levels - 1, -1, -1):
+            for flow in reversed(self.flows[i]):
+                z, ld = flow.inverse(z)
+                log_det = log_det + ld
+            if i > 0:
+                (z, z_i), ld = self.merges[i - 1].inverse(z)
+                log_det = log_det + ld
+                z_list.append(z_i)
+            else:
+                z_list.append(z)
+        return list(reversed(z_list)), log_det
+
+    # ---- densities and draws ---------------------------------------------
+    def log_prob(self, x, y=None):
+        z_list, log_q = self.inverse_and_log_det(x)
+        for q, z in zip(self.q0, z_list):
+            log_q = log_q + q.log_prob(z, self._context(y))
+        return log_q
+
+    def forward_kld(self, x, y=None):
+        return -torch.mean(self.log_prob(x, y))
+
+    def forward(self, x, y=None):
+        """The negative log-likelihood of ``x``."""
+        return -self.log_prob(x, y)
+
+    def draw_noise(self, num_samples: int, *, generator: Optional[torch.Generator] = None):
+        """Each level's unit draws, level 0 first (the sampler's input)."""
+        t = self._base_tensor()
+        return [draw_noise(spec, event, num_samples, generator=generator, dtype=t.dtype,
+                           device=t.device) for spec, event in self.noise_levels]
+
+    def from_noise(self, eps, y=None):
+        """``(x, log_q)`` of :meth:`sample` with each level's draws given
+        (``eps``, a list, level 0 first) and, for a class-conditional
+        model, the labels ``y``.  The program ``serving.export_sampler``
+        exports."""
+        z_list, log_q = [], 0.0
+        for q, e in zip(self.q0, eps):
+            z, log_p = q.from_noise(e, self._context(y))
+            z_list.append(z)
+            log_q = log_q + log_p
+        x, log_det = self.forward_and_log_det(z_list)
+        return x, log_q - log_det
+
+    def sample(self, num_samples: int = 1, y=None, temperature: Optional[float] = None, *,
+               generator: Optional[torch.Generator] = None):
+        """``(x, log_q)`` of ``num_samples`` draws: the labels first where the
+        model is class-conditional and ``y`` is None, then each level's
+        noise.  ``temperature`` holds for this call only."""
+        saved = [q.temperature for q in self.q0]
+        if temperature is not None:
+            self.set_temperature(temperature)
+        try:
+            if self.class_cond and y is None:
+                y = draw_labels(num_samples, _num_classes_of(self.q0[0]),
+                                generator=generator, device=self._base_tensor().device)
+            if y is not None:
+                num_samples = y.shape[0]
+            return self.from_noise(self.draw_noise(num_samples, generator=generator), y)
+        finally:
+            for q, t in zip(self.q0, saved):
+                q.temperature = t
+
+    def set_temperature(self, temperature: Optional[float]):
+        """Every base's temperature, in place; returns the model."""
+        for q in self.q0:
+            if not hasattr(q, "temperature"):
+                raise NotImplementedError(
+                    "One base distribution does not support temperature annealing")
+        for q in self.q0:
+            q.temperature = temperature
+        return self
+
+    def reset_temperature(self):
+        return self.set_temperature(None)
+
+    # ---- data-dependent init (ActNorm) -----------------------------------
+    @torch.no_grad()
+    def init_actnorm(self, x, y=None):
+        """Initialise every ActNorm layer from ``x`` in one density-direction
+        pass over the levels (innermost last, through the merges'
+        ``inverse``), in place; returns the model."""
+        z = x
+        if self.transform is not None:
+            z, _ = self.transform.inverse(z)
+        for i in range(self.num_levels - 1, -1, -1):
+            for flow in reversed(self.flows[i]):
+                z = flow.data_dep_init(z)
+            if i > 0:
+                (z, _), _ = self.merges[i - 1].inverse(z)
+        return self
+
+
+def _num_classes_of(q0) -> int:
+    nc = getattr(q0, "num_classes", None)
+    if nc is None:
+        raise ValueError("class-conditional sampling requires q0.num_classes")
+    return nc
 
 
 def compact_copy(model: nn.Module) -> nn.Module:

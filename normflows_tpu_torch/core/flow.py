@@ -38,6 +38,21 @@ class Flow(nn.Module):
     def inverse(self, z, context=None, *, generator=None):
         raise NotImplementedError("inverse not implemented for this flow")
 
+    def data_dep_init(self, z, context=None):
+        """Data-dependent initialisation (ActNorm's) from a density-direction
+        batch ``z``: sets this flow's tensors in place and returns its
+        ``inverse`` of ``z``.  The default has nothing to set."""
+        return self.inverse(z, context)[0]
+
+
+def forward_data_dep_init(flow, z, context=None):
+    """Data-dependent initialisation from a sampling-direction batch ``z``:
+    the flow's ``data_dep_init_forward`` where it has one, else its
+    ``forward``; returns the flow's output."""
+    if hasattr(flow, "data_dep_init_forward"):
+        return flow.data_dep_init_forward(z, context)
+    return flow.forward(z, context)[0]
+
 
 class Reverse(Flow):
     """Swap a flow's forward and inverse passes."""
@@ -51,6 +66,9 @@ class Reverse(Flow):
 
     def inverse(self, z, context=None, *, generator=None):
         return self.flow.forward(z, context, generator=generator)
+
+    def data_dep_init(self, z, context=None):
+        return forward_data_dep_init(self.flow, z, context)
 
 
 class Composite(Flow):
@@ -73,6 +91,11 @@ class Composite(Flow):
             z, ld = flow.inverse(z, context, generator=generator)
             log_det = log_det + ld
         return z, log_det
+
+    def data_dep_init(self, z, context=None):
+        for flow in reversed(self.flows):
+            z = flow.data_dep_init(z, context)
+        return z
 
 
 class Identity(Flow):

@@ -1,7 +1,7 @@
 """Distributions."""
 
-from .base import (BaseDistribution, ConditionalDiagGaussian, DiagGaussian, Uniform,
-                   UniformGaussian)
+from .base import (BaseDistribution, ClassCondDiagGaussian, ConditionalDiagGaussian,
+                   DiagGaussian, GlowBase, Uniform, UniformGaussian, one_hot)
 from .target import (CircularGaussianMixture, GaussianVonMises, RingMixture, Target,
                      TwoIndependent, TwoMoons)
 from .target import ConditionalDiagGaussian as ConditionalDiagGaussianTarget

@@ -1,6 +1,8 @@
 """Base distributions (port of ``normflows_tpu/distributions/base.py``):
 ``BaseDistribution``, ``DiagGaussian``, ``ConditionalDiagGaussian``,
-``Uniform`` and ``UniformGaussian``.
+``Uniform``, ``UniformGaussian``, and the class-conditional
+``ClassCondDiagGaussian`` and ``GlowBase`` of the multiscale image models
+(their context is a label vector, or a one-hot / soft (B, C) batch).
 
 Sampling draws from an explicit ``torch.Generator`` (``generator=``, on the
 distribution's device; ``None`` uses torch's default generator), where the
@@ -15,7 +17,9 @@ Each base splits a draw from its transform:
 ``"uniform"`` on [0, 1)), :func:`draw_noise` draws it, and
 ``from_noise(eps) -> (z, log_p)`` maps it; ``sample_and_log_prob`` is the
 two in turn.  A program that takes the noise as its input (the exported
-sampler of ``serving``) gives the samples of a generator's draws.
+sampler of ``serving``) gives the samples of a generator's draws.  A
+class-conditional base given no labels draws them first
+(:func:`draw_labels`), then the noise.
 """
 
 from __future__ import annotations
@@ -62,6 +66,21 @@ def draw_noise(noise_spec, event_shape, num_samples: int, *,
     columns = {**{i: u[:, k] for k, i in enumerate(uniform)},
                **{i: g[:, k] for k, i in enumerate(normal)}}
     return torch.stack([columns[i] for i in range(len(spec))], dim=-1).reshape(shape)
+
+
+def one_hot(y, num_classes: int, dtype=torch.float32):
+    """Integer labels (batch,) as one-hot rows (batch, num_classes); a (batch,
+    C) tensor (already one-hot, or soft) is cast to ``dtype``."""
+    if y.dim() == 1 and not y.is_floating_point():
+        return torch.nn.functional.one_hot(y.long(), num_classes).to(dtype)
+    return y.to(dtype)
+
+
+def draw_labels(num_samples: int, num_classes: int, *,
+                generator: Optional[torch.Generator] = None, device="cpu") -> torch.Tensor:
+    """``num_samples`` labels uniform on [0, num_classes), int64, from
+    ``generator``: every label a class-conditional model draws."""
+    return torch.randint(0, num_classes, (num_samples,), generator=generator, device=device)
 
 
 class BaseDistribution(nn.Module):
@@ -299,3 +318,142 @@ class UniformGaussian(BaseDistribution):
         log_p_g = torch.sum(
             -0.5 * LOG2PI - torch.log(self.scale[self.ind_]) - 0.5 * zg**2, dim=-1)
         return log_p_u + log_p_g
+
+
+class ClassCondDiagGaussian(BaseDistribution):
+    """A diagonal Gaussian per class: ``loc`` and ``log_scale`` (*shape,
+    num_classes), the context a label vector (or a one-hot batch) picking
+    each row's parameters by a (*shape, C) @ (C, B) product.  ``temperature``
+    (None or a float, set in place) scales the std."""
+
+    def __init__(self, shape, num_classes: int, *, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.shape = _tuple_shape(shape)
+        self.d = int(np.prod(self.shape))
+        self.num_classes = num_classes
+        self.temperature: Optional[float] = None
+        self.loc = nn.Parameter(torch.zeros(*self.shape, num_classes, device=device))
+        self.log_scale = nn.Parameter(torch.zeros(*self.shape, num_classes, device=device))
+
+    @classmethod
+    def create(cls, shape, num_classes: int, *, device="cuda"):
+        return cls(shape, num_classes, device=device)
+
+    @property
+    def event_shape(self):
+        return self.shape
+
+    @property
+    def noise_spec(self):
+        return ("normal",) * self.d
+
+    def _params(self, y):
+        y_onehot = one_hot(y, self.num_classes, self.loc.dtype)
+        loc = torch.movedim(self.loc @ y_onehot.T, -1, 0)
+        log_scale = torch.movedim(self.log_scale @ y_onehot.T, -1, 0)
+        if self.temperature is not None:
+            log_scale = log_scale + math.log(self.temperature)
+        return loc, log_scale
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        y = context
+        if y is None:
+            y = draw_labels(num_samples, self.num_classes, generator=generator,
+                            device=self.loc.device)
+        eps = draw_noise(self.noise_spec, self.shape, y.shape[0], generator=generator,
+                         dtype=self.loc.dtype, device=self.loc.device)
+        return self.from_noise(eps, y)
+
+    def from_noise(self, eps, context=None):
+        loc, log_scale = self._params(context)
+        z = loc + torch.exp(log_scale) * eps
+        dims = tuple(range(1, len(self.shape) + 1))
+        log_p = -0.5 * self.d * LOG2PI - torch.sum(log_scale + 0.5 * eps**2, dim=dims)
+        return z, log_p
+
+    def log_prob(self, z, context=None):
+        loc, log_scale = self._params(context)
+        dims = tuple(range(1, len(self.shape) + 1))
+        return -0.5 * self.d * LOG2PI - torch.sum(
+            log_scale + 0.5 * ((z - loc) / torch.exp(log_scale)) ** 2, dim=dims)
+
+
+class GlowBase(BaseDistribution):
+    """Glow's base: a Gaussian with one mean and log-scale a channel, each
+    reparameterised as ``v * exp(v_logs * logscale_factor)``, plus per-class
+    offsets (``loc_cc``, ``log_scale_cc``, (num_classes, C)) with
+    ``num_classes``; ``temperature`` as in ``ClassCondDiagGaussian``."""
+
+    def __init__(self, shape, num_classes: Optional[int] = None,
+                 logscale_factor: float = 3.0, *, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.shape = _tuple_shape(shape)
+        self.d = int(np.prod(self.shape))
+        self.num_pix = int(np.prod(self.shape[1:]))
+        self.num_classes = num_classes
+        self.logscale_factor = logscale_factor
+        self.temperature: Optional[float] = None
+        pshape = (1, self.shape[0]) + (1,) * (len(self.shape) - 1)
+
+        def zeros(*shape):
+            return nn.Parameter(torch.zeros(*shape, device=device))
+
+        self.loc, self.loc_logs = zeros(*pshape), zeros(*pshape)
+        self.log_scale, self.log_scale_logs = zeros(*pshape), zeros(*pshape)
+        cc = num_classes is not None
+        self.loc_cc = zeros(num_classes, self.shape[0]) if cc else None
+        self.log_scale_cc = zeros(num_classes, self.shape[0]) if cc else None
+
+    @classmethod
+    def create(cls, shape, num_classes: Optional[int] = None, logscale_factor: float = 3.0,
+               *, device="cuda"):
+        return cls(shape, num_classes, logscale_factor, device=device)
+
+    @property
+    def event_shape(self):
+        return self.shape
+
+    @property
+    def noise_spec(self):
+        return ("normal",) * self.d
+
+    def _params(self, y):
+        loc = self.loc * torch.exp(self.loc_logs * self.logscale_factor)
+        log_scale = self.log_scale * torch.exp(self.log_scale_logs * self.logscale_factor)
+        if self.num_classes is not None and y is not None:
+            y_onehot = one_hot(y, self.num_classes, self.loc.dtype)
+            cshape = (-1, self.shape[0]) + (1,) * (len(self.shape) - 1)
+            loc = loc + (y_onehot @ self.loc_cc).reshape(cshape)
+            log_scale = log_scale + (y_onehot @ self.log_scale_cc).reshape(cshape)
+        if self.temperature is not None:
+            log_scale = log_scale + math.log(self.temperature)
+        return loc, log_scale
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        y = context
+        if self.num_classes is not None:
+            if y is None:
+                y = draw_labels(num_samples, self.num_classes, generator=generator,
+                                device=self.loc.device)
+            num_samples = y.shape[0]
+        eps = draw_noise(self.noise_spec, self.shape, num_samples, generator=generator,
+                         dtype=self.loc.dtype, device=self.loc.device)
+        return self.from_noise(eps, y)
+
+    def from_noise(self, eps, context=None):
+        loc, log_scale = self._params(context)
+        z = loc + torch.exp(log_scale) * eps
+        dims = tuple(range(1, len(self.shape) + 1))
+        log_p = (-0.5 * self.d * LOG2PI - self.num_pix * torch.sum(log_scale, dim=dims)
+                 - 0.5 * torch.sum(eps**2, dim=dims))
+        return z, log_p
+
+    def log_prob(self, z, context=None):
+        loc, log_scale = self._params(context)
+        dims = tuple(range(1, len(self.shape) + 1))
+        return (-0.5 * self.d * LOG2PI - self.num_pix * torch.sum(log_scale, dim=dims)
+                - 0.5 * torch.sum(((z - loc) / torch.exp(log_scale)) ** 2, dim=dims))

@@ -1,6 +1,7 @@
-"""Flow layers of the port: the autoregressive and coupled RQ splines, the
-affine autoregressive and coupling flows (Real NVP), ``LULinearPermute`` and
-the feature split."""
+"""Flow layers of the port: the autoregressive and coupled RQ splines (on
+vectors and on images), the affine autoregressive and coupling flows (Real
+NVP), Glow's block and its parts (ActNorm, the invertible 1x1 convolution,
+the squeeze), the other mixing flows, BatchNorm and the feature split."""
 
 from ..core.flow import Flow, Reverse, Composite, Identity, zero_log_det_like_z
 from . import base
@@ -12,8 +13,10 @@ from .affine.coupling import (
     CCAffineConst,
     MaskedAffineFlow,
 )
-from .reshape import Merge, Split
-from .mixing import LULinearPermute
+from .affine.glow import GlowBlock
+from .reshape import Merge, Split, Squeeze
+from .mixing import Invertible1x1Conv, InvertibleAffine, LULinearPermute, Permute
+from .normalization import ActNorm, BatchNorm
 from .neural_spline import (
     MaskedPiecewiseRationalQuadraticAutoregressive,
     AutoregressiveRationalQuadraticSpline,
@@ -36,8 +39,15 @@ __all__ = [
     "AffineCoupling",
     "MaskedAffineFlow",
     "AffineCouplingBlock",
+    "GlowBlock",
     "Split",
     "Merge",
+    "Squeeze",
+    "ActNorm",
+    "BatchNorm",
+    "Invertible1x1Conv",
+    "InvertibleAffine",
+    "Permute",
     "LULinearPermute",
     "MaskedPiecewiseRationalQuadraticAutoregressive",
     "AutoregressiveRationalQuadraticSpline",

@@ -12,9 +12,13 @@ does:
 
 * ``PiecewiseRationalQuadraticCoupling``: the transform net's (B, D*(3K+1))
   output viewed (B, D, 3K+1), the width and height logits scaled by
-  1/sqrt(hidden features), the per-dim tails along ``event_axis = -1``;
-* ``PiecewiseRationalQuadraticCDF``: its own (C, 3K+1) parameters broadcast
-  over the batch, the per-dim tails along ``event_axis = 1``.
+  1/sqrt(hidden features), the per-dim tails along ``event_axis = -1``; on
+  images (N, C, H, W) the net (a ``ConvResidualNet``) gives (B, C*(3K+1),
+  H, W), viewed (B, C, H, W, 3K+1) (the JAX package's ``_reshape_params``),
+  and the per-channel tails lie along ``event_axis = 1``, broadcast over H
+  and W;
+* ``PiecewiseRationalQuadraticCDF``: its own (C, [H, W,] 3K+1) parameters
+  broadcast over the batch, the per-dim tails along ``event_axis = 1``.
 
 A context goes to the transform net (``ResidualNet`` concatenates it to its
 input and gates its blocks with it); the CDF takes none.  The transform
@@ -26,8 +30,6 @@ Constrained splines (``tails=None``: all K+1 slopes learned, the spline on
 :func:`~normflows_tpu_torch.ops.splines.constrained_rational_quadratic_spline`
 on every device, as the JAX package runs its jnp spline there and no Pallas
 kernel.
-Image (4-D) inputs wait for the image slice and raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,10 +44,6 @@ from ...core.flow import Flow, sum_except_batch
 from ...ops import spline_flat, splines
 from ...ops.backend import resolve_device
 from ...utils.nn import net_dropout_active
-
-_IMAGES = ("image (N, C, H, W) inputs wait for a later slice of the PyTorch port "
-           "(ROADMAP.md queue 1, item 8)")
-
 
 def _split_indices(mask):
     mask = np.asarray(mask)
@@ -107,8 +105,6 @@ class Coupling(Flow):
         raise NotImplementedError
 
     def forward(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
-        if inputs.dim() == 4:
-            raise NotImplementedError(_IMAGES)
         id_split, tr_split = self._split(inputs)
         params = _apply_net(self.transform_net, id_split, context, generator)
         tr_split, logabsdet = self._coupling_transform(tr_split, params, inverse=False)
@@ -118,8 +114,6 @@ class Coupling(Flow):
         return self._join(id_split, tr_split), logabsdet
 
     def inverse(self, inputs, context=None, *, generator: Optional[torch.Generator] = None):
-        if inputs.dim() == 4:
-            raise NotImplementedError(_IMAGES)
         id_split, tr_split = self._split(inputs)
         logabsdet = inputs.new_zeros(inputs.shape[0])
         if self.unconditional_transform is not None:
@@ -156,18 +150,18 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
                min_bin_height=splines.DEFAULT_MIN_BIN_HEIGHT,
                min_derivative=splines.DEFAULT_MIN_DERIVATIVE, *, device="cuda"):
         """``transform_net_create_fn(in_features, out_features)`` makes the
-        transform net; a ``hidden_features`` attribute on it sets the
-        1/sqrt scaling of the width and height logits."""
-        if img_shape is not None:
-            raise NotImplementedError(_IMAGES)
+        transform net; a ``hidden_features`` (or, for a convolutional net,
+        ``hidden_channels``) attribute on it sets the 1/sqrt scaling of the
+        width and height logits.  ``img_shape`` (H, W) gives an image
+        model's CDF its per-pixel parameters."""
         mask = np.asarray(mask)
         identity, transform, _ = _split_indices(mask)
         net = transform_net_create_fn(len(identity), len(transform) * (3 * num_bins + 1))
-        net_hidden = getattr(net, "hidden_features", 0)
+        net_hidden = getattr(net, "hidden_features", 0) or getattr(net, "hidden_channels", 0)
         uncond = None
         if apply_unconditional_transform:
             uncond = PiecewiseRationalQuadraticCDF.create(
-                shape=[len(identity)], num_bins=num_bins,
+                shape=[len(identity), *(img_shape or ())], num_bins=num_bins,
                 tails=_tail_codes_array(tails, identity),
                 tail_bound=_tail_bound_array(tail_bound, identity),
                 min_bin_width=min_bin_width, min_bin_height=min_bin_height,
@@ -177,8 +171,11 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
                    min_bin_width, min_bin_height, min_derivative, device=device)
 
     def _coupling_transform(self, inputs, params, inverse: bool):
-        b, d = inputs.shape
-        params = params.reshape(b, d, -1)
+        if inputs.dim() == 4:  # (B, C*(3K+1), H, W) -> (B, C, H, W, 3K+1)
+            b, c, h, w = inputs.shape
+            params = params.reshape(b, c, -1, h, w).permute(0, 1, 3, 4, 2)
+        else:
+            params = params.reshape(*inputs.shape, -1)
         K = self.num_bins
         uw, uh, ud = params[..., :K], params[..., K:2 * K], params[..., 2 * K:]
         if self.net_hidden:
@@ -192,13 +189,15 @@ class PiecewiseRationalQuadraticCoupling(Coupling):
             return outputs, sum_except_batch(logabsdet)
         outputs, logabsdet = spline_flat.unconstrained_rational_quadratic_spline_flat(
             inputs, uw, uh, ud, self.tr_tail_codes, self.tr_tail_bound, inverse,
-            self.min_bin_width, self.min_bin_height, self.min_derivative, event_axis=-1)
+            self.min_bin_width, self.min_bin_height, self.min_derivative,
+            event_axis=1 if inputs.dim() == 4 else -1)
         return outputs, sum_except_batch(logabsdet)
 
 
 class PiecewiseRationalQuadraticCDF(Flow):
-    """Elementwise learned RQ spline: per-dim parameters of shape
-    (C, K) / (C, K) / (C, K+1), shared by the batch; ``tails=None`` is the
+    """Elementwise learned RQ spline: parameters of shape (*shape, K) /
+    (*shape, K) / (*shape, K+1), shared by the batch, the tails one per index
+    of ``shape``'s first axis (a channel of an image); ``tails=None`` is the
     constrained spline on [0, 1]."""
 
     def __init__(self, shape, num_bins: int = 10, tails=None, tail_bound=1.0,
@@ -209,8 +208,6 @@ class PiecewiseRationalQuadraticCDF(Flow):
         super().__init__()
         device = resolve_device(device)
         shape = (shape,) if isinstance(shape, int) else tuple(int(s) for s in shape)
-        if len(shape) > 1:
-            raise NotImplementedError(_IMAGES)
         if tails is None:
             codes = None
         elif isinstance(tails, str):

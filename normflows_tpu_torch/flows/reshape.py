@@ -1,5 +1,5 @@
-"""Feature-splitting flows (port of ``normflows_tpu/flows/reshape.py:20-99``):
-``Split`` and ``Merge``.  ``Squeeze`` waits for the Glow slice.
+"""Feature-splitting and squeeze flows (port of
+``normflows_tpu/flows/reshape.py``): ``Split``, ``Merge`` and ``Squeeze``.
 
 The checkerboard split gathers the elements of one parity of the summed
 trailing indices (the reference's parity recursion) with index tensors made
@@ -85,3 +85,21 @@ class Merge(Split):
 
     def inverse(self, z, context=None, *, generator=None):
         return super().forward(z, context)
+
+
+class Squeeze(Flow):
+    """Glow's multiscale squeeze on NCHW tensors: ``forward`` (sampling) is
+    depth-to-space, (C, H, W) -> (C/4, 2H, 2W); ``inverse`` (density) is
+    space-to-depth, each 2 x 2 block into 4 channels."""
+
+    def forward(self, z, context=None, *, generator=None):
+        b, c, h, w = z.shape
+        z = z.reshape(b, c // 4, 2, 2, h, w).permute(0, 1, 4, 2, 5, 3)
+        z = z.reshape(b, c // 4, 2 * h, 2 * w)
+        return z, zero_log_det_like_z(z)
+
+    def inverse(self, z, context=None, *, generator=None):
+        b, c, h, w = z.shape
+        z = z.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 1, 3, 5, 2, 4)
+        z = z.reshape(b, 4 * c, h // 2, w // 2)
+        return z, zero_log_det_like_z(z)

@@ -10,7 +10,9 @@ Each path names the port's tensor of the same name.  A parameter is copied;
 the (in, out) weights of ``Linear`` / ``MaskedLinear`` are transposed into
 torch's (out, in), and so are their masks.  A buffer drawn at random (one a
 module lists in its ``random_buffers``, such as a random permutation, which
-a torch generator cannot draw as a JAX key does) is copied too.  A buffer
+a torch generator cannot draw as a JAX key does) is copied too, and so is
+one it lists in its ``state_buffers`` (data-dependent state, such as
+ActNorm's ``initialized``).  A buffer
 the port recomputes (masks, degrees, ``input_order``, index buffers, scales)
 is held for equality instead.  The first path that is missing, extra, of the
 wrong shape or unequal raises, and the message names it.
@@ -51,7 +53,8 @@ def load_jax_leaves(model: torch.nn.Module, leaves: dict) -> torch.nn.Module:
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"load_jax_leaves: {path} has shape {value.shape}, "
                              f"the port's {name} {tuple(target.shape)}")
-        if name in params or attr in getattr(module, "random_buffers", ()):
+        copied = (*getattr(module, "random_buffers", ()), *getattr(module, "state_buffers", ()))
+        if name in params or attr in copied:
             with torch.no_grad():
                 target.copy_(torch.as_tensor(value, dtype=target.dtype))
         elif not np.array_equal(value, target.detach().cpu().numpy()):

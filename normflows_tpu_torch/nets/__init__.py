@@ -1,5 +1,6 @@
 """Parameter networks."""
 
+from .cnn import Conv2d, ConvNet2d, NetActNorm
 from .mlp import MLP, Linear
 from .made import MADE, MaskedLinear, MaskedResidualBlock
-from .resnet import ResidualBlock, ResidualNet
+from .resnet import ConvResidualBlock, ConvResidualNet, ResidualBlock, ResidualNet

@@ -3,6 +3,9 @@
 In PyTorch idiom the model and a ``torch.optim`` optimizer are updated in
 place.  ``torch.optim.Adam(params, lr=5e-4)`` is the counterpart of
 ``optax.adam(5e-4)``: both default to betas (0.9, 0.999) and eps 1e-8.
+``torch.optim.Adamax(params, lr, weight_decay=wd)`` is that of
+``optax.chain(optax.add_decayed_weights(wd), optax.adamax(lr))`` (Glow's):
+L2 added to the gradient, then the infinity moment max(b2 nu, |g| + eps).
 
 * :func:`make_train_step` runs one eager step a call and reads the loss on
   the host to decide the non-finite skip.
@@ -27,6 +30,8 @@ from torch import nn
 
 _LATER = "a later slice of the PyTorch port"
 WARMUP_STEPS = 2  # eager steps before a capture, on a side stream
+# the optimizers a chunk captures (each with capturable=True on the card)
+CHUNK_OPTIMIZERS = (torch.optim.Adam, torch.optim.AdamW, torch.optim.Adamax)
 
 
 @dataclass
@@ -69,6 +74,31 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return state, {"loss": loss.detach(), "finite": finite}
 
     return state, step_fn
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0) -> Callable:
+    """``optax.warmup_cosine_decay_schedule`` as a function of a step tensor
+    (see :func:`cosine_decay_schedule` for ``count``): a linear ramp from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    from ``peak_value`` to ``end_value`` over the other ``decay_steps -
+    warmup_steps``, held at ``end_value`` past the end."""
+    if warmup_steps <= 0 or decay_steps <= warmup_steps:
+        raise ValueError(f"need 0 < warmup_steps < decay_steps, got {warmup_steps}, "
+                         f"{decay_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = float(decay_steps - warmup_steps)
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        count = count.to(torch.float32)
+        ramp = init_value + (peak_value - init_value) * torch.clamp(
+            count, 0.0, float(warmup_steps)) / warmup_steps
+        t = torch.clamp(count - warmup_steps, max=cosine_steps)
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * t / cosine_steps))
+        decayed = peak_value * ((1.0 - alpha) * cosine + alpha)
+        return torch.where(count < warmup_steps, ramp, decayed)
+
+    return schedule
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable:
@@ -136,10 +166,11 @@ class _FlatState:
 
 
 def _materialize(optimizer):
-    """Give every parameter the optimizer state a fresh Adam gives it on its
-    first update (moments and step count zero), through one update on zero
-    gradients whose effect is then undone, so that the state exists before
-    the first step of a chunk copies it."""
+    """Give every parameter the optimizer state a fresh Adam or Adamax gives
+    it on its first update (moments and step count zero: Adam's
+    ``exp_avg`` / ``exp_avg_sq``, Adamax's ``exp_avg`` / ``exp_inf``),
+    through one update on zero gradients whose effect is then undone, so
+    that the state exists before the first step of a chunk copies it."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     missing = [p for p in params if not optimizer.state.get(p)]
     if not missing:
@@ -171,13 +202,13 @@ class _StepChunk:
         self.device = devices.pop()
         self.loss_fn, self.chunk_len = loss_fn, chunk_len
         self.batch_fn, self.schedule = batch_fn, schedule
-        if not isinstance(optimizer, torch.optim.Adam):
-            raise TypeError(f"a chunk takes torch.optim.Adam or AdamW, not "
+        if not isinstance(optimizer, CHUNK_OPTIMIZERS):
+            raise TypeError(f"a chunk takes torch.optim.Adam, AdamW or Adamax, not "
                             f"{type(optimizer).__name__}")
         if self.device.type == "cuda" and not all(g["capturable"]
                                                   for g in optimizer.param_groups):
             raise ValueError("a chunk on the card captures the optimizer in a CUDA "
-                             "graph: build it with torch.optim.Adam(..., capturable=True)")
+                             "graph: build it with capturable=True")
         self.state = TrainState(model, optimizer,
                                 torch.zeros((), dtype=torch.int64, device=self.device))
         self.index = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -304,14 +335,15 @@ def make_step_chunk(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     device where the loss is not finite (the parameters, ``exp_avg``,
     ``exp_avg_sq`` and Adam's ``step`` keep their values, as the JAX
     package's step keeps its optimizer state); the loss into the vector at a
-    device index; ``state.step`` plus one, skipped steps included.
+    device index; ``state.step`` plus one, skipped steps included.  The
+    same holds for Adamax (``exp_avg``, ``exp_inf``, ``step``).
 
     The first call moves the parameters and Adam's state tensors into one
     flat buffer for each dtype (each stays a tensor of its shape, now a view
     of the buffer), so that the skip copies and selects each buffer once.
 
-    On a CUDA model the optimizer must be ``torch.optim.Adam`` (or AdamW)
-    with ``capturable=True``.  The first call warms the step up on a side
+    On a CUDA model the optimizer must be ``torch.optim.Adam``, ``AdamW``
+    or ``Adamax`` with ``capturable=True``.  The first call warms the step up on a side
     stream with its updates undone, then captures one step in a CUDA graph
     (its generator registered with the graph, so that each replay draws
     anew), and every call replays it ``chunk_len`` times.  A capture that

@@ -1,7 +1,7 @@
 """NN helper layers (port of ``normflows_tpu/utils/nn.py``):
 ``PeriodicFeaturesElementwise``, which the circular spline's MADE uses as its
-preprocessing, ``ClampExp``, an output function of ``MLP``, the
-``sum_except_batch`` helper and ``net_dropout_active``."""
+preprocessing, ``ClampExp``, an output function of ``MLP``, ``ActNorm`` as a
+net layer, the ``sum_except_batch`` helper and ``net_dropout_active``."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from torch import nn
 from ..core.flow import sum_except_batch
 from ..ops.backend import resolve_device
 
-__all__ = ["ClampExp", "PeriodicFeaturesElementwise", "net_dropout_active",
+__all__ = ["ActNorm", "ClampExp", "PeriodicFeaturesElementwise", "net_dropout_active",
            "sum_except_batch"]
 
 
@@ -33,6 +33,24 @@ class ClampExp(nn.Module):
 
     def forward(self, x):
         return torch.clamp(torch.exp(self.lam * x), max=1.0)
+
+
+class ActNorm(nn.Module):
+    """The ActNorm flow as a net layer: its ``forward`` transform, without
+    the log-det (JAX ``utils/nn.py:33-47``)."""
+
+    def __init__(self, shape, *, device="cuda"):
+        super().__init__()
+        from ..flows.normalization import ActNorm as ActNormFlow
+
+        self.actnorm = ActNormFlow(shape, device=device)
+
+    @classmethod
+    def create(cls, shape, *, device="cuda"):
+        return cls(shape, device=device)
+
+    def forward(self, x):
+        return self.actnorm.forward(x)[0]
 
 
 class PeriodicFeaturesElementwise(nn.Module):

@@ -15,7 +15,7 @@
   ``log_prob``, ``sample`` on JAX's base draw, ``forward_kld`` and
   ``reverse_kld`` with every gradient leaf (1e-4, f32), bf16, and three
   ``make_train_step`` steps with Adam(5e-4);
-* what the port refuses: a context, dropout, 4-D inputs, ``tails=None``.
+* what the port refuses: batch norm; 4-D inputs of an MLP-net coupling.
 
 The JAX side runs its default CPU path (the jnp spline); the port runs the
 plain flat spline, which the CUDA kernel is held against on the card.
@@ -395,10 +395,14 @@ def test_three_train_steps_match_jax(jm):
 
 
 def test_what_the_port_refuses():
-    """4-D (image) inputs and batch norm stay refused.  A context, dropout
-    and constrained tails (``tails=None``), refused before, are built and
-    run: the context widens the net's input and gates its blocks, dropout
-    acts only with a generator, and the constrained spline keeps [0, 1]."""
+    """Batch norm stays refused.  A context, dropout and constrained tails
+    (``tails=None``), refused before, are built and run: the context widens
+    the net's input and gates its blocks, dropout acts only with a
+    generator, and the constrained spline keeps [0, 1].  Image (4-D)
+    inputs, refused before, run on a convolutional net (tests in
+    test_torch_image_nsf.py): a CDF on (2, 4, 4) events runs, and a 4-D
+    input to a coupled layer built for vectors (its CDF and its
+    ``ResidualNet``) fails."""
     net = ResidualNet(2, 4, 8, context_features=3, device="cpu")
     assert net.initial_layer.weight.shape == (8, 5)
     assert all(b.context_layer is not None for b in net.blocks)
@@ -418,10 +422,13 @@ def test_what_the_port_refuses():
     with torch.no_grad():
         y, _ = constrained.forward(torch.full((3, 2), 0.5))
     assert float(y.min()) >= 0.0 and float(y.max()) <= 1.0
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcoupling.PiecewiseRationalQuadraticCDF.create((2, 4, 4), tails="linear", device="cpu")
+    cdf = tcoupling.PiecewiseRationalQuadraticCDF.create((2, 4, 4), tails="linear",
+                                                         device="cpu")
+    with torch.no_grad():
+        y, ld = cdf.forward(torch.zeros(3, 2, 4, 4))
+    assert y.shape == (3, 2, 4, 4) and ld.shape == (3,)
     layer = tflows.CoupledRationalQuadraticSpline.create(None, 2, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises((RuntimeError, ValueError)):
         layer.forward(torch.zeros(3, 2, 4, 4))
     # a context given to a net built without one: its input is one wider than
     # the layer takes, as in the JAX package

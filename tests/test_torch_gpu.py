@@ -7,7 +7,9 @@ through the flat kernels and, with fusion on, the fused MADE, and a coupled
 NSF's through the flat kernels; the chunked trainer, its step captured in a
 CUDA graph and replayed, against eager steps, with no host sync inside a
 chunk and its kernels read from the profiler in every replay; conditional
-models through the planar kernels and the sliced inverse.
+models through the planar kernels and the sliced inverse; an image NSF
+through the flat kernels along ``event_axis = 1``, and a Glow's float32
+convolutions held to IEEE float32 (not TF32).
 
 Every test is marked ``gpu`` and skips where no CUDA card is present (decided
 at run time, in the ``cuda`` fixture).  This file imports no JAX, so that it
@@ -928,3 +930,91 @@ def test_conditional_sliced_inverse_matches_naive(cuda):
     close(ld, ld_t.sum(0), 1e-4)
     close(z, zc, 1e-3)
     close(ld, ldc, 1e-3)
+
+
+def image_nsf_model(device, layers=2, channels=4, hw=4, hidden=16):
+    """Model B of chip_smoke.py, cut: DiagGaussian((C, H, W)) and ``layers``
+    x (an image RQ coupling on a ConvResidualNet, Invertible1x1Conv with LU,
+    ActNorm)."""
+    flows = []
+    for i in range(layers):
+        gen = torch.Generator().manual_seed(30 + i)
+        flows += [
+            nft.flows.PiecewiseRationalQuadraticCoupling.create(
+                nft.utils.create_alternating_binary_mask(channels, even=i % 2 == 0),
+                lambda c_in, c_out: nft.nets.ConvResidualNet(c_in, c_out, hidden,
+                                                             generator=gen, device=device),
+                num_bins=8, tails="linear", tail_bound=3.0, device=device),
+            nft.flows.Invertible1x1Conv(channels, use_lu=True, generator=gen, device=device),
+            nft.flows.ActNorm((channels, 1, 1), device=device)]
+    return nft.NormalizingFlow.create(
+        nft.distributions.DiagGaussian((channels, hw, hw), device=device), flows,
+        device=device)
+
+
+@pytest.mark.gpu
+def test_image_coupling_runs_through_the_flat_kernel(cuda):
+    """A small image NSF on the card: one flat launch a coupling a pass (the
+    spline's inverse in the density direction), the backward in a
+    forward-KL step; the static-tail entry along ``event_axis = 1`` against
+    its plain version on the same operands; the card against the CPU."""
+    x = 1.5 * torch.randn(64, 4, 4, 4, generator=torch.Generator().manual_seed(3))
+    card, cpu = image_nsf_model(cuda), image_nsf_model("cpu")
+    card.init_actnorm(x.to(cuda))
+    cpu.load_state_dict(card.state_dict())
+    spline_flat.LAUNCHES = spline_flat.BACKWARD_LAUNCHES = 0
+    with torch.no_grad():
+        lp = card.log_prob(x.to(cuda))
+        torch.cuda.synchronize()
+        assert spline_flat.LAUNCHES == 2
+        close(lp, cpu.log_prob(x), 1e-3)
+        z = torch.randn(64, 4, 4, 4, generator=torch.Generator().manual_seed(4))
+        y, ld = card.forward_and_log_det(z.to(cuda))
+        yc, ldc = cpu.forward_and_log_det(z)
+    close(y, yc, 1e-4)
+    close(ld, ldc, 1e-3)
+    card.forward_kld(x.to(cuda)).backward()
+    torch.cuda.synchronize()
+    assert spline_flat.BACKWARD_LAUNCHES == 2
+    layer = card.flows[0]
+    xin = x.to(cuda)[:, layer.transform_features]
+    params = 0.5 * torch.randn(64, 2 * 25, 4, 4, device=cuda)
+    cpu_layer = cpu.flows[0]
+    for inverse in (False, True):
+        got = layer._coupling_transform(xin, params, inverse)
+        want = cpu_layer._coupling_transform(xin.cpu(), params.cpu(), inverse)
+        close(got[0], want[0], Y_TOL)
+        close(got[1], want[1], 1e-3)  # a sum of 32 log-dets, each within LD_TOL
+
+
+@pytest.mark.gpu
+def test_glow_float32_convolutions_are_not_tf32(cuda):
+    """A small class-conditional Glow on the card against the CPU in
+    float32, with the caller's cuDNN TF32 setting on: the convolutions run
+    in IEEE float32 (``nets.cnn.fp32_convs``), within 1e-4 on every level's
+    latents and 1e-2 nats on log_prob, and the setting comes back on."""
+    from normflows_tpu_torch.examples import glow_image
+
+    x, y = glow_image.synthetic_images(16, (3, 8, 8), 4, seed=1)
+    card = glow_image.build_glow(2, 2, 32, (3, 8, 8), 4, device=cuda, seed=1)
+    cpu = glow_image.build_glow(2, 2, 32, (3, 8, 8), 4, device="cpu", seed=1)
+    with torch.no_grad():
+        for p in card.parameters():
+            if p.dim() == 4 and not p.abs().any():
+                p.normal_(0.0, 0.05)
+    card.init_actnorm(x.to(cuda), y.to(cuda))
+    cpu.load_state_dict(card.state_dict())
+    prior = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            zg, _ = card.inverse_and_log_det(x.to(cuda))
+            lp = card.log_prob(x.to(cuda), y.to(cuda))
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prior
+    with torch.no_grad():
+        zc, _ = cpu.inverse_and_log_det(x)
+        assert float((lp.cpu() - cpu.log_prob(x, y)).abs().max()) <= 1e-2
+    for a, b in zip(zg, zc):
+        close(a, b, 1e-4)

@@ -218,10 +218,13 @@ def test_large_d_log_prob_bundle(fusion, large_d_pair, tmp_path):
 
 
 def test_what_export_refuses(tmp_path, monkeypatch):
+    """``class_cond=True`` asks for a class-conditional model (a
+    class-conditional ``MultiscaleFlow`` or a ``ClassCondFlow``, whose
+    bundles tests/test_torch_multiscale.py serves)."""
     _, tm = MODELS["real_nvp"]()
-    with pytest.raises(NotImplementedError, match="Glow slice"):
+    with pytest.raises(ValueError, match="class-conditional model"):
         serving.export_sampler(tm, 8, class_cond=True)
-    with pytest.raises(NotImplementedError, match="Glow slice"):
+    with pytest.raises(ValueError, match="class-conditional model"):
         serving.export_log_prob(tm, (2,), class_cond=True)
     with pytest.raises(ValueError, match="batch_size only applies"):
         serving.export_log_prob(tm, (2,), batch_size=16)

@@ -76,3 +76,33 @@ def test_large_d_log_prob_bundle_serves_every_batch_on_the_card(cuda, tmp_path):
         assert spline_flat.LAUNCHES == before + 2
         with torch.inference_mode():
             assert torch.equal(got, model.log_prob(x[:b]))
+
+
+@pytest.mark.gpu
+def test_class_conditional_glow_bundle_on_the_card(cuda, tmp_path):
+    """A small class-conditional Glow's bundle on the card (``class_cond=True``):
+    its sampler at given labels from a seed, eagerly and replayed as a CUDA
+    graph on (noise, y), and ``log_prob(x, y)`` at batches 1 and 16, bit
+    for bit against the live model; no kernel of the port launched."""
+    from normflows_tpu_torch import serving
+    from normflows_tpu_torch.examples import glow_image
+
+    x, y = glow_image.synthetic_images(16, (3, 8, 8), 4, seed=2)
+    x, y = x.to(cuda), y.to(cuda)
+    model = glow_image.build_glow(2, 2, 16, (3, 8, 8), 4, device=cuda, seed=2)
+    model.init_actnorm(x, y)
+    serving.save_bundle(model, str(tmp_path), 16, (3, 8, 8), class_cond=True)
+    bundle = serving.load_bundle(str(tmp_path))
+    labels = y.to(torch.int32)
+    with torch.inference_mode():
+        want = model.sample(16, y, generator=torch.Generator(device=cuda).manual_seed(5))
+    before = spline_flat.LAUNCHES + spline_cuda.LAUNCHES
+    eager = bundle.sample(5, labels, graphed=False)
+    bundle.sample(6, labels)  # captures
+    graphed = bundle.sample(5, labels)
+    assert spline_flat.LAUNCHES + spline_cuda.LAUNCHES == before
+    for got in (eager, graphed):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for b in (1, 16):
+        with torch.inference_mode():
+            assert torch.equal(bundle.log_prob(x[:b], y[:b]), model.log_prob(x[:b], y[:b]))
