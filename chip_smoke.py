@@ -67,7 +67,19 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   fused MADE off and on, and Real NVP, each loaded and held bit
   for bit against its live model, eagerly and as a replayed CUDA graph,
   with exact launches on the device counters, and the request routes
-  timed: phase serving_export.
+  timed: phase serving_export;
+* residual flows: model R, the port of ``examples/residual_twomoons.py``
+  (16 residual blocks of LipschitzMLP [2, 128, 128, 2] and ActNorm), its
+  log_prob in training mode (host-drawn horizons and probes) and in eval
+  mode against the CPU, its fixed-point sampler, reduce_memory against
+  none (values, gradients, peak memory), a LipschitzCNN against the CPU;
+  then the example as a user runs it, 1,000 chunked steps with the power
+  iteration inside the captured step, to a held-out bar, the captured
+  step's kernels by part, a captured chunk against eager steps: phases
+  residual_path, residual_train; the small flows: planar and radial flows
+  of ``examples/planar_radial_comparison.py`` on TwoModes, their first
+  steps against the CPU and 500 chunked reverse-KL steps each to a bar:
+  phase small_flows.  No kernel of the port runs on these paths.
 
 Every kernel on a model's path is reached through its ``torch.library``
 operator (``normflows_tpu_torch.ops.backend.kernel_op``).
@@ -150,7 +162,7 @@ LD_D, LD_HIDDEN, LD_BINS, LD_LAYERS, LD_BATCH = 64, 256, 8, 4, 4096
 LD_TAIL_BOUND = 3.0
 LD_CPU = 512  # samples of the card-against-CPU checks
 LD_TRAIN_STEPS = 20
-LD_TIMED_REPS = 3  # host medians of the large-D requests and steps (5 before PR 13)
+LD_TIMED_REPS = 2  # host medians of the large-D requests and steps (5 before PR 13, 3 before PR 14)
 # Flat kernel against its plain version: the JAX package's bars for the
 # runtime-tail entry (tests/test_pallas.py:427-428), 1e-5 on outputs and
 # 1e-4 on log-dets, for the static-tail entry (:41-42) 2e-5 and 2e-4, and
@@ -208,7 +220,7 @@ CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 100
 # norm), TIMED_CHUNK steps a timed chunk, the step made non-finite at
 # NAN_STEP; the coupled model's data set of CP_DATA TwoMoons points;
 # PROFILED_CHUNK steps a chunk profiled for the device time of a step
-CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 100, 2, 3, 2**16
+CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 100, 1, 3, 2**16
 PROFILED_CHUNK = 10
 # bf16 flagship, CONV_STEPS chunked steps (chunks of CONV_CHUNK) under cosine
 # decay over CONV_STEPS from bench.py's init, then KL(q||p) on CONV_HELD_OUT
@@ -236,11 +248,12 @@ RNVP_LR, RNVP_PARITY_STEPS = 5e-4, 50
 RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # serving: log_prob through one program at these batches; SERVE_REPS
 # requests a route's host median
-SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 10
+SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 5
 # host medians of the flagship's requests and eager steps (20 before PR 13;
 # PR 13 cut this, SERVE_REPS, LD_TIMED_REPS and TIMED_CHUNKS to make room for
-# the Glow phases)
-REQUEST_REPS = 10
+# the Glow phases; PR 14 cut it to 5, SERVE_REPS from 10 to 5, LD_TIMED_REPS
+# from 3 to 2 and TIMED_CHUNKS from 2 to 1 for the residual and small flows)
+REQUEST_REPS = 5
 
 # conditional flows.  Model A: examples/conditional_flow.py as published
 # (4 x (AR RQ spline on 2 features, 2 blocks of hidden 128, context 4, 8
@@ -329,6 +342,52 @@ Q_BPD = 2.7107 + max(0.05, 2.7259 - 2.6603)
 # against the CPU as model A's f32 (3,072 dims, as model A).
 IMG_C, IMG_HW, IMG_HIDDEN, IMG_BINS, IMG_LAYERS, IMG_BATCH = 12, 16, 128, 8, 4, 128
 IMG_N = IMG_BATCH * (IMG_C // 2) * IMG_HW * IMG_HW
+
+# Residual flows (PR 14).  Model R: examples/residual_twomoons.py as published
+# (16 x (Residual of LipschitzMLP([2, 128, 128, 2], L = 0.9, init_zeros) with
+# reduce_memory, ActNorm), DiagGaussian(2), batch 512, AdamW(3e-4, weight
+# decay 1e-5), update_lipschitz 50 after each step), ported as
+# normflows_tpu_torch.examples.residual_twomoons, trained RES_ITERS chunked
+# steps (chunks of RES_CHUNK) on its host-drawn data.  Its held-out mean log
+# q (2,048 points, eval mode) must be at least RES_LOG_Q: the JAX package on
+# the same weights, data and windows at seeds 0-2 on a CPU
+# (tests/test_torch_residual.py run as a script, before any card run):
+# -1.7741339, -1.7704459, -1.7838097; median - max(0.05, spread 0.0133638).
+# The path's checks take the model with each
+# net's last layer drawn at random (so that every block does work) at
+# RES_CPU points; its training-mode log_prob runs on host-drawn horizons and
+# probes.  Bars, card against CPU, from float32 against float64 on the CPU
+# (same model and draws): the CPU's float32 log_prob (~-2.0 nats) lies within
+# 1.65e-6 of float64 in training mode and 1.62e-6 in eval mode (brute-force
+# 2-D log-dets), within 7.8e-7 relative; the bars RES_TRAIN_TOL and
+# RES_EVAL_TOL, ~6x that, are atol = rtol.
+RES_K, RES_HIDDEN, RES_BATCH, RES_ITERS, RES_CHUNK, RES_CPU = 16, 128, 512, 1000, 100, 1024
+RES_MEM_BATCH = 2**14  # forward-KL batch of the peak-memory reading
+RES_EAGER_STEPS = 20  # a captured chunk against as many eager steps
+RES_PROFILED_CHUNK = 10
+RES_LOG_Q = -1.7741339 - max(0.05, -1.7704459 - -1.7838097)
+RES_TRAIN_TOL, RES_EVAL_TOL = 1e-5, 1e-5
+# sample then log_prob in eval mode: the largest |z - inverse(forward(z))| and
+# the median |log_prob(x) - log_q(x)|, the JAX package's round-trip bar
+# (tests/test_residual.py: rtol 1e-3); on the CPU 1.3e-5 and 4.8e-7
+RES_RT_TOL = 1e-3
+# LipschitzCNN [3, 32, 32, 3], kernels 3-1-3 (the three kernels take four
+# channel counts), on 3 x 16 x 16 images, batch 8: forward and one
+# update_lipschitz(net, 50) after moving its weights, the card against the
+# CPU in IEEE float32.  On the CPU float32 lies within 1.4e-8 of float64 on
+# the outputs (|y| <= 0.033), 1.5e-7 on u and v, 6.5e-7 on a scale (<= 6.7):
+# the bar, atol = rtol, is 1e-5
+CNN_TOL = 1e-5
+# Model P: examples/planar_radial_comparison.py's first prior (TwoModes(2.0,
+# 0.2)), planar and radial at K = 16, reverse KL on 512 draws a step with
+# Adam(1e-3), P_ITERS chunked steps; the reverse KL on 4,096 fresh draws must
+# be at most P_KLD[kind]: the JAX package on the port example's initial
+# weights at seeds 0-2 on a CPU (tests/test_torch_small_flows.py run as a
+# script, before any card run): median + max(0.05, spread).  Its first
+# P_PARITY_STEPS steps on host-drawn base noise within CPU_TOL of the CPU's.
+P_K, P_ITERS, P_CHUNK, P_PARITY_STEPS = 16, 500, 100, 50
+P_KLD = {"planar": -0.7777057 + max(0.05, -0.5963655 - -0.9525948),
+         "radial": -1.2269239 + max(0.05, -1.2171435 - -1.5506650)}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
@@ -4425,6 +4484,382 @@ def phase_glow_train():
         raise SystemExit("glow_train: a Glow run missed its bars")
 
 
+# ---- residual flows and the small flows (PR 14) ---------------------------------
+
+def build_residual(random_last=True):
+    """Model R (``examples.residual_twomoons.inputs`` at SEED) on the CPU, with
+    every net's last layer drawn ~ N(0, 1/in) and its power iteration run
+    (``random_last``), ActNorm set from the first batch.  Returns ``(model,
+    x_all, x_held_out)``; the card's copy is ``copy.deepcopy(model).to(DEVICE)``."""
+    from normflows_tpu_torch import flows
+    from normflows_tpu_torch.examples import residual_twomoons as example
+    from normflows_tpu_torch.utils import update_lipschitz
+
+    model, x_all, x_held = example.inputs(RES_K, SEED, "cpu", RES_HIDDEN)
+    if random_last:
+        gen = torch.Generator().manual_seed(SEED + 150)
+        with torch.no_grad():
+            for flow in model.flows:
+                if isinstance(flow, flows.Residual):
+                    w = flow.iresblock.nnet.layers[-1].weight
+                    w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(w.shape[1]))
+        update_lipschitz(model, 50)
+    model.init_actnorm(x_all[:RES_BATCH])
+    return model, x_all, x_held
+
+
+def residual_draws(n, seed):
+    """Host draws for one training-mode ``log_prob`` of model R on ``n``
+    points: each block's geometric(1/2) horizon, then its probe."""
+    rng = np.random.default_rng(seed)
+    draws = []
+    for _ in range(RES_K):
+        draws.append(rng.geometric(0.5, size=1).astype(np.float32))
+        draws.append(rng.normal(size=(n, 2)).astype(np.float32))
+    return draws
+
+
+@contextlib.contextmanager
+def fed_draws(draws):
+    """``flows.residual``'s draws taken from ``draws``, in order, on the
+    device and in the dtype asked for, for the block."""
+    from normflows_tpu_torch.flows import residual
+
+    queue = list(draws)
+    kept = residual.draw_horizon, residual.draw_probe
+    residual.draw_horizon = lambda g, n_dist, p, lamb, n, device: torch.as_tensor(
+        queue.pop(0), device=device)
+    residual.draw_probe = lambda g, shape, dtype, device: torch.as_tensor(
+        queue.pop(0), dtype=dtype, device=device)
+    try:
+        yield queue
+    finally:
+        residual.draw_horizon, residual.draw_probe = kept
+
+
+def residual_log_probs(models, x, train, draws=None):
+    """``log_prob(x)`` of each model (by device; training mode on ``draws``,
+    or eval mode), on the CPU."""
+    from normflows_tpu_torch.examples.residual_twomoons import set_train
+
+    out = {}
+    for where, model in models.items():
+        set_train(model, train)
+        with torch.no_grad(), (fed_draws(draws) if train else contextlib.nullcontext()):
+            out[where] = model.log_prob(x.to(where), generator=torch.Generator()).cpu()
+        set_train(model, True)
+    return out
+
+
+def build_lipschitz_cnn(device="cpu"):
+    from normflows_tpu_torch.nets import LipschitzCNN
+
+    return LipschitzCNN([3, 32, 32, 3], [3, 1, 3], (16, 16), lipschitz_const=0.9, init_zeros=False,
+                        generator=torch.Generator().manual_seed(SEED + 153), device=device)
+
+
+def lipschitz_cnn_readings(net, x):
+    """The net's output at ``x``, then, after its weights moved x1.5 and one
+    ``update_lipschitz(net, 50)``, its u, v, scale and output again."""
+    from normflows_tpu_torch.utils import update_lipschitz
+
+    with torch.no_grad():
+        out = {"y": net(x)}
+        for p in net.parameters():
+            if p.dim() == 4:
+                p.mul_(1.5)
+        update_lipschitz(net, 50)
+        out["y_updated"] = net(x)
+    for name, b in net.named_buffers():
+        out[name] = b
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def phase_residual_path():
+    """Model R at full width, f32: (a) its training-mode ``log_prob`` at
+    RES_CPU held-out points on host-drawn horizons and probes, and (b) its
+    eval-mode ``log_prob`` (brute-force 2-D log-dets), each the card against
+    the CPU; (c) in eval mode, ``sample`` of RES_CPU draws (each block's fixed
+    point iterated on the card, its test read once a block of steps) against
+    ``log_prob`` of the draws, and the round trip; (d) one forward-KL
+    gradient at RES_MEM_BATCH points with ``reduce_memory`` (the
+    rematerialised Neumann estimator) against the same estimator without it:
+    values, gradients and the peak device memory of each; (e) a LipschitzCNN
+    at 3 x 16 x 16, its forward and one update_lipschitz, the card against
+    the CPU in IEEE float32.  No kernel of the port runs on these paths: the
+    device counters must read 0."""
+    from normflows_tpu_torch.examples.residual_twomoons import set_train
+
+    cpu, x_all, x_held = build_residual()
+    card = copy.deepcopy(cpu).to(DEVICE)
+    models = {DEVICE: card, "cpu": cpu}
+    x = x_held[:RES_CPU]
+    r, ok = {}, True
+    with device_counters() as counts:
+        def checks():
+            got = {}
+            lp = residual_log_probs(models, x, True, residual_draws(RES_CPU, SEED + 151))
+            got["train_mode"] = {"excess": excess(lp[DEVICE], lp["cpu"], RES_TRAIN_TOL,
+                                                  RES_TRAIN_TOL),
+                                 "max_abs": float((lp[DEVICE] - lp["cpu"]).abs().max())}
+            lp = residual_log_probs(models, x, False)
+            got["eval_mode"] = {"excess": excess(lp[DEVICE], lp["cpu"], RES_EVAL_TOL,
+                                                 RES_EVAL_TOL),
+                                "max_abs": float((lp[DEVICE] - lp["cpu"]).abs().max()),
+                                "mean_log_q": float(lp[DEVICE].mean())}
+            set_train(card, False)
+            gen = torch.Generator(DEVICE).manual_seed(SEED + 152)
+            with torch.no_grad():
+                sync()
+                t0 = time.perf_counter()
+                z0 = torch.randn(RES_CPU, 2, generator=gen, device=DEVICE)
+                xs, ld = card.forward_and_log_det(z0)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                blocks = [f.iresblock.last_inverse for f in card.flows
+                          if hasattr(f, "iresblock")]
+                z_back, ld_back = card.inverse_and_log_det(xs)
+                log_q = card.q0.log_prob(z0) - ld
+                lp_x = card.log_prob(xs)
+            set_train(card, True)
+            got["round_trip"] = {
+                "max_abs_z": float((z_back - z0).abs().max()),
+                "max_abs_log_det": float((ld + ld_back).abs().max()),
+                "median_abs_log_q": float((lp_x - log_q).abs().median()),
+                "sample_ms": ms,
+                "fixed_point_steps": [int(b["steps"]) for b in blocks],
+                "fixed_point_host_reads": [b["host_reads"] for b in blocks]}
+            got["round_trip"]["ok"] = (got["round_trip"]["max_abs_z"] <= RES_RT_TOL
+                                       and got["round_trip"]["median_abs_log_q"] <= RES_RT_TOL)
+            return got
+
+        checked, launched = on_card(counts, checks)
+        r.update(checked)
+        r["launches"] = expect_launches("residual_path", launched, {})
+    ok = (r["train_mode"]["excess"] <= 0 and r["eval_mode"]["excess"] <= 0
+          and r["round_trip"]["ok"])
+    # (d) reduce_memory against none, peak memory at RES_MEM_BATCH
+    mem, grads = {}, {}
+    xb = x_all[:RES_MEM_BATCH].to(DEVICE)
+    for name, remat in (("reduce_memory", True), ("no_remat", False)):
+        model = copy.deepcopy(card)
+        for f in model.flows:
+            if hasattr(f, "iresblock"):
+                f.iresblock.grad_in_forward = remat
+        gen = torch.Generator(DEVICE).manual_seed(SEED + 154)
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss = model.forward_kld(xb, generator=gen)
+        loss.backward()
+        sync()
+        mem[name] = {"peak_bytes_above_start": torch.cuda.max_memory_allocated() - before,
+                     "seconds": time.perf_counter() - t0, "loss": float(loss)}
+        grads[name] = ({n: p.grad.detach().clone() for n, p in model.named_parameters()}, loss)
+        del model, loss
+    worst, gap = leaf_gap(grads["reduce_memory"][0], grads["no_remat"][0])
+    mem["loss_equal"] = bool(torch.equal(grads["reduce_memory"][1], grads["no_remat"][1]))
+    mem["worst_leaf"], mem["worst_relative_norm"] = worst, gap
+    r["reduce_memory"] = mem
+    ok = ok and mem["loss_equal"] and gap <= 1e-5
+    # (e) LipschitzCNN
+    net = build_lipschitz_cnn()
+    net_card = copy.deepcopy(net).to(DEVICE)
+    xi = torch.from_numpy(np.random.default_rng(SEED + 155).normal(
+        size=(8, 3, 16, 16)).astype(np.float32))
+    got = lipschitz_cnn_readings(net_card, xi.to(DEVICE))
+    want = lipschitz_cnn_readings(net, xi)
+    r["lipschitz_cnn"] = {k: excess(got[k], want[k], CNN_TOL, CNN_TOL) for k in got}
+    ok = ok and all(v <= 0 for v in r["lipschitz_cnn"].values())
+    emit("residual_path", ok=ok, results=r,
+         bars={"train_mode": RES_TRAIN_TOL, "eval_mode": RES_EVAL_TOL, "round_trip": RES_RT_TOL,
+               "reduce_memory_leaf": 1e-5, "lipschitz_cnn": CNN_TOL})
+    if not ok:
+        raise SystemExit("residual_path: a residual-flow check missed its bar")
+    return launched
+
+
+def captured_launches(fn, gen):
+    """``fn`` captured once in a CUDA graph (after two warm-up calls on a side
+    stream; ``gen`` registered with the graph), then replayed once under
+    torch.profiler: the kernels the replay ran."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        fn()
+    sync()
+    launches = kernel_shares(graph.replay)["kernel_launches"]
+    del graph
+    return launches
+
+
+def residual_chunk(steps, seed):
+    """Model R from the example's init (ActNorm set on its first batch) and its
+    chunked trainer as ``examples.residual_twomoons`` builds it, ``steps``
+    steps a call; returns ``(model, state, chunk, x_all)``."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import residual_twomoons as example
+
+    model, x_all, _ = build_residual(random_last=False)
+    model = model.to(DEVICE)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-5, capturable=True)
+    state, chunk = training.make_chunked_train_step(
+        model, opt, example.forward_kld_loss, x_all, RES_BATCH, steps, shuffle=False,
+        update_lipschitz_iters=example.LIPSCHITZ_ITERS)
+    return model, state, chunk, x_all
+
+
+def phase_residual_train():
+    """(a) ``examples.residual_twomoons`` as a user runs it on the card
+    (RES_ITERS steps in chunks of RES_CHUNK, the power iteration inside the
+    captured step): finite losses, the held-out mean log q at least
+    RES_LOG_Q; the count of block calls whose horizon exceeded the cap in the
+    captured steps (``flows.residual.CAPPED``); no kernel of the port; (b) a
+    profiled chunk of RES_PROFILED_CHUNK steps: ms and device ms a step, the
+    busy share; the kernels of a captured step by part, each part captured
+    alone (the forward with its estimator, forward and backward, the power
+    iteration; the optimizer and the skip the rest of the whole step); (c) a
+    captured chunk of RES_EAGER_STEPS steps against as many eager steps
+    (``make_train_step`` with ``update_lipschitz_iters=50``, the same
+    capturable AdamW, windows and generator seed)."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import residual_twomoons as example
+    from normflows_tpu_torch.flows import residual
+    from normflows_tpu_torch.utils import update_lipschitz
+
+    r = {}
+    capped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    residual.CAPPED = capped
+    printed = io.StringIO()
+    try:
+        with device_counters() as counts, contextlib.redirect_stdout(printed):
+            (_, record), launched = on_card(counts, lambda: example.main(
+                ["--iters", str(RES_ITERS), "--chunk", str(RES_CHUNK), "--seed", str(SEED),
+                 "--device", DEVICE]))
+        r["launches"] = expect_launches("residual_train", launched, {})
+    finally:
+        residual.CAPPED = None
+    r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1]}
+    r["capped_block_calls"] = int(capped)
+    ok = (record["non_finite_steps"] == 0 and record["held_out_log_q"] >= RES_LOG_Q
+          and record["samples_finite"])
+    # (b) a profiled chunk and the parts of a captured step
+    model, state, chunk, _ = residual_chunk(RES_PROFILED_CHUNK, SEED)
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 160)
+    chunk(state, gen)
+    sync()
+    t0 = time.perf_counter()
+    chunk(state, gen)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / RES_PROFILED_CHUNK
+    prof = kernel_shares(lambda: chunk(state, gen))
+    prof.pop("conv_share")  # no convolution here (cuBLAS's xmma GEMMs match its names)
+    step_launches = prof["kernel_launches"] / RES_PROFILED_CHUNK
+    r["profile"] = {**prof, "ms": ms, "device_ms": prof["device_ms"] / RES_PROFILED_CHUNK,
+                    "busy_share": prof["device_ms"] / RES_PROFILED_CHUNK / ms,
+                    "samples_per_s": RES_BATCH / (ms / 1e3)}
+    batch = torch.from_numpy(example.make_moons(np.random.default_rng(SEED + 161),
+                                                RES_BATCH)).to(DEVICE)
+    part_model = copy.deepcopy(model)
+    pgen = torch.Generator(DEVICE).manual_seed(SEED + 162)
+
+    def forward():
+        part_model.forward_kld(batch, generator=pgen)
+
+    def forward_backward():
+        part_model.zero_grad(set_to_none=True)
+        part_model.forward_kld(batch, generator=pgen).backward()
+
+    parts = {"forward_estimator": captured_launches(forward, pgen),
+             "forward_backward": captured_launches(forward_backward, pgen),
+             "power_iteration": captured_launches(
+                 lambda: update_lipschitz(part_model, example.LIPSCHITZ_ITERS), pgen)}
+    parts["backward"] = parts["forward_backward"] - parts["forward_estimator"]
+    parts["optimizer_and_skip"] = step_launches - parts["forward_backward"] - \
+        parts["power_iteration"]
+    parts["whole_step"] = step_launches
+    r["launches_by_part"] = parts
+    del part_model, model, state, chunk
+    # (c) captured against eager
+    model, state, chunk, x_all = residual_chunk(RES_EAGER_STEPS, SEED)
+    first = chunk(state, torch.Generator(DEVICE).manual_seed(SEED + 163))[1]["loss"]
+    eager, _, _, _ = residual_chunk(RES_EAGER_STEPS, SEED)
+    opt = torch.optim.AdamW(eager.parameters(), lr=3e-4, weight_decay=1e-5, capturable=True)
+    estate, step = training.make_train_step(eager, opt, example.forward_kld_loss,
+                                            update_lipschitz_iters=example.LIPSCHITZ_ITERS)
+    egen = torch.Generator(DEVICE).manual_seed(SEED + 163)
+    xd = x_all.to(DEVICE)
+    n = xd.shape[0]
+    eager_losses = []
+    for i in range(RES_EAGER_STEPS):
+        s = (i * RES_BATCH) % (n - RES_BATCH + 1)
+        estate, m = step(estate, xd[s:s + RES_BATCH], egen)
+        eager_losses.append(m["loss"])
+    r["against_eager"] = against_eager("residual_train", first, torch.stack(eager_losses),
+                                       model, eager)
+    r["against_eager"]["bit_equal_parameters"] = all(
+        torch.equal(p, q) for p, q in zip(model.parameters(), eager.parameters()))
+    emit("residual_train", ok=ok, results=r,
+         bars={"held_out_log_q_at_least": RES_LOG_Q, "against_eager": [CPU_TOL, STEP_G_TOL]},
+         note="run: examples.residual_twomoons as a user runs it (seconds include the "
+         "first chunk's capture; steady_step_ms leaves it out); profile: a "
+         f"{RES_PROFILED_CHUNK}-step chunk after its capture; launches_by_part: kernels "
+         "of a replay of each part captured alone, the optimizer and the skip being the "
+         "whole step's rest; capped_block_calls: block calls of the captured steps whose "
+         "horizon exceeded the cap (n_power_series_max)")
+    if not ok:
+        raise SystemExit("residual_train: model R missed its bar")
+    return launched
+
+
+def phase_small_flows():
+    """Model P (planar and radial, K = P_K, on TwoModes): (a) each model's first
+    P_PARITY_STEPS reverse-KL steps on host-drawn base noise, the card against
+    the CPU; (b) ``examples.planar_radial_comparison`` as a user runs it,
+    P_ITERS chunked steps a model: finite losses and the reverse KL on 4,096
+    fresh draws at most P_KLD; no kernel of the port."""
+    from normflows_tpu_torch.examples import planar_radial_comparison as example
+
+    r, ok = {"parity": {}}, True
+    for kind in ("planar", "radial"):
+        losses = {}
+        for where in (DEVICE, "cpu"):
+            model = example.build_model(kind, "TwoModes", P_K, SEED, where)
+            state, chunk = example.make_trainer(model, P_PARITY_STEPS,
+                                                example.host_noise(P_PARITY_STEPS, SEED + 1))
+            losses[where] = chunk(state)[1]["loss"].cpu()
+        gap = (losses[DEVICE] - losses["cpu"]).abs()
+        r["parity"][kind] = {"excess": excess(losses[DEVICE], losses["cpu"], CPU_TOL, CPU_TOL),
+                             "max_abs_loss_gap": float(gap.max()),
+                             "loss_card_last": float(losses[DEVICE][-1])}
+        ok = ok and r["parity"][kind]["excess"] <= 0
+    printed = io.StringIO()
+    with device_counters() as counts, contextlib.redirect_stdout(printed):
+        record, launched = on_card(counts, lambda: example.main(
+            ["--prior", "TwoModes", "--kind", "planar", "radial", "--iters", str(P_ITERS),
+             "--chunk", str(P_CHUNK), "--k", str(P_K), "--seed", str(SEED), "--device",
+             DEVICE]))
+    r["launches"] = expect_launches("small_flows", launched, {})
+    r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1]}
+    for run in record["runs"]:
+        run["within_bar"] = (run["non_finite_steps"] == 0
+                             and run["eval_reverse_kld"] <= P_KLD[run["kind"]])
+        ok = ok and run["within_bar"]
+    emit("small_flows", ok=ok, results=r, bars={"eval_reverse_kld_at_most": P_KLD,
+                                                "parity_loss": CPU_TOL})
+    if not ok:
+        raise SystemExit("small_flows: a small-flow run missed its bar")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -4479,6 +4914,7 @@ def main() -> int:
     phase_glow_train()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bundles_") as root:
         served = phase_serving_export(root, phase_realnvp(root))
+    new_paths = [phase_residual_path(), phase_residual_train(), phase_small_flows()]
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -4613,6 +5049,8 @@ def main() -> int:
         # and the image path's (phase image_nsf_path)
         entry["launches_conditional"] = cond_launches.get(entry["name"], 0)
         entry["launches_image"] = img_launches.get(entry["name"], 0)
+        # the residual and small flows' paths (0: no kernel of the port there)
+        entry["launches_residual_small"] = sum(p.get(entry["name"], 0) for p in new_paths)
         entry["launches"] += entry["launches_conditional"] + entry["launches_image"]
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]

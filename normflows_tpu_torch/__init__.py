@@ -35,6 +35,13 @@ Glow's image path: ``MultiscaleFlow`` (class-conditional or not) of
 ``transforms.Logit``, ``utils.preprocessing`` and ``utils.eval``
 (bits/dim); the coupling splines on images through ``nets.ConvResidualNet``.
 ``examples.glow_image`` trains a class-conditional Glow.
+Residual flows: ``flows.Residual`` on ``nets.LipschitzMLP`` /
+``LipschitzCNN``, trained with ``utils.update_lipschitz`` after each step
+(the trainers' ``update_lipschitz_iters``, inside a captured chunk too);
+``examples.residual_twomoons`` trains one.  The small flows
+(``flows.Planar``, ``Radial``, ``PeriodicWrap``, ``PeriodicShift``) and the
+Rezende–Mohamed energies of ``distributions.prior``;
+``examples.planar_radial_comparison`` trains them by reverse KL.
 ``examples.nsf_cylinder`` trains the flagship to convergence,
 ``examples.conditional_flow`` trains the conditional NSF and samples it,
 ``examples.real_nvp_twomoons`` trains Real NVP and serves it, and

@@ -14,8 +14,9 @@ the JAX package's rule, method by method:
   dropout acts only when one is passed;
 * ``sample``, ``sample_and_log_prob``, ``reverse_kld`` and
   ``reverse_alpha_div`` always draw, so where a net has
-  ``dropout_probability > 0`` the flows get the generator (torch's default
-  one for the device when the caller passes None) and dropout acts.
+  ``dropout_probability > 0``, or a residual block's log-det estimator is
+  stochastic, the flows get the generator (torch's default one for the
+  device when the caller passes None) and dropout acts.
 
 One generator serves the base and every layer in turn, where the JAX
 package splits its key into one per layer.  The detached second pass of
@@ -128,26 +129,31 @@ class NormalizingFlow(_Saved, nn.Module):
                                  f"not on {device}")
         return model
 
-    def _has_dropout(self) -> bool:
-        """Whether a block of a flow's net now has ``dropout_probability >
-        0``.  The blocks that carry the setting are found by a search of
-        every module (~0.3 ms of host time on the flagship), made again
-        whenever ``self.flows`` holds other flows than at the last search;
-        their settings are read at every call, as the flows read them.  A
-        net swapped inside a flow after a call is not seen."""
+    def _draws(self) -> bool:
+        """Whether a flow now draws: a block of a flow's net has
+        ``dropout_probability > 0``, or a residual block's log-det
+        estimator is stochastic in its current mode
+        (``iResBlock.log_det_draws``).
+        The modules that carry either are found by a search of every module
+        (~0.3 ms of host time on the flagship), made again whenever
+        ``self.flows`` holds other flows than at the last search; their
+        settings are read at every call, as the flows read them.  A net
+        swapped inside a flow after a call is not seen."""
         flows = tuple(self.flows)
-        found = self.__dict__.get("_dropout_blocks")
+        found = self.__dict__.get("_drawing_modules")
         if found is None or found[0] != flows:
             found = (flows, [m for m in self.flows.modules()
-                             if hasattr(m, "dropout_probability")])
-            self.__dict__["_dropout_blocks"] = found
-        return any(m.dropout_probability > 0.0 for m in found[1])
+                             if hasattr(m, "dropout_probability")
+                             or hasattr(m, "log_det_draws")])
+            self.__dict__["_drawing_modules"] = found
+        return any(m.log_det_draws() if hasattr(m, "log_det_draws")
+                   else m.dropout_probability > 0.0 for m in found[1])
 
     def _drawing(self, generator, device) -> Optional[torch.Generator]:
         """The generator the flows get in a method that always draws: the
-        caller's, or the device's default one, where a net has dropout;
-        None (no dropout) otherwise."""
-        if not self._has_dropout():
+        caller's, or the device's default one, where a flow draws (dropout,
+        a residual block's estimator); None otherwise."""
+        if not self._draws():
             return None
         return generator if generator is not None else _default_generator(device)
 

@@ -1,7 +1,8 @@
 """Flow layers of the port: the autoregressive and coupled RQ splines (on
 vectors and on images), the affine autoregressive and coupling flows (Real
 NVP), Glow's block and its parts (ActNorm, the invertible 1x1 convolution,
-the squeeze), the other mixing flows, BatchNorm and the feature split."""
+the squeeze), the other mixing flows, BatchNorm, the feature split, residual
+flows, and the planar, radial and periodic flows."""
 
 from ..core.flow import Flow, Reverse, Composite, Identity, zero_log_det_like_z
 from . import base
@@ -17,6 +18,10 @@ from .affine.glow import GlowBlock
 from .reshape import Merge, Split, Squeeze
 from .mixing import Invertible1x1Conv, InvertibleAffine, LULinearPermute, Permute
 from .normalization import ActNorm, BatchNorm
+from .periodic import PeriodicShift, PeriodicWrap
+from .planar import Planar
+from .radial import Radial
+from .residual import Residual, iResBlock
 from .neural_spline import (
     MaskedPiecewiseRationalQuadraticAutoregressive,
     AutoregressiveRationalQuadraticSpline,
@@ -56,4 +61,10 @@ __all__ = [
     "PiecewiseRationalQuadraticCDF",
     "CoupledRationalQuadraticSpline",
     "CircularCoupledRationalQuadraticSpline",
+    "Residual",
+    "iResBlock",
+    "Planar",
+    "Radial",
+    "PeriodicWrap",
+    "PeriodicShift",
 ]

@@ -52,6 +52,12 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False on a
+    build without CUDA)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def count_launch(counts, backward: bool, inverse: bool):
     """Add one to ``counts[backward][inverse]`` on the device, when
     ``counts`` (a wrapper's ``DEVICE_LAUNCHES``: None, or an int64 (2, 2)

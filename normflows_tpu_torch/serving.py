@@ -60,6 +60,7 @@ from torch import nn
 
 from .core.facades import ClassCondFlow, MultiscaleFlow, _LogProb, compact_copy
 from .distributions.base import draw_noise
+from .flows.residual import iResBlock
 from .nets.cnn import fp32_convs
 from .ops import backend, made_fused, spline_cuda, spline_flat  # noqa: F401  (the ops)
 from .ops.backend import resolve_device
@@ -96,7 +97,14 @@ def _check_class_cond(model, class_cond: bool):
 
 def _prepared(model, device):
     """A compact copy of ``model`` (``core.facades.compact_copy``) on
-    ``device`` (default: where the model lies), in eval mode."""
+    ``device`` (default: where the model lies), in eval mode.  A residual
+    flow is refused: its fixed-point inverse and its log-det series loop a
+    number of times the data decide."""
+    if any(isinstance(m, iResBlock) for m in model.modules()):
+        raise NotImplementedError(
+            "a residual flow (flows.Residual) has no serving bundle yet: its fixed-point "
+            "inverse loops a data-dependent number of times; it waits for a later slice "
+            "of the PyTorch port")
     if device is None:
         device = next(iter([*model.parameters(), *model.buffers()])).device
     return compact_copy(model).to(resolve_device(device)).eval()

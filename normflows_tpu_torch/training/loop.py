@@ -28,7 +28,8 @@ from typing import Callable, Optional, Union
 import torch
 from torch import nn
 
-_LATER = "a later slice of the PyTorch port"
+from ..utils.optim import update_lipschitz
+
 WARMUP_STEPS = 2  # eager steps before a capture, on a side stream
 # the optimizers a chunk captures (each with capturable=True on the card)
 CHUNK_OPTIMIZERS = (torch.optim.Adam, torch.optim.AdamW, torch.optim.Adamax)
@@ -57,10 +58,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     step count), as the reference notebooks' ``if not (isnan | isinf)`` loss
     skip does; masking only the gradients would still move Adam.  Deciding
     that reads the loss on the host once a step, after the backward has
-    been queued."""
-    if update_lipschitz_iters is not None:
-        raise NotImplementedError(
-            f"update_lipschitz_iters (residual flows) waits for {_LATER}")
+    been queued.
+
+    With ``update_lipschitz_iters`` (residual flows), power iteration runs
+    ``utils.optim.update_lipschitz(model, update_lipschitz_iters)`` after
+    the update on every step, skipped ones included, as in the JAX
+    package."""
     state = TrainState(model, optimizer)
 
     def step_fn(state: TrainState, batch, generator: Optional[torch.Generator] = None):
@@ -70,6 +73,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         finite = bool(torch.isfinite(loss))
         if finite:
             state.optimizer.step()
+        if update_lipschitz_iters is not None:
+            update_lipschitz(state.model, update_lipschitz_iters)
         state.step += 1
         return state, {"loss": loss.detach(), "finite": finite}
 
@@ -194,7 +199,8 @@ def _materialize(optimizer):
 class _StepChunk:
     """``chunk_len`` optimizer steps a call (see :func:`make_step_chunk`)."""
 
-    def __init__(self, model, optimizer, loss_fn, chunk_len, batch_fn, schedule):
+    def __init__(self, model, optimizer, loss_fn, chunk_len, batch_fn, schedule,
+                 update_lipschitz_iters):
         devices = {p.device for p in model.parameters()}
         if len(devices) != 1:
             raise ValueError(f"the model's parameters lie on {sorted(map(str, devices))}: "
@@ -202,6 +208,7 @@ class _StepChunk:
         self.device = devices.pop()
         self.loss_fn, self.chunk_len = loss_fn, chunk_len
         self.batch_fn, self.schedule = batch_fn, schedule
+        self.lipschitz_iters = update_lipschitz_iters
         if not isinstance(optimizer, CHUNK_OPTIMIZERS):
             raise TypeError(f"a chunk takes torch.optim.Adam, AdamW or Adamax, not "
                             f"{type(optimizer).__name__}")
@@ -257,6 +264,8 @@ class _StepChunk:
             self.flat.save()
             state.optimizer.step()
             self.flat.keep_if(keep)
+            if self.lipschitz_iters is not None:
+                update_lipschitz(state.model, self.lipschitz_iters)
             self.losses.index_copy_(0, self.index, loss.detach().reshape(1).float())
             self.index.add_(1)
             state.step.add_(1)
@@ -319,7 +328,8 @@ class _StepChunk:
 
 def make_step_chunk(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
                     chunk_len: int = 10, batch_fn: Optional[Callable] = None,
-                    schedule: Optional[Callable] = None):
+                    schedule: Optional[Callable] = None,
+                    update_lipschitz_iters: Optional[int] = None):
     """Build ``(state, chunk_fn)``: ``chunk_len`` optimizer steps a call,
     with no host read inside them.
 
@@ -334,9 +344,14 @@ def make_step_chunk(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     learning rates; the loss and its backward; Adam's update, undone on the
     device where the loss is not finite (the parameters, ``exp_avg``,
     ``exp_avg_sq`` and Adam's ``step`` keep their values, as the JAX
-    package's step keeps its optimizer state); the loss into the vector at a
-    device index; ``state.step`` plus one, skipped steps included.  The
-    same holds for Adamax (``exp_avg``, ``exp_inf``, ``step``).
+    package's step keeps its optimizer state); with
+    ``update_lipschitz_iters``, ``utils.optim.update_lipschitz`` on the
+    updated model, writing each induced-norm layer's ``u``, ``v`` and
+    ``scale`` in place (so that the graph's addresses hold; the warm-up's
+    writes are undone with the model's other buffers); the loss into the
+    vector at a device index; ``state.step`` plus one, skipped steps
+    included.  The same holds for Adamax (``exp_avg``, ``exp_inf``,
+    ``step``).
 
     The first call moves the parameters and Adam's state tensors into one
     flat buffer for each dtype (each stays a tensor of its shape, now a view
@@ -357,7 +372,8 @@ def make_step_chunk(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     count the warm-up and the captured step, not the replays."""
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be at least 1, got {chunk_len}")
-    chunk = _StepChunk(model, optimizer, loss_fn, chunk_len, batch_fn, schedule)
+    chunk = _StepChunk(model, optimizer, loss_fn, chunk_len, batch_fn, schedule,
+                       update_lipschitz_iters)
     return chunk.state, chunk
 
 
@@ -381,9 +397,6 @@ def make_chunked_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     Returns ``(state, chunk_fn)``, ``chunk_fn(state, generator=None) ->
     (state, {"loss": (chunk_len,) tensor})``; see :func:`make_step_chunk`
     for the step, the capture and the optimizer it takes."""
-    if update_lipschitz_iters is not None:
-        raise NotImplementedError(
-            f"update_lipschitz_iters (residual flows) waits for {_LATER}")
     data = tuple(data) if isinstance(data, (tuple, list)) else (data,)
     n = data[0].shape[0]
     if batch_size > n:
@@ -400,4 +413,5 @@ def make_chunked_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         batch = tuple(d.index_select(0, idx) for d in data)
         return batch[0] if len(batch) == 1 else batch
 
-    return make_step_chunk(model, optimizer, loss_fn, chunk_len, batch_fn, schedule)
+    return make_step_chunk(model, optimizer, loss_fn, chunk_len, batch_fn, schedule,
+                           update_lipschitz_iters)

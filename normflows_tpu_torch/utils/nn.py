@@ -1,7 +1,8 @@
 """NN helper layers (port of ``normflows_tpu/utils/nn.py``):
 ``PeriodicFeaturesElementwise``, which the circular spline's MADE uses as its
-preprocessing, ``ClampExp``, an output function of ``MLP``, ``ActNorm`` as a
-net layer, the ``sum_except_batch`` helper and ``net_dropout_active``."""
+preprocessing, ``PeriodicFeaturesCat``, ``ClampExp``, an output function of
+``MLP``, ``ConstScaleLayer``, ``ActNorm`` as a net layer, the ``tile`` and
+``sum_except_batch`` helpers and ``net_dropout_active``."""
 
 from __future__ import annotations
 
@@ -12,8 +13,8 @@ from torch import nn
 from ..core.flow import sum_except_batch
 from ..ops.backend import resolve_device
 
-__all__ = ["ActNorm", "ClampExp", "PeriodicFeaturesElementwise", "net_dropout_active",
-           "sum_except_batch"]
+__all__ = ["ActNorm", "ClampExp", "ConstScaleLayer", "PeriodicFeaturesCat",
+           "PeriodicFeaturesElementwise", "net_dropout_active", "sum_except_batch", "tile"]
 
 
 def net_dropout_active(net, generator) -> bool:
@@ -22,6 +23,22 @@ def net_dropout_active(net, generator) -> bool:
     (the JAX package's key; the reference's ``model.train()``)."""
     return generator is not None and any(
         getattr(b, "dropout_probability", 0.0) > 0.0 for b in getattr(net, "blocks", ()))
+
+
+def tile(x, n: int):
+    """Element-wise repeat: [x1, x2, ...] -> [x1] * n + [x2] * n + ..."""
+    return torch.repeat_interleave(torch.reshape(x, (-1,)), n)
+
+
+class ConstScaleLayer(nn.Module):
+    """Multiply by a fixed constant."""
+
+    def __init__(self, scale: float = 1.0):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        return x * self.scale
 
 
 class ClampExp(nn.Module):
@@ -100,3 +117,22 @@ class PeriodicFeaturesElementwise(nn.Module):
             feat = torch.tanh(feat)
         out = torch.cat([feat, x_t[self.rest_ind, :]], dim=0)
         return out[self.inv_perm, :]
+
+
+class PeriodicFeaturesCat(nn.Module):
+    """sin and cos of the periodic dims ``ind`` (times ``scale``), then the
+    other dims, concatenated on the last axis."""
+
+    def __init__(self, ndim: int, ind, scale=1.0, *, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        ind = np.asarray(ind, np.int64).reshape(-1)
+        rest = np.asarray([i for i in range(ndim) if i not in set(ind.tolist())], np.int64)
+        scale = np.broadcast_to(np.asarray(scale, np.float32), (ind.shape[0],)).copy()
+        self.register_buffer("ind", torch.as_tensor(ind, device=device))
+        self.register_buffer("rest_ind", torch.as_tensor(rest, device=device))
+        self.register_buffer("scale", torch.as_tensor(scale, device=device))
+
+    def forward(self, x):
+        f = x[..., self.ind] * self.scale
+        return torch.cat([torch.sin(f), torch.cos(f), x[..., self.rest_ind]], dim=-1)

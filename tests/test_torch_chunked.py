@@ -136,8 +136,12 @@ def test_tuple_data_and_oversized_batch():
     assert metrics["loss"].shape == (2,) and int(state.step) == 2
     with pytest.raises(ValueError, match="exceeds dataset size"):
         training.make_chunked_train_step(model, opt, loss_fn, (x, y), batch_size=512)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        training.make_chunked_train_step(model, opt, loss_fn, x, 8, update_lipschitz_iters=1)
+    # power iteration after each step (residual flows) runs on any model
+    other = torch_model()
+    lstate, lchunk = training.make_chunked_train_step(
+        other, torch.optim.Adam(other.parameters(), lr=LR), loss_fn, (x, y), 64, 2,
+        update_lipschitz_iters=1)
+    assert torch.isfinite(lchunk(lstate)[1]["loss"]).all() and int(lstate.step) == 2
     with pytest.raises(TypeError, match="Adam"):
         training.make_step_chunk(model, torch.optim.SGD(model.parameters(), lr=LR), loss_fn)
 

@@ -1018,3 +1018,111 @@ def test_glow_float32_convolutions_are_not_tf32(cuda):
         assert float((lp.cpu() - cpu.log_prob(x, y)).abs().max()) <= 1e-2
     for a, b in zip(zg, zc):
         close(a, b, 1e-4)
+
+
+@pytest.mark.gpu
+def test_horizon_draws_capture_with_a_registered_generator(cuda):
+    """``Tensor.geometric_`` and ``torch.poisson`` (the residual flows'
+    horizons) captured in a CUDA graph with their generator registered:
+    each replay draws anew, and the replays draw what eager calls from the
+    same seed draw."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    rates = torch.full((64,), 2.0, device=cuda)
+
+    def draw():
+        return (torch.empty(64, device=cuda).geometric_(0.5, generator=gen),
+                torch.poisson(rates, generator=gen))
+
+    eager = [draw() for _ in range(3)]
+    gen.manual_seed(3)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = draw()
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(tuple(t.clone() for t in out))
+    assert not torch.equal(replays[0][0], replays[1][0])
+    for (g, p), (eg, ep) in zip(replays, eager):
+        assert torch.equal(g, eg) and torch.equal(p, ep)
+        assert bool((g >= 1).all())
+
+
+@pytest.mark.gpu
+def test_power_iteration_to_a_tolerance_raises_under_capture(cuda):
+    from normflows_tpu_torch.nets import InducedNormLinear
+
+    layer = InducedNormLinear(8, 8, n_iterations=None, atol=1e-3, rtol=1e-3, device=cuda)
+    layer.update_power_iteration()  # eagerly: to the tolerance
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="fixed n_iterations"):
+        with torch.cuda.graph(graph):
+            layer.update_power_iteration()
+
+
+@pytest.mark.gpu
+def test_residual_chunk_with_power_iteration_matches_eager_steps(cuda):
+    """A K = 2 residual model (hidden 32) on the card: a captured chunk of 10
+    forward-KL AdamW steps with ``update_lipschitz_iters=50`` (each block's
+    series capped, the power iteration inside the graph) against 10 eager
+    steps (the series to the sampled horizon) from the same weights,
+    windows and generator seed: the losses within 1e-5 and every parameter
+    and power-iteration buffer within 1e-5 of its norm."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import residual_twomoons as example
+
+    def build():
+        model, x_all, _ = example.inputs(2, 0, "cpu", hidden=32)
+        model.init_actnorm(x_all[:128])
+        return model.to(cuda), x_all
+
+    def adamw(m):
+        return torch.optim.AdamW(m.parameters(), lr=1e-3, weight_decay=1e-5, capturable=True)
+
+    model, x_all = build()
+    state, chunk = training.make_chunked_train_step(
+        model, adamw(model), example.forward_kld_loss, x_all, 128, 10, shuffle=False,
+        update_lipschitz_iters=50)
+    losses = chunk(state, torch.Generator(cuda).manual_seed(5))[1]["loss"]
+    eager, _ = build()
+    estate, step = training.make_train_step(eager, adamw(eager), example.forward_kld_loss,
+                                            update_lipschitz_iters=50)
+    gen = torch.Generator(cuda).manual_seed(5)
+    xd = x_all.to(cuda)
+    eager_losses = torch.stack([step(estate, xd[i * 128:(i + 1) * 128], gen)[1]["loss"]
+                                for i in range(10)])
+    close(losses, eager_losses, 1e-5)
+    got = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    for name, want in [*eager.named_parameters(), *eager.named_buffers()]:
+        if want.is_floating_point():
+            gap = float(torch.linalg.vector_norm(got[name] - want) /
+                        torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
+            assert gap <= 1e-5, name
+
+
+@pytest.mark.gpu
+def test_lipschitz_cnn_float32_gradients_are_not_tf32(cuda):
+    """A LipschitzCNN's float32 forward and weight gradients on the card,
+    with the caller's cuDNN TF32 setting on, against the CPU: within 1e-4
+    of their norms (TF32 operands, 10 mantissa bits, miss that by ~10x)."""
+    from normflows_tpu_torch.nets import LipschitzCNN
+
+    cpu = LipschitzCNN([3, 16, 3], [3, 3], (8, 8), 0.9, init_zeros=False,
+                       generator=torch.Generator().manual_seed(0), device="cpu")
+    card = LipschitzCNN([3, 16, 3], [3, 3], (8, 8), 0.9, init_zeros=False,
+                        generator=torch.Generator().manual_seed(0), device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    x, w = torch.randn(16, 3, 8, 8, generator=gen), torch.randn(16, 3, 8, 8, generator=gen)
+    prior = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        (card(x.to(cuda)) * w.to(cuda)).sum().backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prior
+    (cpu(x) * w).sum().backward()
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        gap = float(torch.linalg.vector_norm(a.grad.cpu() - b.grad) /
+                    torch.linalg.vector_norm(b.grad))
+        assert gap <= 1e-4, name
