@@ -80,6 +80,19 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   of ``examples/planar_radial_comparison.py`` on TwoModes, their first
   steps against the CPU and 500 chunked reverse-KL steps each to a bar:
   phase small_flows.  No kernel of the port runs on these paths.
+* stochastic flows, HAIS, the flow-VAE and the new bases: MH, HMC, a
+  5-rung HAIS ladder, the SNF of ``examples/snf_hais.py`` and the bases
+  ``GaussianMixture``, ``GaussianPCA`` and ``AffineGaussian`` on host-drawn
+  draws, the card against the CPU, and the HMC SNF's gradients (its step
+  size and mass through a double backward); the example's HAIS ladder
+  (4,096 chains, 30 rungs) eager and captured, its log Z against
+  TwoMoons' quadrature; the SNF's reverse-KL step captured in 20-step
+  chunks (MH and HMC) bit-equal to eager steps; ``examples.vae_flow`` and
+  ``plain_vae`` as a user runs them, 960 chunked steps each, to held-out
+  -ELBO bars; ``examples.change_base`` on the inputs of the JAX replays
+  that set its bars, both bases, 2,000 chunked steps each: phases
+  stochastic_path, hais, snf_train, vae_train, change_base.  No kernel of
+  the port runs on these paths.
 
 Every kernel on a model's path is reached through its ``torch.library``
 operator (``normflows_tpu_torch.ops.backend.kernel_op``).
@@ -4860,6 +4873,472 @@ def phase_small_flows():
     return launched
 
 
+# ---- stochastic flows, HAIS, the flow-VAE and the new bases ----------------
+#
+# Bars set on the CPU before any card run (float32 against float64 on the
+# same inputs and draws, ``stochastic_values`` / ``snf_hmc_grads`` with
+# DEVICE "cpu"; the measured gaps in PERF.md).  No kernel of the port
+# runs on these paths: the device counters must read 0.
+ST_N, ST_HAIS_CHAINS, ST_HAIS_BETAS = 1024, 64, 7  # 7 betas: 5 rungs
+# float32 against float64 on the CPU, the largest |gap| of each reading of
+# stochastic_values (before any card run); the bar, card against CPU,
+# is 10x it (atol; rtol 0).  No chain's accept decision differed.
+ST_F64_GAP = {"mh_z": 4.122e-07, "mh_log_det": 3.924e-05, "hmc_z": 2.003e-05,
+              "hmc_log_det": 2.981e-04, "hais_z": 1.675e-06, "hais_log_w": 6.691e-06,
+              "snf_z": 6.645e-07, "snf_log_q": 1.920e-05, "mixture_z": 1.816e-07,
+              "mixture_from_noise": 1.305e-06, "mixture_log_prob": 6.467e-05,
+              "pca_z": 4.110e-07, "pca_from_noise": 1.191e-06, "pca_log_prob": 1.371e-05,
+              "affine_z": 6.326e-07, "affine_from_noise": 1.710e-06,
+              "affine_log_prob": 2.562e-06}
+ST_TOL = {k: (10 * v, 0.0) for k, v in ST_F64_GAP.items()}
+# HAIS at the example's size (4,096 chains, 30 rungs of 10 leapfrog steps):
+# TwoMoons' log normaliser by quadrature (snf_hais.two_moons_log_z, a 0.002
+# grid over [-5, 5]^2; a 0.004 grid agrees to 1e-15); |log Z - LOG_Z| must be
+# at most max(0.02, 4 SE), SE = std(w) / (mean(w) sqrt(n)).
+LOG_Z = 0.804214
+HAIS_REPS = 3  # timed samples of each route
+SNF_CHUNK, SNF_LR = 20, 1e-3  # reverse KL on the example's 1,024 draws a step
+VAE_PARITY_STEPS = 50
+# held-out -ELBO bars: the JAX package on the port example's initial weights
+# and host-drawn inputs, seeds 0-2 (tests/test_torch_vae.py run as a script,
+# before any card run): median + max(1% of |median|, spread)
+# K = 10: 293.3150330, 293.4559937, 293.1141357; K = 0: 292.2012329,
+# 292.9387207, 293.4273376
+VAE_NEG_ELBO = {10: 293.3150329589844 + max(0.01 * 293.3150329589844,
+                                            293.45599365234375 - 293.1141357421875),
+                0: 292.938720703125 + max(0.01 * 292.938720703125,
+                                          293.4273376464844 - 292.20123291015625)}
+# The example's first VAE_PARITY_STEPS steps, float32 against float64 on the
+# CPU: the losses (~540-600 nats) within 2.19e-5 of each other, relative; the
+# bar, card against CPU, is 10x it
+VAE_REL = 10 * 2.187e-5
+# held-out NLL bars: the same for change_base (tests/test_torch_bases.py):
+# median + max(0.05, spread)
+# gaussian: 1.5697944, 1.5788121, 1.5848802 (seeds 0-2); mixture: 1.5615989,
+# 1.5735973, 1.5825592 (the example offsets the mixture's seed by 1: 1-3)
+# The example's first CB_PARITY_STEPS steps on host inputs, the card against
+# the CPU: the port's standing bar, CPU_TOL (absolute), as small_flows and
+# glow_train hold theirs.  (Float32 against float64 on the CPU differ by
+# 3.5e-7 / 5.2e-7 over these steps, but the card's capturable Adam rounds its
+# bias corrections on the device, which that reading does not exercise.)
+CB_PARITY_STEPS = 20
+CB_NLL = {"gaussian": 1.5788121223449707 + max(0.05, 1.5848802328109741 - 1.5697944164276123),
+          "mixture": 1.5735973119735718 + max(0.05, 1.5825592279434204 - 1.5615988969802856)}
+
+
+def mcmc_noise(rng, layer, n, dtype=np.float32):
+    """Host draws of one MCMC layer's noise on ``n`` chains: MH's (eps, w) of
+    (steps, n, 2) and (steps, n), HMC's (p_eps, u)."""
+    if hasattr(layer, "proposal"):
+        return (rng.normal(size=(layer.steps, n, 2)).astype(dtype),
+                rng.uniform(size=(layer.steps, n)).astype(dtype))
+    return rng.normal(size=(n, 2)).astype(dtype), rng.uniform(size=n).astype(dtype)
+
+
+def noise_on(noise, device, dtype):
+    return tuple(torch.from_numpy(a).to(device, dtype) for a in noise)
+
+
+def snf_through(model, eps, noises):
+    """The SNF's ``sample`` on given draws: the base's ``eps`` through every
+    flow, each MCMC layer on its noise; ``(z, log_q)``."""
+    from normflows_tpu_torch.flows.stochastic import mcmc_layers
+
+    z, log_q = model.q0.from_noise(eps)
+    mcmc = mcmc_layers(model.flows)
+    for flow in model.flows:
+        z, ld = flow(z, noise=noises[mcmc.index(flow)]) if flow in mcmc else flow(z)
+        log_q = log_q - ld
+    return z, log_q
+
+
+def build_stochastic(mcmc="mh", target=None):
+    """The example's SNF on the CPU (``mcmc`` "hmc": its HMC variant), each
+    coupling net's last layer drawn ~ N(0, 0.3^2 / 64) so that the couplings
+    do work."""
+    from normflows_tpu_torch.examples import snf_hais
+
+    model = snf_hais.build_snf("cpu", SEED, mcmc, target)
+    gen = torch.Generator().manual_seed(SEED + 170)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "linears"):
+                w = m.linears[-1].weight
+                w.copy_(0.3 / math.sqrt(w.shape[1]) * torch.randn(w.shape, generator=gen))
+    return model
+
+
+def stochastic_models():
+    """Every model of the values' checks, on the CPU in float32."""
+    from normflows_tpu_torch import distributions as D, flows
+    from normflows_tpu_torch.examples import change_base, snf_hais
+
+    gen = torch.Generator().manual_seed(SEED + 171)
+    affine = D.AffineGaussian((2, 3), (2, 3), 4, device="cpu")
+    with torch.no_grad():
+        for p in affine.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    return {
+        "mh": flows.MetropolisHastings(D.TwoMoons(device="cpu"),
+                                       D.DiagGaussianProposal((2,), 0.3, device="cpu"), 5),
+        "hmc": flows.HamiltonianMonteCarlo(D.TwoMoons(device="cpu"), 10,
+                                           np.full(2, math.log(0.2)), np.zeros(2),
+                                           device="cpu"),
+        "hais": snf_hais.build_hais("cpu", ST_HAIS_BETAS),
+        "snf": build_stochastic(),
+        "mixture": change_base.build_base("mixture", "cpu"),
+        "pca": D.GaussianPCA(3, 2, sigma=0.3, generator=gen, device="cpu"),
+        "affine": affine,
+    }
+
+
+def stochastic_values(device, dtype, seed=SEED + 172):
+    """Each model of :func:`stochastic_models` on ``device`` in ``dtype`` on
+    host-drawn inputs and draws: MH and HMC (ST_N chains from N(0, 1.5^2)),
+    HAIS (ST_HAIS_CHAINS chains), the SNF's draws (ST_N), each base's
+    ``from_noise`` and ``log_prob``.  Returns float64 CPU tensors."""
+    from normflows_tpu_torch.flows.stochastic import mcmc_layers
+
+    rng = np.random.default_rng(seed)
+    models = {k: m.to(device, dtype) for k, m in stochastic_models().items()}
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        z = dev(1.5 * rng.normal(size=(ST_N, 2)))
+        for name in ("mh", "hmc"):
+            out[f"{name}_z"], out[f"{name}_log_det"] = models[name](
+                z, noise=noise_on(mcmc_noise(rng, models[name], ST_N), device, dtype))
+        hais = models["hais"]
+        out["hais_z"], out["hais_log_w"] = hais.from_noise(
+            dev(rng.normal(size=(ST_HAIS_CHAINS, 2))),
+            [noise_on(mcmc_noise(rng, layer, ST_HAIS_CHAINS), device, dtype)
+             for layer in hais.layers])
+        snf = models["snf"]
+        out["snf_z"], out["snf_log_q"] = snf_through(
+            snf, dev(rng.normal(size=(ST_N, 2))),
+            [noise_on(mcmc_noise(rng, layer, ST_N), device, dtype) for layer in mcmc_layers(snf)])
+        mix = models["mixture"]
+        eps = np.concatenate([rng.uniform(size=(ST_N, 1)), rng.normal(size=(ST_N, 2))], 1)
+        out["mixture_z"], out["mixture_from_noise"] = mix.from_noise(dev(eps))
+        out["mixture_log_prob"] = mix.log_prob(dev(3.0 * rng.normal(size=(ST_N, 2))))
+        pca = models["pca"]
+        out["pca_z"], out["pca_from_noise"] = pca.from_noise(dev(rng.normal(size=(ST_N, 2))))
+        out["pca_log_prob"] = pca.log_prob(dev(rng.normal(size=(ST_N, 3))))
+        aff = models["affine"]
+        y = torch.from_numpy(rng.integers(0, 4, ST_N)).to(device)
+        out["affine_z"], out["affine_from_noise"] = aff.from_noise(
+            dev(rng.normal(size=(ST_N, 2, 3))), y)
+        out["affine_log_prob"] = aff.log_prob(dev(rng.normal(size=(ST_N, 2, 3))), y)
+    return {k: v.double().cpu() for k, v in out.items()}
+
+
+def snf_hmc_grads(device, dtype, seed=SEED + 173):
+    """The HMC SNF's reverse-KL loss on host-drawn draws (ST_N chains) with a
+    trainable DiagGaussian target (loc, log_scale drawn): its value and
+    every leaf's gradient (HMC's log_step_size and log_mass, the couplings'
+    weights, the target's), float64 on the CPU."""
+    from normflows_tpu_torch import distributions as D
+    from normflows_tpu_torch.flows.stochastic import mcmc_layers
+
+    rng = np.random.default_rng(seed)
+    target = D.DiagGaussian(2, device="cpu")
+    with torch.no_grad():
+        target.loc.copy_(torch.from_numpy(0.5 * rng.normal(size=(1, 2))))
+        target.log_scale.copy_(torch.from_numpy(0.2 * rng.normal(size=(1, 2))))
+    model = build_stochastic("hmc", target).to(device, dtype)
+    eps = torch.from_numpy(rng.normal(size=(ST_N, 2))).to(device, dtype)
+    noises = [noise_on(mcmc_noise(rng, layer, ST_N), device, dtype) for layer in mcmc_layers(model)]
+    z, log_q = snf_through(model, eps, noises)
+    loss = torch.mean(log_q) - torch.mean(model.p.log_prob(z))
+    loss.backward()
+    grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def stationarity():
+    """The JAX package's statistical checks on the card: 512 chains from an
+    offset start under MH (200 steps, scale 1) and HMC (50 moves of 5
+    leapfrog steps of 0.4) toward N(0, I): |mean| and |std - 1|."""
+    from normflows_tpu_torch import distributions as D, flows
+
+    target = D.DiagGaussian(2, device=DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 174)
+    mh = flows.MetropolisHastings(target, D.DiagGaussianProposal((2,), 1.0, device=DEVICE), 200)
+    hmc = flows.HamiltonianMonteCarlo(target, 5, np.full(2, math.log(0.4)), np.zeros(2),
+                                      device=DEVICE)
+    out = {}
+    with torch.no_grad():
+        z, _ = mh(5.0 + torch.randn(512, 2, generator=gen, device=DEVICE), generator=gen)
+        out["mh"] = z
+        z = 4.0 + torch.randn(512, 2, generator=gen, device=DEVICE)
+        for _ in range(50):
+            z, _ = hmc(z, generator=gen)
+        out["hmc"] = z
+    return {k: {"abs_mean": abs(float(z.mean())), "abs_std_gap": abs(float(z.std()) - 1.0)}
+            for k, z in out.items()}
+
+
+def phase_stochastic_path():
+    """(a) MH, HMC, HAIS (5 rungs), the example's SNF (random coupling
+    weights) and the three new bases on host-drawn inputs and draws, the
+    card against the CPU within ST_TOL; (b) the HMC SNF's reverse-KL
+    gradients (HMC's step size and mass, the couplings, a trainable target),
+    the card against the CPU within G_TOL of each leaf's norm; (c) MH and
+    HMC stationarity on the card; no kernel of the port."""
+    r = {}
+    with device_counters() as counts:
+        def checks():
+            card, cpu = stochastic_values(DEVICE, torch.float32), stochastic_values("cpu",
+                                                                                  torch.float32)
+            values = {k: {"excess": excess(card[k], cpu[k], *ST_TOL[k]),
+                          "max_abs": float((card[k] - cpu[k]).abs().max())} for k in cpu}
+            (loss_card, g_card), (loss_cpu, g_cpu) = (snf_hmc_grads(DEVICE, torch.float32),
+                                                      snf_hmc_grads("cpu", torch.float32))
+            return values, (loss_card, loss_cpu, relative_norms(g_card, g_cpu)), stationarity()
+
+        (values, (loss_card, loss_cpu, gaps), stat), launched = on_card(counts, checks)
+    r["launches"] = expect_launches("stochastic_path", launched, {})
+    r["values"] = values
+    r["gradients"] = {"loss_card": loss_card, "loss_cpu": loss_cpu, "relative_norms": gaps,
+                      "worst": max(gaps.values())}
+    r["stationarity"] = stat
+    ok = (all(v["excess"] <= 0 for v in values.values()) and r["gradients"]["worst"] <= G_TOL
+          and abs(loss_card - loss_cpu) <= CPU_TOL * (1 + abs(loss_cpu))
+          and all(s["abs_mean"] < 0.15 and s["abs_std_gap"] < 0.1 for s in stat.values()))
+    emit("stochastic_path", ok=ok, results=r,
+         bars={"values": ST_TOL, "gradients": G_TOL, "loss": CPU_TOL,
+               "stationarity": {"abs_mean": 0.15, "abs_std_gap": 0.1}})
+    if not ok:
+        raise SystemExit("stochastic_path: a check missed its bar")
+    return launched
+
+
+def phase_hais():
+    """``examples.snf_hais`` as a user runs it (4,096 chains, 30 rungs):
+    log Z, eager and captured, against the quadrature within max(0.02,
+    4 SE); the ESS; host and device ms of one sample, eager and captured,
+    its kernels and the busy share."""
+    from normflows_tpu_torch.examples import snf_hais
+
+    quad = snf_hais.two_moons_log_z()
+    printed = io.StringIO()
+    with device_counters() as counts, contextlib.redirect_stdout(printed):
+        record, launched = on_card(counts, lambda: snf_hais.main(
+            ["--seed", str(SEED), "--device", DEVICE, "--reps", str(HAIS_REPS)]))
+    r = {"launches": expect_launches("hais", launched, {}), "quadrature_log_z": quad,
+         "run": {**record, "printed": printed.getvalue().splitlines()[:-1]}}
+    h = record["hais"]
+    r["within"] = {}
+    for name, est in (("eager", h), ("captured", h["captured"])):
+        bar = max(0.02, 4 * est["log_z_se"])
+        r["within"][name] = {"gap": abs(est["log_z"] - LOG_Z), "bar": bar,
+                             "ok": abs(est["log_z"] - LOG_Z) <= bar and est["finite_weights"]}
+    # one captured sample's kernels (an eager sample launches the same ones)
+    hais = snf_hais.build_hais(DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 175)
+
+    def draw():
+        with torch.no_grad():
+            return hais.sample(4096, generator=gen)
+
+    replay, _ = snf_hais.captured(draw, gen)
+    prof = kernel_shares(replay)
+    prof.pop("conv_share")
+    r["profile"] = {**prof, "busy_share_captured": prof["device_ms"] / h["captured_ms"],
+                    "busy_share_eager": prof["device_ms"] / h["eager_ms"]}
+    ok = (abs(quad - LOG_Z) < 1e-6 and all(v["ok"] for v in r["within"].values())
+          and record["snf"]["finite"])
+    emit("hais", ok=ok, results=r, bars={"log_z": LOG_Z, "log_z_gap_at_most": "max(0.02, 4 SE)"},
+         note="eager_ms / captured_ms: host median of HAIS_REPS samples, each ending in a "
+         "synchronise; profile: one replay of a captured sample under torch.profiler, its "
+         "device time over each median the busy shares; the JAX package's figure for this "
+         "ladder is in PERF.md (a CPU run)")
+    if not ok:
+        raise SystemExit("hais: log Z missed the quadrature")
+    return launched
+
+
+def phase_snf_train():
+    """The SNF's reverse-KL step (the example's 1,024 draws, Adam(SNF_LR)
+    capturable) in a captured chunk of SNF_CHUNK steps, MH and HMC (3
+    leapfrog steps, learnable step size and mass: the double backward inside
+    the graph): bit-equal to as many eager steps from the same weights and
+    generator seed; ms, device ms and kernels a step; no kernel of the port."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import snf_hais
+
+    def loss_fn(model, batch, gen):
+        return model.reverse_kld(ST_N, generator=gen)
+
+    def build(mcmc):
+        model = snf_hais.build_snf(DEVICE, SEED, mcmc)
+        return model, torch.optim.Adam(model.parameters(), lr=SNF_LR,
+                                       capturable=torch.device(DEVICE).type == "cuda")
+
+    r, ok = {}, True
+    with device_counters() as counts:
+        def run():
+            out = {}
+            for mcmc in ("mh", "hmc"):
+                model, opt = build(mcmc)
+                state, chunk = training.make_step_chunk(model, opt, loss_fn, SNF_CHUNK)
+                gen = torch.Generator(DEVICE).manual_seed(SEED + 176)
+                losses = chunk(state, gen)[1]["loss"]
+                eager, eopt = build(mcmc)
+                estate, step = training.make_train_step(eager, eopt, loss_fn)
+                egen = torch.Generator(DEVICE).manual_seed(SEED + 176)
+                eager_losses = torch.stack([step(estate, None, egen)[1]["loss"]
+                                            for _ in range(SNF_CHUNK)])
+                e = {"bit_equal_losses": bool(torch.equal(losses, eager_losses)),
+                     "bit_equal_parameters": all(torch.equal(p, q) for p, q in zip(
+                         model.parameters(), eager.parameters())),
+                     "max_abs_loss": float((losses - eager_losses).abs().max()),
+                     "first": float(losses[0]), "last": float(losses[-1]),
+                     "finite": bool(torch.isfinite(losses).all())}
+                sync()
+                t0 = time.perf_counter()
+                chunk(state, gen)
+                sync()
+                e["profile"] = profiled_step(*training.make_step_chunk(*build(mcmc), loss_fn, 1),
+                                             (time.perf_counter() - t0) * 1e3 / SNF_CHUNK)
+                out[mcmc] = e
+            return out
+
+        r["variants"], launched = on_card(counts, run)
+    r["launches"] = expect_launches("snf_train", launched, {})
+    for e in r["variants"].values():
+        ok = ok and e["bit_equal_losses"] and e["bit_equal_parameters"] and e["finite"]
+    emit("snf_train", ok=ok, results=r, bars={"against_eager": "bit-equal"},
+         note=f"profile: ms a step of a {SNF_CHUNK}-step chunk after its capture; device ms "
+         "and kernels of one replayed step (a 1-step chunk of the same model)")
+    if not ok:
+        raise SystemExit("snf_train: a captured SNF chunk differs from its eager steps")
+    return launched
+
+
+def profiled_step(state, chunk, ms):
+    """A 1-step chunk, captured at its first call, then one replay under
+    torch.profiler: its kernels and device ms, and the busy share of ``ms``
+    (a step's host time in a longer chunk, measured elsewhere)."""
+    gen = torch.Generator(DEVICE).manual_seed(SEED + 177)
+    chunk(state, gen)
+    prof = kernel_shares(lambda: chunk(state, gen))
+    prof.pop("conv_share")
+    return {**prof, "ms": ms, "kernels_a_step": prof["kernel_launches"],
+            "busy_share": prof["device_ms"] / ms}
+
+
+def vae_parity():
+    """The flow-VAE example's first VAE_PARITY_STEPS steps on host-drawn rows
+    and encoder noise, the card against the CPU: the losses' largest
+    relative gap."""
+    from normflows_tpu_torch.examples import vae_flow
+
+    x_all = torch.from_numpy(vae_flow.synthetic_digits(vae_flow.N_DIGITS, SEED))
+    x_train = x_all[:-vae_flow.HELD_OUT]
+    inputs = vae_flow.host_inputs(x_train, VAE_PARITY_STEPS, 256, 40, SEED + 1)
+    losses = {}
+    for where in (DEVICE, "cpu"):
+        model = vae_flow.build_vae(784, 40, 10, SEED, where)
+        state, chunk = vae_flow.make_trainer(model, x_train, 256, 1e-3, VAE_PARITY_STEPS,
+                                             inputs)
+        losses[where] = chunk(state)[1]["loss"].double().cpu()
+    gap = ((losses[DEVICE] - losses["cpu"]).abs() / losses["cpu"].abs()).max()
+    return {"steps": VAE_PARITY_STEPS, "max_relative_loss_gap": float(gap),
+            "loss_card_last": float(losses[DEVICE][-1]), "loss_cpu_last": float(losses["cpu"][-1])}
+
+
+def phase_vae_train():
+    """(a) The flow-VAE's first VAE_PARITY_STEPS steps, the card against the
+    CPU within VAE_REL of the loss; (b) ``examples.vae_flow`` (K = 10) and
+    ``examples.plain_vae`` (K = 0) as a user runs them, 960 chunked steps
+    each: held-out -ELBO within VAE_NEG_ELBO; ms a step, samples/s and a
+    profiled epoch's kernels and busy share; no kernel of the port."""
+    from normflows_tpu_torch.examples import plain_vae, vae_flow
+
+    r = {"parity": vae_parity()}
+    ok = r["parity"]["max_relative_loss_gap"] <= VAE_REL
+    r["runs"] = {}
+    launched_all = {}
+    for k, example in ((10, vae_flow), (0, plain_vae)):
+        printed = io.StringIO()
+        with device_counters() as counts, contextlib.redirect_stdout(printed):
+            (model, record), launched = on_card(counts, lambda: example.main(
+                ["--seed", str(SEED), "--device", DEVICE]))
+        expect_launches("vae_train", launched, {})
+        launched_all = launched
+        record["printed"] = printed.getvalue().splitlines()[:-1]
+        record["within_bar"] = (record["non_finite_steps"] == 0
+                                and record["held_out_neg_elbo"] <= VAE_NEG_ELBO[k])
+        ok = ok and record["within_bar"]
+        # one profiled step of a fresh trainer (after its capture)
+        x = torch.from_numpy(vae_flow.synthetic_digits(vae_flow.N_DIGITS, SEED))
+        state, chunk = vae_flow.make_trainer(vae_flow.build_vae(784, 40, k, SEED, DEVICE),
+                                             x[:-vae_flow.HELD_OUT], 256, 1e-3, 1)
+        record["profile"] = profiled_step(state, chunk, record["steady_step_ms"])
+        r["runs"][f"k{k}"] = record
+    emit("vae_train", ok=ok, results=r, bars={"held_out_neg_elbo_at_most": VAE_NEG_ELBO,
+                                              "parity_relative_loss": VAE_REL})
+    if not ok:
+        raise SystemExit("vae_train: a VAE missed its bar")
+    return launched_all
+
+
+def change_base_parity():
+    """Each base's first CB_PARITY_STEPS steps of ``examples.change_base
+    --host-inputs`` on the card and on the CPU: the losses' largest gap."""
+    from normflows_tpu_torch.examples import change_base
+
+    out = {}
+    for index, base in enumerate(change_base.BASES):
+        seed = SEED + index
+        x_train = change_base.draws(change_base.N_TRAIN, 100 + seed, "cpu")
+        batches = change_base.host_batches(x_train, CB_PARITY_STEPS, seed)
+        losses = {}
+        for where in (DEVICE, "cpu"):
+            model = change_base.build_model(base, seed, where)
+            state, chunk = change_base.make_trainer(model, x_train, CB_PARITY_STEPS, batches)
+            losses[where] = chunk(state)[1]["loss"].cpu()
+        out[base] = {"max_abs_loss_gap": float((losses[DEVICE] - losses["cpu"]).abs().max()),
+                     "loss_card_last": float(losses[DEVICE][-1]),
+                     "loss_cpu_last": float(losses["cpu"][-1])}
+    return out
+
+
+def phase_change_base():
+    """(a) Each base's first CB_PARITY_STEPS steps on host inputs, the card
+    against the CPU within CPU_TOL; (b) ``examples.change_base
+    --host-inputs`` at SEED, both bases, 2,000 chunked forward-KL steps each
+    on the inputs the JAX replays that set CB_NLL trained on: held-out NLL
+    within CB_NLL; a profiled step's kernels; no kernel of the port.  The
+    example with its draws made on the card is not held to a bar here: the
+    recipe's Gaussian base diverges at some seeds on every side (PERF.md
+    §6)."""
+    from normflows_tpu_torch.examples import change_base
+
+    r = {"parity": change_base_parity()}
+    ok = all(v["max_abs_loss_gap"] <= CPU_TOL for v in r["parity"].values())
+    printed = io.StringIO()
+    with device_counters() as counts, contextlib.redirect_stdout(printed):
+        record, launched = on_card(counts, lambda: change_base.main(
+            ["--seed", str(SEED), "--device", DEVICE, "--host-inputs"]))
+    r["launches"] = expect_launches("change_base", launched, {})
+    r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1]}
+    for run in record["runs"]:
+        run["within_bar"] = (run["non_finite_steps"] == 0
+                             and run["held_out_nll"] <= CB_NLL[run["base"]])
+        ok = ok and run["within_bar"]
+    model = change_base.build_model("mixture", SEED, DEVICE)
+    state, chunk = change_base.make_trainer(model, change_base.draws(
+        change_base.N_TRAIN, SEED, DEVICE), 1)
+    r["profile"] = profiled_step(state, chunk, record["runs"][1]["steady_step_ms"])
+    emit("change_base", ok=ok, results=r,
+         bars={"held_out_nll_at_most": CB_NLL, "parity_loss": CPU_TOL})
+    if not ok:
+        raise SystemExit("change_base: a base missed its bar")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -4915,6 +5394,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bundles_") as root:
         served = phase_serving_export(root, phase_realnvp(root))
     new_paths = [phase_residual_path(), phase_residual_train(), phase_small_flows()]
+    stochastic_vae = [phase_stochastic_path(), phase_hais(), phase_snf_train(),
+                      phase_vae_train(), phase_change_base()]
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -5051,6 +5532,8 @@ def main() -> int:
         entry["launches_image"] = img_launches.get(entry["name"], 0)
         # the residual and small flows' paths (0: no kernel of the port there)
         entry["launches_residual_small"] = sum(p.get(entry["name"], 0) for p in new_paths)
+        # stochastic flows, HAIS, the VAEs and the new bases (0: no kernel there)
+        entry["launches_stochastic_vae"] = sum(p.get(entry["name"], 0) for p in stochastic_vae)
         entry["launches"] += entry["launches_conditional"] + entry["launches_image"]
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]

@@ -42,6 +42,15 @@ Residual flows: ``flows.Residual`` on ``nets.LipschitzMLP`` /
 (``flows.Planar``, ``Radial``, ``PeriodicWrap``, ``PeriodicShift``) and the
 Rezende–Mohamed energies of ``distributions.prior``;
 ``examples.planar_radial_comparison`` trains them by reverse KL.
+Stochastic normalizing flows: ``flows.MetropolisHastings`` and
+``flows.HamiltonianMonteCarlo`` (HMC's step size and mass learnt through a
+double backward), ``sampling.HAIS`` (annealed importance sampling);
+``examples.snf_hais`` draws from an SNF and estimates a log normaliser.
+The flow-VAE: ``NormalizingFlowVAE`` with the encoders and decoders of
+``distributions``; ``examples.vae_flow`` and ``examples.plain_vae`` train
+it.  The bases ``distributions.GaussianMixture``, ``GaussianPCA`` and
+``AffineGaussian``; ``examples.change_base`` trains Real NVP from a
+Gaussian and from a mixture.
 ``examples.nsf_cylinder`` trains the flagship to convergence,
 ``examples.conditional_flow`` trains the conditional NSF and samples it,
 ``examples.real_nvp_twomoons`` trains Real NVP and serves it, and
@@ -49,10 +58,11 @@ Rezende–Mohamed energies of ``distributions.prior``;
 backward's ablation kernel.
 """
 
-from . import (core, distributions, flows, interop, nets, ops, serving, training,
+from . import (core, distributions, flows, interop, nets, ops, sampling, serving, training,
                transforms, utils)
 from .core.flow import Composite, Flow, Identity, Reverse
 from .core.facades import (ClassCondFlow, ConditionalNormalizingFlow, MultiscaleFlow,
-                           NormalizingFlow)
+                           NormalizingFlow, NormalizingFlowVAE)
+from .sampling import HAIS
 
 __version__ = "0.1.0"

@@ -29,6 +29,15 @@ ActNorm layers are initialised once, explicitly, from data: ``init_actnorm``
 through the merges' ``inverse``) or ``init_actnorm_sampling`` (the model's
 own draws), in place, as the JAX package's functional passes do.
 
+An MCMC layer (``flows.MetropolisHastings``, ``flows.HamiltonianMonteCarlo``)
+draws on every call: the methods that always draw hand it the generator,
+and the others hand it the caller's, without which it raises, as the JAX
+layers raise without a key.  ``from_noise`` takes the base's noise only and
+refuses a model with such a layer.
+
+``NormalizingFlowVAE`` is the flow-VAE: an encoder ``q0``, flows on its
+samples, a prior and an optional decoder.
+
 ``MultiscaleFlow`` (Glow's multiscale architecture) takes a class label
 ``y`` where its bases are class-conditional; ``sample`` with ``y=None``
 draws the labels first (``distributions.base.draw_labels``), then each
@@ -54,6 +63,7 @@ import torch
 from torch import nn
 
 from ..distributions.base import draw_labels, draw_noise
+from ..flows.stochastic import mcmc_layers
 from ..ops.backend import resolve_device
 from .flow import forward_data_dep_init, zero_log_det_like_z
 
@@ -131,9 +141,10 @@ class NormalizingFlow(_Saved, nn.Module):
 
     def _draws(self) -> bool:
         """Whether a flow now draws: a block of a flow's net has
-        ``dropout_probability > 0``, or a residual block's log-det
+        ``dropout_probability > 0``, a residual block's log-det
         estimator is stochastic in its current mode
-        (``iResBlock.log_det_draws``).
+        (``iResBlock.log_det_draws``), or the flow is an MCMC layer (whose
+        ``log_det_draws`` always holds).
         The modules that carry either are found by a search of every module
         (~0.3 ms of host time on the flagship), made again whenever
         ``self.flows`` holds other flows than at the last search; their
@@ -234,7 +245,13 @@ class NormalizingFlow(_Saved, nn.Module):
         ``noise_spec`` (``distributions.base.draw_noise``), so that
         ``sample(n, generator=g)`` is ``from_noise(draw_noise(...))`` on
         the same draws.  The program ``serving.export_sampler`` exports.
-        It draws nothing else, so dropout stays off."""
+        It draws nothing else, so dropout stays off; a model with an MCMC
+        layer, whose moves draw, raises."""
+        if mcmc_layers(self.flows):
+            raise NotImplementedError(
+                "from_noise takes the base's noise only, and an MCMC layer "
+                "(MetropolisHastings, HamiltonianMonteCarlo) draws its own: a sampler "
+                "fed with every layer's draws waits for a later slice of the PyTorch port")
         z, log_q = self.q0.from_noise(eps, context)
         for flow in self.flows:
             z, ld = flow.forward(z, context)
@@ -511,6 +528,46 @@ class MultiscaleFlow(_Saved, nn.Module):
             if i > 0:
                 (z, _), _ = self.merges[i - 1].inverse(z)
         return self
+
+
+class NormalizingFlowVAE(nn.Module):
+    """A VAE whose posterior is the encoder ``q0`` followed by ``flows``;
+    ``prior`` the latent prior, ``decoder`` (optional) p(x | z)."""
+
+    def __init__(self, prior: nn.Module, q0: nn.Module, flows,
+                 decoder: Optional[nn.Module] = None):
+        super().__init__()
+        self.prior = prior
+        self.decoder = decoder
+        self.flows = nn.ModuleList(flows)
+        self.q0 = q0
+
+    @classmethod
+    def create(cls, prior, q0, flows, decoder=None):
+        return cls(prior, q0, flows, decoder)
+
+    def forward(self, x, num_samples: int = 1, *,
+                generator: Optional[torch.Generator] = None, noise=None):
+        """``(z, log_q, log_p)``, each (batch, num_samples, ...): the
+        encoder's draws from ``generator`` (or its noise ``noise``,
+        (batch, num_samples, *latent)) through the flows, flattened to
+        (batch * num_samples, ...) on the way; log_p is the prior's plus,
+        with a decoder, log p(x | z)."""
+        if noise is None:
+            z, log_q = self.q0.sample_and_log_prob(x, num_samples, generator=generator)
+        else:
+            z, log_q = self.q0.from_noise(noise, x)
+        batch, samples = z.shape[0], z.shape[1]
+        z = z.reshape(-1, *z.shape[2:])
+        log_q = log_q.reshape(-1)
+        for flow in self.flows:
+            z, ld = flow.forward(z)
+            log_q = log_q - ld
+        log_p = self.prior.log_prob(z)
+        if self.decoder is not None:
+            log_p = log_p + self.decoder.log_prob(x.repeat_interleave(samples, dim=0), z)
+        return (z.reshape(batch, samples, *z.shape[1:]), log_q.reshape(batch, samples),
+                log_p.reshape(batch, samples))
 
 
 def _num_classes_of(q0) -> int:

@@ -2,7 +2,8 @@
 ``BaseDistribution``, ``DiagGaussian``, ``ConditionalDiagGaussian``,
 ``Uniform``, ``UniformGaussian``, and the class-conditional
 ``ClassCondDiagGaussian`` and ``GlowBase`` of the multiscale image models
-(their context is a label vector, or a one-hot / soft (B, C) batch).
+(their context is a label vector, or a one-hot / soft (B, C) batch), and
+``AffineGaussian``, ``GaussianMixture`` and ``GaussianPCA``.
 
 Sampling draws from an explicit ``torch.Generator`` (``generator=``, on the
 distribution's device; ``None`` uses torch's default generator), where the
@@ -13,7 +14,8 @@ JAX package takes a PRNG key.  Contract:
     sample(num_samples, context=None, *, generator=None) -> z
 
 Each base splits a draw from its transform:
-``noise_spec`` names each event index's unit draw (``"normal"``, or
+``noise_spec`` names each index of its noise (``noise_shape``, the event's
+shape unless a base says otherwise) by its unit draw (``"normal"``, or
 ``"uniform"`` on [0, 1)), :func:`draw_noise` draws it, and
 ``from_noise(eps) -> (z, log_p)`` maps it; ``sample_and_log_prob`` is the
 two in turn.  A program that takes the noise as its input (the exported
@@ -97,6 +99,11 @@ class BaseDistribution(nn.Module):
         """``(z, log_p)`` of the unit draws ``eps`` (:func:`draw_noise` by
         ``self.noise_spec``); a base that has no such split raises."""
         raise NotImplementedError(f"{type(self).__name__} has no noise_spec")
+
+    @property
+    def noise_shape(self):
+        """The shape of one draw's noise: the event's."""
+        return tuple(self.event_shape)
 
     def sample(self, num_samples: int = 1, context=None, *,
                generator: Optional[torch.Generator] = None):
@@ -457,3 +464,202 @@ class GlowBase(BaseDistribution):
         dims = tuple(range(1, len(self.shape) + 1))
         return (-0.5 * self.d * LOG2PI - self.num_pix * torch.sum(log_scale, dim=dims)
                 - 0.5 * torch.sum(((z - loc) / torch.exp(log_scale)) ** 2, dim=dims))
+
+
+class AffineGaussian(BaseDistribution):
+    """N(0, I) pushed through ``transform``: an ``AffineConstFlow`` of
+    ``affine_shape``, or with ``num_classes`` a ``CCAffineConst`` whose
+    per-class offsets the labels pick.  ``temperature`` (None or a float,
+    set in place, as ``MultiscaleFlow.set_temperature`` does) scales the
+    unit Gaussian.  Given no labels, it draws them first, then the noise."""
+
+    def __init__(self, shape, affine_shape, num_classes: Optional[int] = None, *,
+                 device="cuda"):
+        super().__init__()
+        from ..flows.affine.coupling import AffineConstFlow, CCAffineConst
+
+        self.shape = _tuple_shape(shape)
+        self.d = int(np.prod(self.shape))
+        self.num_classes = num_classes
+        self.temperature: Optional[float] = None
+        self.transform = (AffineConstFlow(affine_shape, device=device) if num_classes is None
+                          else CCAffineConst(affine_shape, num_classes, device=device))
+
+    @classmethod
+    def create(cls, shape, affine_shape, num_classes: Optional[int] = None, *, device="cuda"):
+        return cls(shape, affine_shape, num_classes, device=device)
+
+    @property
+    def event_shape(self):
+        return self.shape
+
+    @property
+    def noise_spec(self):
+        return ("normal",) * self.d
+
+    def _log_scale(self) -> float:
+        return math.log(self.temperature) if self.temperature is not None else 0.0
+
+    def _context(self, y):
+        if self.num_classes is None:
+            return ()
+        return (one_hot(y, self.num_classes, self.transform.s.dtype),)
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        y, t = context, self.transform.s
+        if self.num_classes is not None:
+            if y is None:
+                y = draw_labels(num_samples, self.num_classes, generator=generator,
+                                device=t.device)
+            num_samples = y.shape[0]
+        eps = draw_noise(self.noise_spec, self.shape, num_samples, generator=generator,
+                         dtype=t.dtype, device=t.device)
+        return self.from_noise(eps, y)
+
+    def from_noise(self, eps, context=None):
+        log_scale = self._log_scale()
+        dims = tuple(range(1, len(self.shape) + 1))
+        log_p = (-0.5 * self.d * LOG2PI - self.d * log_scale
+                 - 0.5 * torch.sum(eps**2, dim=dims))
+        z, log_det = self.transform.forward(math.exp(log_scale) * eps, *self._context(context))
+        return z, log_p - log_det
+
+    def log_prob(self, z, context=None):
+        z, log_p = self.transform.inverse(z, *self._context(context))
+        log_scale = self._log_scale()
+        z = z / math.exp(log_scale)
+        dims = tuple(range(1, len(self.shape) + 1))
+        return (log_p - self.d * log_scale - 0.5 * self.d * LOG2PI
+                - 0.5 * torch.sum(z**2, dim=dims))
+
+
+class GaussianMixture(BaseDistribution):
+    """A mixture of ``n_modes`` diagonal Gaussians in ``dim`` dimensions:
+    ``loc`` and ``log_scale`` (1, n_modes, dim), ``weight_scores`` (1,
+    n_modes), the log of the normalised ``weights``; buffers where
+    ``trainable=False``.  Without ``loc`` the modes' centres are drawn
+    ~ N(0, 1) on the CPU from ``generator``.
+
+    A draw's noise (``noise_shape`` (dim + 1,)) is a uniform ``u``, then
+    ``dim`` standard normals: the mode is the inverse CDF of the cumulative
+    softmax weights at ``u`` (``searchsorted``), where the JAX package draws
+    it with ``jax.random.categorical``.  The law is the same; the draws
+    differ.  This one captures in a CUDA graph and replays from noise."""
+
+    def __init__(self, n_modes: int, dim: int, loc=None, scale=None, weights=None,
+                 trainable: bool = True, *, generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.n_modes, self.dim, self.trainable = n_modes, dim, trainable
+        loc = torch.randn(n_modes, dim, generator=generator) if loc is None \
+            else torch.as_tensor(loc, dtype=torch.float32)
+        scale = torch.ones(n_modes, dim) if scale is None \
+            else torch.as_tensor(scale, dtype=torch.float32)
+        weights = torch.ones(n_modes) if weights is None \
+            else torch.as_tensor(weights, dtype=torch.float32)
+        weights = weights / torch.sum(weights)
+        tensors = {"loc": loc.reshape(1, n_modes, dim),
+                   "log_scale": torch.log(scale).reshape(1, n_modes, dim),
+                   "weight_scores": torch.log(weights)[None]}
+        for name, value in tensors.items():
+            value = value.float().to(device)
+            if trainable:
+                setattr(self, name, nn.Parameter(value))
+            else:
+                self.register_buffer(name, value)
+
+    @classmethod
+    def create(cls, n_modes, dim, loc=None, scale=None, weights=None, trainable=True, *,
+               generator=None, device="cuda"):
+        return cls(n_modes, dim, loc, scale, weights, trainable, generator=generator,
+                   device=device)
+
+    @property
+    def event_shape(self):
+        return (self.dim,)
+
+    @property
+    def noise_shape(self):
+        return (self.dim + 1,)
+
+    @property
+    def noise_spec(self):
+        return ("uniform",) + ("normal",) * self.dim
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        eps = draw_noise(self.noise_spec, self.noise_shape, num_samples, generator=generator,
+                         dtype=self.loc.dtype, device=self.loc.device)
+        return self.from_noise(eps, context)
+
+    def from_noise(self, eps, context=None):
+        """``eps`` (num_samples, dim + 1): the mode's uniform, then the
+        normals."""
+        cdf = torch.cumsum(torch.softmax(self.weight_scores[0], 0), 0)
+        mode = torch.searchsorted(cdf, eps[:, :1].contiguous(), right=True)[:, 0]
+        mode = torch.clamp(mode, max=self.n_modes - 1)  # the cumulative sum may end below 1
+        z = eps[:, 1:] * torch.exp(self.log_scale[0, mode]) + self.loc[0, mode]
+        return z, self.log_prob(z)
+
+    def log_prob(self, z, context=None):
+        log_weights = torch.log(torch.softmax(self.weight_scores, 1))
+        eps = (z[:, None, :] - self.loc) / torch.exp(self.log_scale)
+        log_p = (-0.5 * self.dim * LOG2PI + log_weights - 0.5 * torch.sum(eps**2, 2)
+                 - torch.sum(self.log_scale, 2))
+        return torch.logsumexp(log_p, 1)
+
+
+class GaussianPCA(BaseDistribution):
+    """A low-rank Gaussian z = eps W + loc, eps ~ N(0, I) of ``latent_dim``
+    (``noise_shape``), covariance W^T W + sigma^2 I.  Its normaliser takes
+    ``slogdet``, as the JAX package's fix of the reference's ``det`` does.
+    ``W`` is drawn ~ N(0, 1) on the CPU from ``generator``."""
+
+    def __init__(self, dim: int, latent_dim: Optional[int] = None, sigma: float = 0.1, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.dim = dim
+        self.latent_dim = dim if latent_dim is None else latent_dim
+        self.loc = nn.Parameter(torch.zeros(1, dim, device=device))
+        self.W = nn.Parameter(torch.randn(self.latent_dim, dim, generator=generator).to(device))
+        self.log_sigma = nn.Parameter(torch.tensor(math.log(sigma), device=device))
+
+    @classmethod
+    def create(cls, dim, latent_dim=None, sigma: float = 0.1, *, generator=None,
+               device="cuda"):
+        return cls(dim, latent_dim, sigma, generator=generator, device=device)
+
+    @property
+    def event_shape(self):
+        return (self.dim,)
+
+    @property
+    def noise_shape(self):
+        return (self.latent_dim,)
+
+    @property
+    def noise_spec(self):
+        return ("normal",) * self.latent_dim
+
+    def _log_prob_centered(self, z_):
+        sig = self.W.T @ self.W + torch.exp(2.0 * self.log_sigma) * torch.eye(
+            self.dim, dtype=self.W.dtype, device=self.W.device)
+        _, logdet = torch.linalg.slogdet(sig)
+        sol = torch.linalg.solve(sig, z_.T).T
+        return -0.5 * self.dim * LOG2PI - 0.5 * logdet - 0.5 * torch.sum(z_ * sol, dim=1)
+
+    def sample_and_log_prob(self, num_samples: int = 1, context=None, *,
+                            generator: Optional[torch.Generator] = None):
+        eps = draw_noise(self.noise_spec, self.noise_shape, num_samples, generator=generator,
+                         dtype=self.loc.dtype, device=self.loc.device)
+        return self.from_noise(eps, context)
+
+    def from_noise(self, eps, context=None):
+        z_ = eps @ self.W
+        return z_ + self.loc, self._log_prob_centered(z_)
+
+    def log_prob(self, z, context=None):
+        return self._log_prob_centered(z - self.loc)

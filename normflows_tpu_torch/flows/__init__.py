@@ -2,7 +2,8 @@
 vectors and on images), the affine autoregressive and coupling flows (Real
 NVP), Glow's block and its parts (ActNorm, the invertible 1x1 convolution,
 the squeeze), the other mixing flows, BatchNorm, the feature split, residual
-flows, and the planar, radial and periodic flows."""
+flows, the planar, radial and periodic flows, and the stochastic (MCMC) layers
+of stochastic normalizing flows."""
 
 from ..core.flow import Flow, Reverse, Composite, Identity, zero_log_det_like_z
 from . import base
@@ -22,6 +23,7 @@ from .periodic import PeriodicShift, PeriodicWrap
 from .planar import Planar
 from .radial import Radial
 from .residual import Residual, iResBlock
+from .stochastic import HamiltonianMonteCarlo, MetropolisHastings
 from .neural_spline import (
     MaskedPiecewiseRationalQuadraticAutoregressive,
     AutoregressiveRationalQuadraticSpline,
@@ -67,4 +69,6 @@ __all__ = [
     "Radial",
     "PeriodicWrap",
     "PeriodicShift",
+    "MetropolisHastings",
+    "HamiltonianMonteCarlo",
 ]

@@ -16,6 +16,11 @@ ActNorm's ``initialized``).  A buffer
 the port recomputes (masks, degrees, ``input_order``, index buffers, scales)
 is held for equality instead.  The first path that is missing, extra, of the
 wrong shape or unequal raises, and the message names it.
+
+A module the model holds at several paths (the target that a stochastic
+flow's MCMC layers and its ``p`` share, the prior and target of every HAIS
+rung) has one leaf a path in JAX and one tensor in the port: every path is
+accepted, and its leaves must be equal.
 """
 
 from __future__ import annotations
@@ -37,9 +42,10 @@ def _torch_name(path: str) -> str:
 
 def load_jax_leaves(model: torch.nn.Module, leaves: dict) -> torch.nn.Module:
     """Copy ``leaves`` into ``model`` in place and return it."""
-    params = dict(model.named_parameters())
-    buffers = dict(model.named_buffers())
+    params = dict(model.named_parameters(remove_duplicate=False))
+    buffers = dict(model.named_buffers(remove_duplicate=False))
     seen = set()
+    first = {}  # id of a tensor copied -> (the path it came from, its value)
     for path, value in leaves.items():
         name = _torch_name(path)
         owner, _, attr = name.rpartition(".")
@@ -55,8 +61,15 @@ def load_jax_leaves(model: torch.nn.Module, leaves: dict) -> torch.nn.Module:
                              f"the port's {name} {tuple(target.shape)}")
         copied = (*getattr(module, "random_buffers", ()), *getattr(module, "state_buffers", ()))
         if name in params or attr in copied:
-            with torch.no_grad():
-                target.copy_(torch.as_tensor(value, dtype=target.dtype))
+            if id(target) in first:
+                path0, value0 = first[id(target)]
+                if not np.array_equal(value, value0):
+                    raise ValueError(f"load_jax_leaves: {path} differs from {path0}, the "
+                                     f"same tensor ({name}) in the port")
+            else:
+                first[id(target)] = (path, value)
+                with torch.no_grad():
+                    target.copy_(torch.as_tensor(value, dtype=target.dtype))
         elif not np.array_equal(value, target.detach().cpu().numpy()):
             raise ValueError(f"load_jax_leaves: {path} differs from the buffer "
                              f"the port computed")

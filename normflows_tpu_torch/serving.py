@@ -61,6 +61,7 @@ from torch import nn
 from .core.facades import ClassCondFlow, MultiscaleFlow, _LogProb, compact_copy
 from .distributions.base import draw_noise
 from .flows.residual import iResBlock
+from .flows.stochastic import mcmc_layers
 from .nets.cnn import fp32_convs
 from .ops import backend, made_fused, spline_cuda, spline_flat  # noqa: F401  (the ops)
 from .ops.backend import resolve_device
@@ -99,23 +100,30 @@ def _prepared(model, device):
     """A compact copy of ``model`` (``core.facades.compact_copy``) on
     ``device`` (default: where the model lies), in eval mode.  A residual
     flow is refused: its fixed-point inverse and its log-det series loop a
-    number of times the data decide."""
+    number of times the data decide.  So is a model with an MCMC layer
+    (a stochastic normalizing flow): its moves draw, and the programs take
+    the base's noise only."""
     if any(isinstance(m, iResBlock) for m in model.modules()):
         raise NotImplementedError(
             "a residual flow (flows.Residual) has no serving bundle yet: its fixed-point "
             "inverse loops a data-dependent number of times; it waits for a later slice "
             "of the PyTorch port")
+    if mcmc_layers(model):
+        raise NotImplementedError(
+            "a model with an MCMC layer (MetropolisHastings, HamiltonianMonteCarlo) has no "
+            "serving bundle yet: its moves draw, and a bundle would need every layer's "
+            "draws as program inputs; it waits for a later slice of the PyTorch port")
     if device is None:
         device = next(iter([*model.parameters(), *model.buffers()])).device
     return compact_copy(model).to(resolve_device(device)).eval()
 
 
 def _noise_levels(model):
-    """``(noise_spec, event_shape)`` of each base the sampler draws from: one
+    """``(noise_spec, noise_shape)`` of each base the sampler draws from: one
     a level of a ``MultiscaleFlow``, else the one ``q0``."""
     if isinstance(model, MultiscaleFlow):
         return model.noise_levels
-    return [(tuple(model.q0.noise_spec), tuple(model.q0.event_shape))]
+    return [(tuple(model.q0.noise_spec), tuple(model.q0.noise_shape))]
 
 
 def _draw(levels, num_samples, generator, device, multiscale):
@@ -208,6 +216,7 @@ def save_bundle(model, path: str, num_samples: Optional[int], event_shape: Seque
         "class_cond": class_cond,
         # one base: its spec; a multiscale model: each level's spec and shape
         "noise_spec": None if multiscale else list(levels[0][0]),
+        "noise_shape": None if multiscale else list(levels[0][1]),
         "noise_levels": [[list(spec), list(event)] for spec, event in levels]
         if multiscale else None,
         "device": str(next(iter(lp.state_dict.values())).device),
@@ -249,7 +258,7 @@ class ServingBundle:
         (a list, one tensor a level, for a multiscale model), from
         ``torch.Generator(device).manual_seed(seed)``."""
         m = self.manifest
-        levels = m.get("noise_levels") or [(m["noise_spec"], m["event_shape"])]
+        levels = m.get("noise_levels") or [(m["noise_spec"], m["noise_shape"])]
         return _draw(levels, m["num_samples"],
                      torch.Generator(self.device).manual_seed(int(seed)), self.device,
                      m.get("noise_levels") is not None)

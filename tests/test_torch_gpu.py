@@ -1126,3 +1126,93 @@ def test_lipschitz_cnn_float32_gradients_are_not_tf32(cuda):
         gap = float(torch.linalg.vector_norm(a.grad.cpu() - b.grad) /
                     torch.linalg.vector_norm(b.grad))
         assert gap <= 1e-4, name
+
+
+def _captured(fn, gen):
+    """``fn`` captured in a CUDA graph after two warm-up calls on a side
+    stream, ``gen`` registered with it: ``(replay, outputs)``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.gpu
+def test_captured_hais_replays_equal_eager_calls(cuda):
+    """A 4-rung HAIS ladder (3 leapfrog steps) on 256 chains captured with
+    its generator registered: each replay equals, bit for bit, an eager
+    ``sample`` from the generator state the replay starts at."""
+    from normflows_tpu_torch.examples import snf_hais
+
+    hais = snf_hais.build_hais(cuda, betas=6, leapfrog=3)
+    gen = torch.Generator(cuda).manual_seed(3)
+
+    def draw():
+        with torch.no_grad():
+            return hais.sample(256, generator=gen)
+
+    graph, (z, log_w) = _captured(draw, gen)
+    for _ in range(2):
+        state = gen.get_state()
+        graph.replay()
+        got = (z.clone(), log_w.clone())
+        after = gen.get_state()
+        gen.set_state(state)
+        want = draw()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(gen.get_state(), after)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mcmc", ["mh", "hmc"])
+def test_snf_chunk_matches_eager_steps(cuda, mcmc):
+    """The SNF (MH, or HMC with its double backward inside the graph) trained
+    by reverse KL: a captured chunk of 5 capturable-Adam steps against 5
+    eager steps from the same weights and generator seed, bit for bit."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import snf_hais
+
+    def loss_fn(model, batch, gen):
+        return model.reverse_kld(256, generator=gen)
+
+    def build():
+        model = snf_hais.build_snf(cuda, 0, mcmc)
+        return model, torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True)
+
+    model, opt = build()
+    state, chunk = training.make_step_chunk(model, opt, loss_fn, 5)
+    losses = chunk(state, torch.Generator(cuda).manual_seed(4))[1]["loss"]
+    eager, eopt = build()
+    estate, step = training.make_train_step(eager, eopt, loss_fn)
+    gen = torch.Generator(cuda).manual_seed(4)
+    eager_losses = torch.stack([step(estate, None, gen)[1]["loss"] for _ in range(5)])
+    assert torch.equal(losses, eager_losses)
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), eager.parameters()))
+
+
+@pytest.mark.gpu
+def test_mixture_draws_capture(cuda):
+    """The mixture's inverse-CDF mode draw in a CUDA graph equals eager draws."""
+    from normflows_tpu_torch.examples import change_base
+
+    base = change_base.build_base("mixture", cuda)
+    gen = torch.Generator(cuda).manual_seed(5)
+
+    def draw():
+        with torch.no_grad():
+            return base.sample_and_log_prob(1024, generator=gen)
+
+    graph, (z, log_p) = _captured(draw, gen)
+    state = gen.get_state()
+    graph.replay()
+    got = (z.clone(), log_p.clone())
+    gen.set_state(state)
+    want = draw()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
