@@ -93,6 +93,23 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   that set its bars, both bases, 2,000 chunked steps each: phases
   stochastic_path, hais, snf_train, vae_train, change_base.  No kernel of
   the port runs on these paths.
+* the rest of the sampling tier and ScanChain: dual-averaging adaptation,
+  systematic resampling, annealed SMC, NeuTra HMC and NUTS on host-drawn
+  draws, the card against the CPU with every discrete decision equal (a
+  NUTS chain's values held where neither the card nor the CPU with
+  perturbed weights parts it), and the flagship as one ScanChain against
+  its layers unrolled, bit for bit (phase sampling_path); NUTS at
+  ``examples/nuts_bench.py``'s configuration (1,024 chains, max_depth 8,
+  GaussianVonMises; warm-up and steps cut) to
+  the cylinder law's moments (phase nuts); NeuTra HMC (1,024 chains, 50
+  adaptation iterations) and NUTS on the pullback of the convergence
+  phase's flagship, and annealed SMC (2^14 particles, 16 temperatures)
+  with that flagship as proposal, eager and with a temperature's graph
+  replayed, bit-equal, to the moments and
+  log Z = 0, with the planar launches the formulas give (phase
+  neutra_smc); a captured bf16 reverse-KL chunk of the flagship as one
+  ScanChain against the unrolled flagship's (phase scan_chain).  Their
+  planar kernel launches are the kernels line's ``launches_sampling``.
 
 Every kernel on a model's path is reached through its ``torch.library``
 operator (``normflows_tpu_torch.ops.backend.kernel_op``).
@@ -261,12 +278,14 @@ RNVP_LR, RNVP_PARITY_STEPS = 5e-4, 50
 RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # serving: log_prob through one program at these batches; SERVE_REPS
 # requests a route's host median
-SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 5
+# (SERVE_REPS and REQUEST_REPS 3, from 5, and HAIS_REPS 2, from 3, to make
+# room for the samplers' phases)
+SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 3
 # host medians of the flagship's requests and eager steps (20 before PR 13;
 # PR 13 cut this, SERVE_REPS, LD_TIMED_REPS and TIMED_CHUNKS to make room for
 # the Glow phases; PR 14 cut it to 5, SERVE_REPS from 10 to 5, LD_TIMED_REPS
 # from 3 to 2 and TIMED_CHUNKS from 2 to 1 for the residual and small flows)
-REQUEST_REPS = 5
+REQUEST_REPS = 3
 
 # conditional flows.  Model A: examples/conditional_flow.py as published
 # (4 x (AR RQ spline on 2 features, 2 blocks of hidden 128, context 4, 8
@@ -3225,7 +3244,8 @@ def phase_convergence(seed=SEED + 13):
     """bf16 flagship from bench.py's init, CONV_STEPS chunked reverse-KL
     steps (chunks of CONV_CHUNK) with Adam(5e-4) under cosine decay over
     CONV_STEPS, then KL(q||p) = E_q[log q - log p] on CONV_HELD_OUT fresh
-    samples (GaussianVonMises is normalised), against CONV_KL."""
+    samples (GaussianVonMises is normalised), against CONV_KL.  Returns the
+    readings and the trained model (the samplers' flagship)."""
     from normflows_tpu_torch import training
     from normflows_tpu_torch.utils import set_compute_dtype
 
@@ -3251,7 +3271,7 @@ def phase_convergence(seed=SEED + 13):
     if not ok:
         raise SystemExit(f"convergence: KL(q||p) {kl} after {CONV_STEPS} steps exceeds "
                          f"{CONV_KL}")
-    return r
+    return r, model
 
 
 # ---- Real NVP, trained and served ------------------------------------------
@@ -4896,7 +4916,7 @@ ST_TOL = {k: (10 * v, 0.0) for k, v in ST_F64_GAP.items()}
 # grid over [-5, 5]^2; a 0.004 grid agrees to 1e-15); |log Z - LOG_Z| must be
 # at most max(0.02, 4 SE), SE = std(w) / (mean(w) sqrt(n)).
 LOG_Z = 0.804214
-HAIS_REPS = 3  # timed samples of each route
+HAIS_REPS = 2  # timed samples of each route
 SNF_CHUNK, SNF_LR = 20, 1e-3  # reverse KL on the example's 1,024 draws a step
 VAE_PARITY_STEPS = 50
 # held-out -ELBO bars: the JAX package on the port example's initial weights
@@ -5339,6 +5359,591 @@ def phase_change_base():
     return launched
 
 
+# ---- the rest of the sampling tier and ScanChain ------------------------------
+# The samplers of ``normflows_tpu_torch.sampling`` (dual-averaging
+# adaptation, annealed SMC, NeuTra HMC, NUTS) and ``ScanChain``.  On the
+# flagship they run the planar kernels: each pullback evaluation (the flow's
+# sampling pass) 24 inverse launches (row 1) and each gradient 24
+# backward-inverse ones (row 1b); the SMC proposal's log q 12 forward
+# launches and its gradient 12 backward-forward ones.
+SP_CHAINS, SP_SMC, SP_RESAMPLE, SP_FLAGSHIP_CHAINS = 256, 1024, 4096, 64
+# float32 against float64 on the CPU, the largest |gap| of each reading of
+# sampling_values(with_flows=False) (before any card run; the resampling
+# indices and flags equal); the bar, card against CPU, is 10x it (atol;
+# rtol 0), as stochastic_path's.  The discrete decisions (accepts, resampling
+# flags, depths, leapfrog counts, divergences) must be equal.
+SP_F64_GAP = {"adapt_accept_rate": 1.633e-06, "adapt_step": 2.384e-07, "smc_z": 6.692e-06,
+              "smc_log_w": 4.955e-04, "smc_log_z": 1.012e-09}
+SP_TOL = {k: (10 * v, 0.0) for k, v in SP_F64_GAP.items()}
+# the readings through a spline flow (NeuTra, NUTS on a pullback) run the
+# planar kernel, whose operands are float32 only: the port's standing bar,
+# CPU_TOL (atol = rtol), as the earlier card-against-CPU phases hold theirs
+SP_FLOW_TOL = (CPU_TOL, CPU_TOL)
+# NUTS's accept_prob, a tree's mean of min(1, exp(-delta)) over all its
+# leaves, those past the draw's included, where a trajectory has amplified
+# its rounding most: the bar is 1e-2 (atol).  It was set after an H100
+# read 2.6e-3 (PERF.md §6); the CPU's own run with the weights perturbed
+# (below) reads up to ~4e-3 on the chains it compares, and the phase
+# reports that reading beside the card's
+SP_ACCEPT_TOL = (1e-2, 0.0)
+SP_TOL.update(nuts_small_accept_prob=SP_ACCEPT_TOL, nuts_flagship_accept_prob=SP_ACCEPT_TOL)
+SP_DISCRETE = ("resample_idx", "smc_flags", "neutra_small_rejected", "neutra_flagship_rejected",
+               "nuts_small_depth", "nuts_small_num_leapfrog", "nuts_small_diverging",
+               "nuts_small_picks", "nuts_sample_depth", "nuts_sample_num_leapfrog",
+               "nuts_sample_picks", "nuts_flagship_depth", "nuts_flagship_num_leapfrog",
+               "nuts_flagship_diverging", "nuts_flagship_picks")
+# A NUTS tree's decisions (its depth, leapfrog count, divergence, and its
+# picks: the leaf of each subtree whose draw became the proposal) are U-turn
+# dot products and energy comparisons that float32 on two devices can part
+# at a tie; with the picks recorded, a chain whose draw lies on another
+# leaf differs in a decision.  A chain can also keep every decision and
+# still move its draw: its trajectory amplifies rounding (on the CPU, with
+# the flows' weights times 1 + 3e-7 N(0, 1), one flagship chain of 64 keeps
+# its depth and picks and moves its draw by 0.02-0.46 at each of 6 seeds).
+# So the CPU runs twice, as is and perturbed: a chain that parts there (a
+# decision, or the draw off SP_FLOW_TOL) is ill-conditioned on the CPU
+# itself and not held to float32's bar on the card.  A chain is held where
+# neither the card nor the perturbation parts it: every decision equal, the
+# draw and accept_prob within their bars.  At most SP_PARTED of a reading's
+# chains may part or be ill-conditioned, each counted.  Every other
+# decision must be equal.
+SP_PERTURB, SP_PARTED = 3e-7, 0.05
+SP_TREES = {"nuts_small": ("nuts_small_z", "nuts_small_accept_prob"),
+            "nuts_flagship": ("nuts_flagship_z", "nuts_flagship_accept_prob"),
+            "nuts_sample": ("nuts_sample_z",)}
+# P1, nuts_bench's configuration cut to the budget: 1,024 chains, max_depth 8,
+# GaussianVonMises, step 0.2 before adaptation, a leaf a CUDA graph; warm-up
+# 20 transitions (200 in the example), sampling 8 and 24 (64 and 256)
+NUTS_CHAINS, NUTS_DEPTH, NUTS_ADAPT, NUTS_SHORT, NUTS_LONG = 1024, 8, 20, 8, 24
+NUTS_PROFILED = 2  # transitions under the profiler (kernels, busy share)
+# E[cos(phi - 3 x0)] under the cylinder law: I1(1) / I0(1)
+GVM_COS = 0.44639
+MOMENT_BARS = {"abs_mean_x0": 0.1, "abs_std_x0_gap": 0.1, "abs_cos_gap": 0.05}
+# P2: NeuTra on the trained flagship (f32): 1,024 chains, 10 leapfrog steps,
+# 50 adaptation iterations, NEUTRA_STEPS moves, one iteration and one move
+# each a CUDA graph replayed; then NUTS on the same pullback
+NEUTRA_CHAINS, NEUTRA_L, NEUTRA_ADAPT, NEUTRA_STEPS = 1024, 10, 50, 4
+# NUTS on that pullback: unit mass and NN_ADAPT warm-up transitions of dual
+# averaging, at NN_SEEDS seeds.  The pullback of a circular flow is
+# periodic in its latent angle, so the chains wander across periods and a
+# window's variance of that coordinate (Stan's diagonal mass adaptation)
+# grows with the window, and the step tuned under it shrinks; the flow is
+# the preconditioner.  examples/neutra_nuts.py runs this configuration at
+# 3 seeds with and without the mass adaptation (PERF.md §6); a run takes
+# ~20 s on an H100 (~6,900 lock-step leaves), so the phase runs one seed
+NN_CHAINS, NN_DEPTH, NN_ADAPT, NN_STEPS, NN_SEEDS = 256, 8, 20, 8, 1
+# P3: annealed SMC, the flagship as proposal, GaussianVonMises target
+SMC_N, SMC_TEMPS, SMC_L, SMC_STEP, LOG_Z_BAR = 2**14, 16, 10, 0.2, 0.05
+SCAN_CHUNK = 10  # P4: steps of the captured chunk of each variant
+
+
+def moments(x, w=None):
+    """|mean x0|, |std x0 - 1| and |E cos(phi - 3 x0) - I1(1)/I0(1)| of
+    draws (n, 2), weighted by ``w`` (normalised) where given."""
+    x = x.reshape(-1, 2).double()
+    w = torch.full((x.shape[0],), 1.0 / x.shape[0], dtype=torch.float64, device=x.device) \
+        if w is None else w.double()
+    mean = torch.sum(w * x[:, 0])
+    std = torch.sqrt(torch.sum(w * (x[:, 0] - mean) ** 2))
+    cos = torch.sum(w * torch.cos(x[:, 1] - 3.0 * x[:, 0]))
+    return {"abs_mean_x0": abs(float(mean)), "abs_std_x0_gap": abs(float(std) - 1.0),
+            "abs_cos_gap": abs(float(cos) - GVM_COS), "mean_x0": float(mean),
+            "std_x0": float(std), "mean_cos": float(cos)}
+
+
+def moments_ok(m):
+    return all(m[k] <= bar for k, bar in MOMENT_BARS.items())
+
+
+def mild(model, seed):
+    """Each MADE's final layer drawn ~ N(0, 0.3^2 / fan-in), as
+    build_stochastic draws the couplings': flows that do work, with
+    pullbacks smooth enough that a leapfrog trajectory's float32 rounding
+    on two devices does not part (a MADE at its random init gives
+    pullbacks whose trajectories diverge in a few steps)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "final_layer"):
+                w = m.final_layer.weight
+                w.copy_(0.3 / math.sqrt(w.shape[1]) * torch.randn(w.shape, generator=gen))
+    return model
+
+
+def small_spline_flow(device):
+    """The flagship cut to 2 circular AR spline layers of hidden 8, on
+    GaussianVonMises."""
+    import normflows_tpu_torch as nft
+
+    base = nft.distributions.UniformGaussian.create(2, [1], SCALE, device=device)
+    layers = [nft.flows.CircularAutoregressiveRationalQuadraticSpline.create(
+        torch.Generator().manual_seed(SEED + 180 + i), 2, 1, 8, ind_circ=[1], num_bins=BINS,
+        tail_bound=np.asarray(TAIL_BOUND, np.float32), permute_mask=True, rng_seed=3 * i,
+        init_identity=True, device=device) for i in range(2)]
+    return nft.NormalizingFlow.create(
+        base, layers, p=nft.distributions.GaussianVonMises(device=device), device=device)
+
+
+def sampling_models(with_flows=True, perturb=None):
+    """Every model of the sampling checks, on the CPU in float32; with
+    ``perturb`` (a seed) each flow parameter times (1 + SP_PERTURB N(0, 1))."""
+    from normflows_tpu_torch import distributions as D
+
+    out = {"two_moons": D.TwoMoons(device="cpu"), "diag": D.DiagGaussian(2, device="cpu")}
+    if with_flows:
+        out.update(small=mild(small_spline_flow("cpu"), SEED + 187),
+                   flagship=mild(build_flagship("cpu", init_identity=True), SEED + 188))
+        if perturb is not None:
+            gen = torch.Generator().manual_seed(perturb)
+            with torch.no_grad():
+                for p in (*out["small"].parameters(), *out["flagship"].parameters()):
+                    p.mul_(1 + SP_PERTURB * torch.randn(p.shape, generator=gen))
+    return out
+
+
+class Separable(torch.nn.Module):
+    """log p(x0, phi) = -x0^2 / 2 + cos(phi): smooth and periodic in phi (a
+    circular spline flow's pullback of it has no jump where the flow wraps
+    phi) and without GaussianVonMises' coupling of phi to 3 x0, whose
+    trajectories are chaotic: two devices' float32 rounding parts them
+    within ~20 leapfrog steps."""
+
+    def log_prob(self, x, context=None):
+        return -0.5 * x[:, 0] ** 2 + torch.cos(x[:, 1])
+
+
+def rejected(x):
+    """A chain's move was rejected where its draw equals the one before."""
+    return (x[1:] == x[:-1]).all(-1)
+
+
+def sampling_values(device, dtype, seed=SEED + 181, with_flows=True, perturb=None):
+    """Each sampler on host-drawn inputs and draws, on ``device`` in
+    ``dtype``: adapt_step_size (HMC on TwoMoons), systematic_resample,
+    AnnealedSMC (DiagGaussian proposal to TwoMoons), and with ``with_flows``
+    (float32 only: the planar kernel's operands are float32) NeuTraHMC on
+    the small flow and on the flagship, NUTS transitions on the pullbacks of
+    Separable through them and a short NUTS sample (on a card each NUTS leaf
+    a replayed CUDA graph).  With ``perturb`` (see sampling_models) only
+    the NUTS readings, on the same draws.  Returns float64 (or integer) CPU
+    tensors."""
+    from normflows_tpu_torch import flows
+    from normflows_tpu_torch.sampling import (NUTS, AnnealedSMC, NeuTraHMC, PullbackTarget,
+                                              adapt_step_size, systematic_resample)
+
+    rng = np.random.default_rng(seed)
+    m = {k: v.to(device, dtype) for k, v in sampling_models(with_flows, perturb).items()}
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)  # noqa: E731
+    normal = lambda *s: dev(rng.normal(size=s))  # noqa: E731
+    uniform = lambda *s: dev(rng.uniform(size=s))  # noqa: E731
+    out = {}
+    hmc = flows.HamiltonianMonteCarlo(m["two_moons"], 4, np.zeros(2, np.float32),
+                                      np.zeros(2, np.float32), device=device).to(dtype)
+    n, k, rest = SP_CHAINS, SP_SMC, perturb is None
+    z0, noise = 1.5 * normal(n, 2), (normal(8, n, 2), normal(8, n, 2), uniform(8, n))
+    if rest:
+        tuned, info = adapt_step_size(hmc, z0, 8, noise=noise)
+        out["adapt_accept_rate"], out["adapt_step"] = info["accept_rate"], tuned.log_step_size
+    log_w, u = 3.0 * normal(SP_RESAMPLE), uniform()
+    if rest:
+        particles = torch.arange(SP_RESAMPLE, dtype=dtype, device=device)[:, None]
+        out["resample_idx"] = systematic_resample(log_w, particles, u=u)[0][:, 0].long()
+    eps0, noise = normal(k, 2), [(uniform(), normal(k, 2), uniform(k)) for _ in range(7)]
+    if rest:
+        smc = AnnealedSMC.create(m["diag"], m["two_moons"], num_temps=8, num_leapfrog=5,
+                                 step_size=0.2)
+        out["smc_z"], out["smc_log_w"], out["smc_log_z"] = smc.from_noise(eps0, noise)
+        out["smc_flags"] = smc.last_resampled.long()
+    if not with_flows:
+        return {k: (v.detach().cpu().long() if k in SP_DISCRETE else v.detach().double().cpu())
+                for k, v in out.items()}
+    # (chains, adaptation iterations, moves, NUTS depth): the flagship's cut
+    # to what the CPU side runs in a few seconds.  No adaptation here: dual
+    # averaging's first iterates try steps up to 10x the initial one, whose
+    # trajectories part on two devices within a few leapfrog steps
+    # (adapt_step_size's own reading above holds the adaptation)
+    for name, (chains, adapt, moves, depth) in (("small", (n, 0, 3, 5)),
+                                                ("flagship", (SP_FLAGSHIP_CHAINS, 0, 2, 4))):
+        model = m[name]
+        noise = (torch.cat([normal(chains, 1), uniform(chains, 1)], 1),
+                 (normal(adapt, chains, 2), normal(adapt, chains, 2), uniform(adapt, chains)),
+                 (normal(moves, chains, 2), uniform(moves, chains)))
+        if rest:
+            sampler = NeuTraHMC.create(model, num_leapfrog=3)
+            x, info = sampler.sample(chains, moves, num_adapt=adapt, noise=noise)
+            out[f"neutra_{name}_x"] = x
+            out[f"neutra_{name}_rejected"] = rejected(x).long()
+        # NUTS on the pullback of Separable (see there)
+        nuts = NUTS.create(PullbackTarget(model, Separable()), 2, step_size=0.3,
+                           max_depth=depth, device=device).to(dtype)
+        z, st = nuts.transition(normal(chains, 2), noise=(
+            normal(chains, 2), uniform(depth, chains), uniform(depth, chains),
+            uniform(depth, 2 ** (depth - 1), chains)))
+        out[f"nuts_{name}_z"], out[f"nuts_{name}_accept_prob"] = z, st["accept_prob"]
+        for key in ("depth", "num_leapfrog", "diverging", "picks"):
+            out[f"nuts_{name}_{key}"] = st[key].long()
+    nuts = NUTS.create(PullbackTarget(m["small"], Separable()), 2, step_size=0.5, max_depth=4,
+                       device=device).to(dtype)
+    c = 16
+    zs, info = nuts.sample(c, 3, num_adapt=0, noise=(normal(c, 2), [
+        (normal(c, 2), uniform(4, c), uniform(4, c), uniform(4, 8, c)) for _ in range(3)]))
+    out["nuts_sample_z"], out["nuts_sample_step"] = zs, info["step_size"]
+    out["nuts_sample_inv_mass"] = info["inv_mass"]
+    for key in ("depth", "num_leapfrog", "picks"):
+        out[f"nuts_sample_{key}"] = info[key].long()
+    return {k: (v.detach().cpu().long() if k in SP_DISCRETE else v.detach().double().cpu())
+            for k, v in out.items()}
+
+
+def scan_chain_vs_unrolled(counts):
+    """The flagship's layers as one ScanChain against the same layers
+    unrolled in a Composite (the same log-det accumulation): ``sample`` and
+    ``log_prob`` at N bit for bit, with the same launches on the device
+    counters (24 inverse a sample, 12 forward a log_prob)."""
+    import normflows_tpu_torch as nft
+
+    unrolled = build_flagship(DEVICE)
+    layers = list(unrolled.flows)
+    scan = nft.NormalizingFlow.create(unrolled.q0, [nft.ScanChain.create(layers)],
+                                      p=unrolled.p, device=DEVICE)
+    composite = nft.NormalizingFlow.create(unrolled.q0, [nft.Composite(layers)], p=unrolled.p,
+                                           device=DEVICE)
+    r, launched = {}, {}
+    with torch.no_grad():
+        for name, model in (("unrolled", composite), ("scan_chain", scan)):
+            gen = torch.Generator(DEVICE).manual_seed(SEED + 182)
+            (x, log_q), a = exact_on_card(f"sampling_path {name} sample", counts,
+                                          lambda: model.sample(N, generator=gen),
+                                          rqs_transposed_inverse=2 * LAYERS)
+            lp, b = exact_on_card(f"sampling_path {name} log_prob", counts,
+                                  lambda: model.log_prob(x), rqs_transposed_forward=LAYERS)
+            r[name] = (x, log_q, lp)
+            add_launches(launched, a)
+            add_launches(launched, b)
+    equal = {k: bool(torch.equal(a, b)) for k, a, b in zip(("x", "log_q", "log_prob"),
+                                                            r["unrolled"], r["scan_chain"])}
+    return equal, launched
+
+
+def tree_parted(a, b, tree):
+    """The chains (last axis) of a NUTS reading ``tree`` whose recorded
+    decisions differ between the value sets ``a`` and ``b`` (a sample's:
+    at any step)."""
+    return sum((a[k] != b[k]).reshape(-1, a[k].shape[-1]).any(0).long()
+               for k in SP_DISCRETE if k.startswith(tree + "_")) > 0
+
+
+def tree_off(a, b, tree):
+    """The chains whose draws lie off SP_FLOW_TOL between ``a`` and ``b``."""
+    za, zb = a[SP_TREES[tree][0]], b[SP_TREES[tree][0]]
+    off = ((za - zb).abs() > SP_FLOW_TOL[0] * (1 + zb.abs())).any(-1)
+    return off.reshape(-1, off.shape[-1]).any(0) if off.dim() > 1 else off
+
+
+def phase_sampling_path():
+    """The samplers on host-drawn draws, the card against the port on the
+    CPU (values within SP_TOL, every discrete decision equal; NUTS's chains
+    as SP_PARTED says), and the flagship as one ScanChain against its
+    layers unrolled, bit for bit."""
+    launched = {}
+    with device_counters() as counts:
+        card, got = on_card(counts, lambda: sampling_values(DEVICE, torch.float32))
+        add_launches(launched, got)
+        cpu = sampling_values("cpu", torch.float32)
+        shaken = sampling_values("cpu", torch.float32, perturb=SEED + 189)  # NUTS only
+        equal, got = scan_chain_vs_unrolled(counts)
+        add_launches(launched, got)
+    trees, keep = {}, {}
+    for tree, readings in SP_TREES.items():
+        parted = tree_parted(card, cpu, tree)
+        ill = tree_parted(cpu, shaken, tree) | tree_off(cpu, shaken, tree)
+        held = ~parted & ~ill
+        for k in readings:
+            keep[k] = held
+        z = readings[0]
+        axis = 1 if cpu[z].dim() == 3 else 0
+        rows = held.nonzero()[:, 0]
+        gaps = {k: float((cpu[k] - shaken[k]).abs().index_select(axis if k == z else 0,
+                                                                rows).max())
+                for k in readings} if len(rows) else {}
+        trees[tree] = {"chains": int(held.numel()), "parted_on_card": int(parted.sum()),
+                       "ill_conditioned_on_cpu": int(ill.sum()),
+                       "parted_and_ill": int((parted & ill).sum()), "held": int(held.sum()),
+                       "perturbed_cpu_max_abs_on_held": gaps}
+    discrete = {k: bool(torch.equal(card[k], cpu[k])) for k in SP_DISCRETE
+                if not any(k.startswith(t + "_") for t in SP_TREES)}
+
+    def held(k):
+        a, b = card[k], cpu[k]
+        if k in keep:  # the chains on the last axis (a sample's draws: (steps, chains, dim))
+            axis = 1 if a.dim() == 3 else 0
+            rows = keep[k].nonzero()[:, 0]
+            a, b = a.index_select(axis, rows), b.index_select(axis, rows)
+        return {"excess": excess(a, b, *SP_TOL.get(k, SP_FLOW_TOL)),
+                "max_abs": float((a - b).abs().max())}
+
+    values = {k: held(k) for k in cpu if k not in SP_DISCRETE}
+    ok = (all(discrete.values()) and all(v["excess"] <= 0 for v in values.values())
+          and all(equal.values())
+          and all(t["chains"] - t["held"] <= SP_PARTED * t["chains"] for t in trees.values()))
+    emit("sampling_path", ok=ok, discrete_equal=discrete, values=values, nuts_trees=trees,
+         parted_or_ill_at_most=SP_PARTED, perturbation=SP_PERTURB,
+         scan_chain_bit_equal=equal, launches={k: v for k, v in launched.items() if v},
+         bars={"values": SP_TOL, "flow_values": SP_FLOW_TOL},
+         note="card against the port on the CPU, float32, on host-drawn draws; the "
+         "flagship's NeuTra and NUTS at 64 chains; NUTS values held on the chains that "
+         "neither the card nor the perturbed CPU parts; the ScanChain check at 2^14")
+    if not ok:
+        raise SystemExit("sampling_path: a check missed its bar")
+    return launched
+
+
+def phase_nuts():
+    """P1: nuts_bench's configuration (1,024 chains, max_depth 8, step 0.2
+    before adaptation, GaussianVonMises) cut to NUTS_ADAPT warm-up and
+    NUTS_SHORT / NUTS_LONG sampling transitions; the moment bars on the
+    longer run's draws.  No kernel of the port runs here."""
+    from normflows_tpu_torch.examples import nuts_bench
+
+    with device_counters() as counts:
+        record, launched = on_card(counts, lambda: nuts_bench.run(
+            NUTS_CHAINS, NUTS_SHORT, NUTS_LONG, NUTS_ADAPT, NUTS_DEPTH, DEVICE, seed=SEED,
+            profiled=NUTS_PROFILED))
+    m = record["moments"]
+    stats = {"abs_mean_x0": abs(m["mean_x0"]), "abs_std_x0_gap": abs(m["std_x0"] - 1.0),
+             "abs_cos_gap": abs(m["mean_cos"] - GVM_COS)}
+    ok = moments_ok(stats) and math.isfinite(record["ms_per_transition_all_chains"])
+    emit("nuts", ok=ok, results=record, moment_gaps=stats, bars=MOMENT_BARS,
+         launches=expect_launches("nuts", launched, {}),
+         cuts={"num_adapt": f"{NUTS_ADAPT} (nuts_bench: 200)",
+               "steps": f"{NUTS_SHORT} / {NUTS_LONG} (nuts_bench: 64 / 256)"})
+    if not ok:
+        raise SystemExit("nuts: a moment missed its bar")
+    return launched
+
+
+def hmc_launches(trajectories, L, per_eval):
+    """Planar launches of ``trajectories`` HMC trajectories of L leapfrog
+    steps on a flow target: (2L + 2) evaluations and 2L gradients each."""
+    return (2 * L + 2) * per_eval * trajectories, 2 * L * per_eval * trajectories
+
+
+def phase_neutra_smc(model):
+    """P2: NeuTraHMC on the trained flagship (f32) and NUTS on the same
+    pullback at NN_SEEDS seeds, the moment bars on their pushed-forward
+    draws; P3: annealed SMC with the flagship as proposal, |log Z| and the
+    weighted moments, eager (``from_noise`` on the generator's draws) and
+    with a rung graph (``sample`` on the card), bit-equal; the device
+    counters' planar launches equal to the counts the formulas give; the
+    replays' device time under the profiler."""
+    from normflows_tpu_torch.distributions.base import draw_noise
+    from normflows_tpu_torch.sampling import NUTS, AnnealedSMC, NeuTraHMC, PullbackTarget
+    from normflows_tpu_torch.utils import set_compute_dtype
+    from normflows_tpu_torch import distributions as D
+
+    set_compute_dtype(model, "float32")
+    r, launched = {}, {}
+    with device_counters() as counts:
+        # P2: one warm-up iteration of each replayed loop adds to the count
+        gen = torch.Generator(DEVICE).manual_seed(SEED + 183)
+        sampler = NeuTraHMC.create(model, num_leapfrog=NEUTRA_L)
+        sync()
+        t0 = time.perf_counter()
+        (x, info), got = on_card(counts, lambda: sampler.sample(
+            NEUTRA_CHAINS, NEUTRA_STEPS, num_adapt=NEUTRA_ADAPT, generator=gen))
+        sync()
+        seconds = time.perf_counter() - t0
+        inv, bwd = hmc_launches(2 * (NEUTRA_ADAPT + 1) + NEUTRA_STEPS + 1, NEUTRA_L, 2 * LAYERS)
+        want = {"rqs_transposed_inverse": inv + 2 * LAYERS,
+                "rqs_transposed_backward_inverse": bwd}
+        # the device time of the replays: one adaptation iteration's and one
+        # move's replay under the profiler, times their replays
+        prof = {k: kernel_shares(g.replay) for k, g in sampler.last_graphs.items()}
+        for v in prof.values():
+            v.pop("conv_share", None)
+        device_ms = (prof["adapt"]["device_ms"] * NEUTRA_ADAPT
+                     + prof["move"]["device_ms"] * NEUTRA_STEPS)
+        r["neutra"] = {"seconds": seconds, "moments": moments(x),
+                       "final_step_size": float(info["final_step_size"][0]),
+                       "accept_rate_last_10": float(info["accept_rate"][-10:].mean()),
+                       "replay_profiles": prof, "replays_device_ms": device_ms,
+                       "busy_share": device_ms / (seconds * 1e3),
+                       "launches": expect_launches("neutra", got, want), "finite":
+                           bool(torch.isfinite(x).all())}
+        add_launches(launched, got)
+        r["neutra_nuts"] = []
+        for k in range(NN_SEEDS):
+            gen = torch.Generator(DEVICE).manual_seed(SEED + 184 + k)
+            nuts = NUTS.create(PullbackTarget(model), 2, step_size=0.2, max_depth=NN_DEPTH,
+                               device=DEVICE)
+            sync()
+            t0 = time.perf_counter()
+
+            def nuts_draws():
+                us, info = nuts.sample(NN_CHAINS, NN_STEPS, num_adapt=NN_ADAPT,
+                                       adapt_mass=False, generator=gen)
+                with torch.no_grad():
+                    return model.forward(us.reshape(-1, 2)), info
+
+            (x, info), got = on_card(counts, nuts_draws)
+            sync()
+            seconds = time.perf_counter() - t0
+            # a gradient a leaf and a transition's start, and the leaf graph's
+            # warm-up leaf (the NUTS is new: one capture)
+            evals = info["leaves_total"] + info["transitions"] + 1
+            want = {"rqs_transposed_inverse": 2 * LAYERS * (evals + 1),
+                    "rqs_transposed_backward_inverse": 2 * LAYERS * evals}
+            r["neutra_nuts"].append({
+                "seed": SEED + 184 + k, "seconds": seconds, "moments": moments(x),
+                "step_size": float(info["step_size"]), "mean_depth": float(info["mean_depth"]),
+                "divergence_rate": float(info["divergence_rate"]),
+                "transitions": info["transitions"], "leaves_total": info["leaves_total"],
+                "host_reads_total": info["host_reads_total"],
+                "launches": expect_launches("neutra_nuts", got, want)})
+            add_launches(launched, got)
+        # P3: the rung graph's sample, then the eager ladder on the draws the
+        # generator gave it (the proposal's noise, then a temperature's)
+        smc = AnnealedSMC.create(model, D.GaussianVonMises(device=DEVICE), num_temps=SMC_TEMPS,
+                                 num_leapfrog=SMC_L, step_size=SMC_STEP)
+        gen = torch.Generator(DEVICE).manual_seed(SEED + 185)
+        rungs = SMC_TEMPS - 1
+        fwd, bwd = hmc_launches(1, SMC_L, LAYERS)
+        per_rung = {"rqs_transposed_forward": fwd + 2 * LAYERS,
+                    "rqs_transposed_backward_forward": bwd}
+        timed = {}
+        for route in ("graphs", "eager"):
+            gen.manual_seed(SEED + 185)
+            if route == "eager":
+                eps0 = draw_noise(model.q0.noise_spec, (2,), SMC_N, generator=gen,
+                                  device=DEVICE)
+                noises = [(torch.rand((), generator=gen, device=DEVICE),
+                           torch.randn(SMC_N, 2, generator=gen, device=DEVICE),
+                           torch.rand(SMC_N, generator=gen, device=DEVICE))
+                          for _ in range(rungs)]
+                run = lambda: smc.from_noise(eps0, noises)  # noqa: E731
+            else:
+                run = lambda: smc.sample(SMC_N, generator=gen)  # noqa: E731
+            sync()
+            t0 = time.perf_counter()
+            out, got = on_card(counts, run)
+            sync()
+            # the first sample adds its warm-up rung
+            n_rungs = rungs + (1 if route == "graphs" else 0)
+            want = {"rqs_transposed_inverse": 2 * LAYERS,
+                    **{k: v * n_rungs for k, v in per_rung.items()}}
+            timed[route] = {"ms": (time.perf_counter() - t0) * 1e3, "out": out,
+                            "flags": smc.last_resampled.clone(),
+                            "launches": expect_launches(f"smc {route}", got, want)}
+            if route == "graphs":
+                graph = smc.last_graph
+            add_launches(launched, got)
+        eager = timed["eager"]["out"]
+        bit_equal = (all(bool(torch.equal(a, b)) for a, b in zip(eager, timed["graphs"]["out"]))
+                     and bool(torch.equal(timed["eager"]["flags"], timed["graphs"]["flags"])))
+        flags = timed["eager"]["flags"]
+        # the device time of a sample: one rung's replay under the profiler,
+        # times the rungs (every rung runs the same kernels)
+        prof = kernel_shares(graph.replay)
+        prof.pop("conv_share", None)
+        device_ms = prof["device_ms"] * rungs
+    particles, log_w, log_z = eager
+    w = torch.softmax(log_w.double(), 0)
+    r["smc"] = {"log_z": float(log_z), "ess": float(1.0 / torch.sum(w * w)),
+                "moments_weighted": moments(particles, w),
+                "resampled": flags.long().tolist(), "eager_ms": timed["eager"]["ms"],
+                "graphs_ms": timed["graphs"]["ms"], "graphs_bit_equal_to_eager": bit_equal,
+                "rung_profile": prof, "device_ms": device_ms,
+                "busy_share_graphs": device_ms / timed["graphs"]["ms"],
+                "busy_share_eager": device_ms / timed["eager"]["ms"],
+                "launches": {k: v["launches"] for k, v in timed.items()},
+                "finite": bool(torch.isfinite(particles).all() and torch.isfinite(log_w).all())}
+    ok = (moments_ok(r["neutra"]["moments"]) and r["neutra"]["finite"]
+          and all(moments_ok(v["moments"]) for v in r["neutra_nuts"])
+          and abs(r["smc"]["log_z"]) <= LOG_Z_BAR and moments_ok(r["smc"]["moments_weighted"])
+          and bit_equal and r["smc"]["finite"])
+    emit("neutra_smc", ok=ok, results=r, bars={"moments": MOMENT_BARS, "abs_log_z": LOG_Z_BAR},
+         sizes={"neutra": [NEUTRA_CHAINS, NEUTRA_L, NEUTRA_ADAPT, NEUTRA_STEPS],
+                "neutra_nuts": [NN_CHAINS, NN_DEPTH, NN_ADAPT, NN_STEPS, NN_SEEDS],
+                "smc": [SMC_N, SMC_TEMPS, SMC_L, SMC_STEP]},
+         note="the convergence phase's flagship, sampled in float32; NeuTra on the card "
+         "(one adaptation iteration and one move each a CUDA graph, a warm-up iteration "
+         "each; busy share: the replays' device time over the call's wall time, warm-ups "
+         "and captures included); NUTS with unit mass (a leaf a CUDA graph); SMC's sample "
+         "(a temperature captured once after a warm-up rung, replayed for each; graphs_ms "
+         "includes the warm-up and the capture), then from_noise on the same draws, eager "
+         "(eager_ms excludes drawing them)")
+    if not ok:
+        raise SystemExit("neutra_smc: a check missed its bar")
+    return launched
+
+
+def stacked_equal(scan, unrolled, prefix="flows.0.stacked."):
+    """Every tensor of a ScanChain model (``scan``: name -> tensor) equal,
+    bit for bit, to the unrolled model's: a stacked tensor's slice i to
+    layer i's (``flows.i.<path>``), any other by its name."""
+    for name, t in scan.items():
+        if name.startswith(prefix):
+            path = name[len(prefix):]
+            if not all(torch.equal(t[i], unrolled[f"flows.{i}.{path}"])
+                       for i in range(t.shape[0])):
+                return False
+        elif not torch.equal(t, unrolled[name]):
+            return False
+    return len(unrolled) == sum(t.shape[0] if n.startswith(prefix) else 1
+                                for n, t in scan.items())
+
+
+def phase_scan_chain():
+    """P4: the flagship as one ScanChain against the unrolled flagship, a
+    captured chunk of SCAN_CHUNK bf16 reverse-KL steps each (2^14, Adam
+    5e-4, capturable), from the same weights and generator state: the
+    parameters bit-equal, the losses bit-equal or within 1e-6 relative (the
+    log-det accumulation: the facade subtracts each layer's log-det from
+    log q in turn, ScanChain sums its layers' first, as JAX's scan does),
+    24 inverse and 24 backward-inverse planar launches a replayed step."""
+    import normflows_tpu_torch as nft
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    out, launched = {}, {}
+    with device_counters() as counts:
+        for name in ("unrolled", "scan_chain"):
+            model = build_flagship(DEVICE, init_identity=True)
+            if name == "scan_chain":
+                model.flows = torch.nn.ModuleList([nft.ScanChain.create(list(model.flows))])
+            set_compute_dtype(model, "bfloat16")
+            state, chunk = training.make_step_chunk(model, capturable_adam(model),
+                                                    reverse_kld_loss(N), SCAN_CHUNK)
+            gen = torch.Generator(DEVICE).manual_seed(SEED + 186)
+            chunk(state, gen)  # the warm-up, the capture and a first chunk
+            gen.manual_seed(SEED + 187)
+            sync()
+            t0 = time.perf_counter()
+            (_, metrics), got = on_card(counts, lambda: chunk(state, gen))
+            losses = metrics["loss"]
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3 / SCAN_CHUNK
+            replay_launches(f"scan_chain {name}", got,
+                            {"rqs_transposed_inverse": 2 * LAYERS,
+                             "rqs_transposed_backward_inverse": 2 * LAYERS}, SCAN_CHUNK)
+            add_launches(launched, got)
+            out[name] = {"losses": losses.clone(), "ms_per_step": ms,
+                         "params": {n: p.detach() for n, p in model.named_parameters()}}
+    a, b = out["unrolled"], out["scan_chain"]
+    params_equal = stacked_equal(b["params"], a["params"])
+    rel = float(((a["losses"] - b["losses"]).abs() / a["losses"].abs().clamp(min=1e-30)).max())
+    ok = params_equal and rel <= 1e-6
+    emit("scan_chain", ok=ok, params_bit_equal=params_equal,
+         losses_bit_equal=bool(torch.equal(a["losses"], b["losses"])),
+         losses_max_relative_gap=rel, ms_per_step={k: v["ms_per_step"] for k, v in out.items()},
+         launches={k: v for k, v in launched.items() if v}, chunk=SCAN_CHUNK,
+         bar={"losses_relative": 1e-6, "operation": "log-det accumulation (facade: log q - "
+              "ld_i layer by layer; ScanChain: the layers' log-dets summed, then subtracted)"})
+    if not ok:
+        raise SystemExit("scan_chain: the ScanChain chunk disagrees with the unrolled one")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -5384,7 +5989,7 @@ def main() -> int:
     flagship_replays = phase_chunked_train()
     coupled_replays = phase_chunked_data()
     phase_times_chunked(eager_flagship, eager_coupled)
-    phase_convergence()
+    _, trained = phase_convergence()
     cond_launches, layer_b = phase_conditional_path()
     phase_conditional_train(layer_b)
     del layer_b
@@ -5396,6 +6001,9 @@ def main() -> int:
     new_paths = [phase_residual_path(), phase_residual_train(), phase_small_flows()]
     stochastic_vae = [phase_stochastic_path(), phase_hais(), phase_snf_train(),
                       phase_vae_train(), phase_change_base()]
+    sampling = [phase_sampling_path(), phase_nuts(), phase_neutra_smc(trained),
+                phase_scan_chain()]
+    del trained
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -5534,7 +6142,10 @@ def main() -> int:
         entry["launches_residual_small"] = sum(p.get(entry["name"], 0) for p in new_paths)
         # stochastic flows, HAIS, the VAEs and the new bases (0: no kernel there)
         entry["launches_stochastic_vae"] = sum(p.get(entry["name"], 0) for p in stochastic_vae)
-        entry["launches"] += entry["launches_conditional"] + entry["launches_image"]
+        # the samplers and ScanChain (rows 1 and 1b; 0 for the rest)
+        entry["launches_sampling"] = sum(p.get(entry["name"], 0) for p in sampling)
+        entry["launches"] += (entry["launches_conditional"] + entry["launches_image"]
+                              + entry["launches_sampling"])
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)

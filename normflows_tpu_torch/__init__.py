@@ -60,9 +60,9 @@ backward's ablation kernel.
 
 from . import (core, distributions, flows, interop, nets, ops, sampling, serving, training,
                transforms, utils)
-from .core.flow import Composite, Flow, Identity, Reverse
+from .core.flow import Composite, Flow, Identity, Reverse, ScanChain
 from .core.facades import (ClassCondFlow, ConditionalNormalizingFlow, MultiscaleFlow,
-                           NormalizingFlow, NormalizingFlowVAE)
+                           NormalizingFlow, NormalizingFlowVAE, load_model, save_model)
 from .sampling import HAIS
 
 __version__ = "0.1.0"

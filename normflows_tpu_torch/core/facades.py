@@ -46,10 +46,10 @@ level's noise, from the generator.  Its temperature is set in place
 ``sample(..., temperature=t)`` sets it for the call and restores the
 bases' own after it.
 
-Persistence (facades.py:220-335 of the JAX package): ``save`` pickles a
-:func:`compact_copy` of the model with ``torch.save``,
-``NormalizingFlow.load`` rebuilds it, and :func:`load_params_like` copies a
-saved model's tensors into an existing one, each converted to the model
+Persistence (facades.py:220-335 of the JAX package): ``save`` and
+:func:`save_model` pickle a :func:`compact_copy` of the model with
+``torch.save``, ``NormalizingFlow.load`` and :func:`load_model` rebuild it,
+and :func:`load_params_like` copies a saved model's tensors into an existing one, each converted to the model
 tensor's dtype, naming the first name or shape that differs.
 """
 
@@ -105,14 +105,14 @@ class _Saved:
         """Pickle the whole model (its classes by import path, every tensor
         where it lies) with ``torch.save``, as :func:`compact_copy` gives
         it: no storage beyond the model's own tensors goes into the file."""
-        torch.save(compact_copy(self), path)
+        save_model(self, path)
 
     @classmethod
     def load(cls, path: str):
         """Rebuild a model written by :meth:`save`; a file that holds
         another class raises ``TypeError``.  This unpickles the file, which
         can run code: load only files this program wrote."""
-        obj = torch.load(path, weights_only=False)
+        obj = load_model(path)
         if not isinstance(obj, cls):
             raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, "
                             f"not {cls.__name__}")
@@ -620,6 +620,24 @@ def copy_tensors_like(model: nn.Module, saved: dict, source: str) -> nn.Module:
         for name in names:
             current[name].copy_(saved[name])
     return model
+
+
+def save_model(model: nn.Module, path: str):
+    """Pickle ``model`` whole with ``torch.save``, as :func:`compact_copy`
+    gives it (the JAX package's ``save_model``)."""
+    torch.save(compact_copy(model), path)
+
+
+def load_model(path: str) -> nn.Module:
+    """The ``nn.Module`` that :func:`save_model` (or a facade's ``save``)
+    wrote at ``path``, whatever its class; a file that holds anything else
+    raises ``TypeError``.  This unpickles the file, which can run code: load
+    only files this program wrote."""
+    obj = torch.load(path, weights_only=False)
+    if not isinstance(obj, nn.Module):
+        raise TypeError(f"checkpoint at {path} contains {type(obj).__name__}, not a model "
+                        f"(an nn.Module)")
+    return obj
 
 
 def load_params_like(model: nn.Module, path: str) -> nn.Module:

@@ -5,7 +5,7 @@ the squeeze), the other mixing flows, BatchNorm, the feature split, residual
 flows, the planar, radial and periodic flows, and the stochastic (MCMC) layers
 of stochastic normalizing flows."""
 
-from ..core.flow import Flow, Reverse, Composite, Identity, zero_log_det_like_z
+from ..core.flow import Flow, Reverse, Composite, Identity, ScanChain, zero_log_det_like_z
 from . import base
 from .affine.autoregressive import Autoregressive, MaskedAffineAutoregressive
 from .affine.coupling import (
@@ -39,6 +39,7 @@ __all__ = [
     "Reverse",
     "Composite",
     "Identity",
+    "ScanChain",
     "Autoregressive",
     "MaskedAffineAutoregressive",
     "AffineConstFlow",

@@ -1,5 +1,5 @@
 from .autoregressive import MaskedPiecewiseRationalQuadraticAutoregressive
-from .coupling import PiecewiseRationalQuadraticCDF, PiecewiseRationalQuadraticCoupling
+from .coupling import Coupling, PiecewiseRationalQuadraticCDF, PiecewiseRationalQuadraticCoupling
 from .wrapper import (
     AutoregressiveRationalQuadraticSpline,
     CircularAutoregressiveRationalQuadraticSpline,

@@ -163,8 +163,15 @@ class HamiltonianMonteCarlo(_Stochastic):
             u = torch.rand(z.shape[0], generator=generator, dtype=z.dtype, device=z.device)
         else:
             p_eps, u = (torch.as_tensor(a, dtype=z.dtype, device=z.device) for a in noise)
+        return self.move(z, p_eps, u)
+
+    def log_accept(self, z, p_eps, log_step_size=None):
+        """The leapfrog trajectory from ``z`` with momentum ``p_eps *
+        exp(log_mass / 2)``, at ``log_step_size`` (default: the layer's):
+        ``(z_new, log_p, log_p_new, log_accept)``."""
+        log_step_size = self.log_step_size if log_step_size is None else log_step_size
         p = p_eps * torch.exp(0.5 * self.log_mass)
-        step_size = torch.exp(self.log_step_size)
+        step_size = torch.exp(log_step_size)
         mass = torch.exp(self.log_mass)
         z_new, p_new = z, p
         for _ in range(self.steps):
@@ -175,6 +182,12 @@ class HamiltonianMonteCarlo(_Stochastic):
         log_p_new = self.target.log_prob(z_new)
         log_accept = (log_p_new - log_p - 0.5 * sum_except_batch(p_new**2 / mass)
                       + 0.5 * sum_except_batch(p**2 / mass))
+        return z_new, log_p, log_p_new, log_accept
+
+    def move(self, z, p_eps, u, log_step_size=None):
+        """One move on given draws (momentum normals ``p_eps``, accept
+        uniforms ``u``), at ``log_step_size`` (default: the layer's)."""
+        z_new, log_p, log_p_new, log_accept = self.log_accept(z, p_eps, log_step_size)
         accept = u < torch.exp(log_accept)
         z_out = torch.where(_rows(accept, z), z_new, z)
         # log p(z_out), each row the branch chosen, as the JAX package's

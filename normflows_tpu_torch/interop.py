@@ -8,8 +8,9 @@ as ``{keystr(p): np.asarray(l) for p, l in tree_flatten_with_path(model)[0]}``
 
 Each path names the port's tensor of the same name.  A parameter is copied;
 the (in, out) weights of ``Linear`` / ``MaskedLinear`` are transposed into
-torch's (out, in), and so are their masks.  A buffer drawn at random (one a
-module lists in its ``random_buffers``, such as a random permutation, which
+torch's (out, in), and so are their masks (a ``ScanChain``'s stacked
+(depth, in, out) leaves on their last two axes).  A buffer drawn at random
+(one a module lists in its ``random_buffers``, such as a random permutation, which
 a torch generator cannot draw as a JAX key does) is copied too, and so is
 one it lists in its ``state_buffers`` (data-dependent state, such as
 ActNorm's ``initialized``).  A buffer
@@ -55,7 +56,9 @@ def load_jax_leaves(model: torch.nn.Module, leaves: dict) -> torch.nn.Module:
         value = np.array(value)  # a writable copy: JAX hands out read-only views
         module = model.get_submodule(owner)
         if attr in _TRANSPOSED and isinstance(module, Linear):
-            value = value.T
+            # the last two axes: a ScanChain's stacked (depth, in, out) leaf
+            # becomes (depth, out, in)
+            value = np.swapaxes(value, -2, -1)
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"load_jax_leaves: {path} has shape {value.shape}, "
                              f"the port's {name} {tuple(target.shape)}")

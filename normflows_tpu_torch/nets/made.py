@@ -213,6 +213,10 @@ class MADE(nn.Module):
     degree (the argsort of the possibly permuted input degrees), and
     ``input_order_host`` the same as a tuple of ints."""
 
+    # host copies of a buffer, which may differ between the layers of a
+    # core.flow.ScanChain: it sets each layer's own before the layer runs
+    host_mirrors = ("input_order_host",)
+
     def __init__(self, features: int, hidden_features: int,
                  context_features=None, num_blocks: int = 2,
                  output_multiplier: int = 1, use_residual_blocks: bool = True,

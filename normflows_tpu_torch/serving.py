@@ -65,6 +65,7 @@ from .flows.stochastic import mcmc_layers
 from .nets.cnn import fp32_convs
 from .ops import backend, made_fused, spline_cuda, spline_flat  # noqa: F401  (the ops)
 from .ops.backend import resolve_device
+from .sampling import HAIS, NUTS, AnnealedSMC, NeuTraHMC
 
 __all__ = ["export_sampler", "export_log_prob", "save_bundle", "load_bundle",
            "ServingBundle"]
@@ -102,7 +103,15 @@ def _prepared(model, device):
     flow is refused: its fixed-point inverse and its log-det series loop a
     number of times the data decide.  So is a model with an MCMC layer
     (a stochastic normalizing flow): its moves draw, and the programs take
-    the base's noise only."""
+    the base's noise only.  The samplers (NUTS, annealed SMC, NeuTra HMC,
+    HAIS) are refused too: each draws at every step, and NUTS reads the
+    device once a doubling."""
+    if isinstance(model, (NUTS, AnnealedSMC, NeuTraHMC, HAIS)):
+        raise NotImplementedError(
+            f"a {type(model).__name__} sampler has no serving bundle: a bundle freezes a flow's "
+            f"sample and log_prob, and a sampler's loop draws at every step (NUTS also reads "
+            f"the device once a doubling); serving a sampler waits for a later slice of the "
+            f"PyTorch port")
     if any(isinstance(m, iResBlock) for m in model.modules()):
         raise NotImplementedError(
             "a residual flow (flows.Residual) has no serving bundle yet: its fixed-point "

@@ -1216,3 +1216,161 @@ def test_mixture_draws_capture(cuda):
     gen.set_state(state)
     want = draw()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_captured_adapt_step_size_equals_eager_calls(cuda):
+    """``adapt_step_size`` (HMC on TwoMoons, 512 chains, 12 iterations)
+    captured whole with its generator registered (its loop then runs
+    inside the outer capture): a replay equals, bit for bit, a call from
+    the generator state it starts at (one iteration a replayed graph), and
+    both equal the eager loop on the noise drawn from that state."""
+    from normflows_tpu_torch.sampling import adapt_step_size
+
+    hmc = nft.flows.HamiltonianMonteCarlo(nft.distributions.TwoMoons(device=cuda), 4,
+                                          np.zeros(2, np.float32), np.zeros(2, np.float32),
+                                          device=cuda)
+    z = 1.5 * torch.randn(512, 2, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    gen = torch.Generator(cuda).manual_seed(4)
+
+    def adapt():
+        tuned, info = adapt_step_size(hmc, z, 12, generator=gen)
+        return tuned.log_step_size.detach(), info["accept_rate"]
+
+    graph, out = _captured(adapt, gen)
+    state = gen.get_state()
+    graph.replay()
+    got = [t.clone() for t in out]
+    gen.set_state(state)
+    want = adapt()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gen.set_state(state)
+    draws = [(torch.randn(512, 2, generator=gen, device=cuda),
+              torch.randn(512, 2, generator=gen, device=cuda),
+              torch.rand(512, generator=gen, device=cuda)) for _ in range(12)]
+    tuned, info = adapt_step_size(hmc, z, 12, noise=[torch.stack(d) for d in zip(*draws)])
+    assert torch.equal(tuned.log_step_size.detach(), want[0])
+    assert torch.equal(info["accept_rate"], want[1])
+
+
+@pytest.mark.gpu
+def test_captured_smc_with_a_flow_proposal_equals_eager_calls(cuda):
+    """``AnnealedSMC.sample`` with the flagship (12 circular AR spline
+    layers of hidden 512) as proposal toward GaussianVonMises, 1,024
+    particles, 4 temperatures of 3 leapfrog steps, captured whole: a replay
+    equals an eager call bit for bit, the resampling flags too."""
+    from normflows_tpu_torch.examples.nsf_cylinder import build_model
+    from normflows_tpu_torch.sampling import AnnealedSMC
+
+    smc = AnnealedSMC.create(build_model(cuda),
+                             nft.distributions.GaussianVonMises(device=cuda), num_temps=4,
+                             num_leapfrog=3)
+    gen = torch.Generator(cuda).manual_seed(5)
+
+    def draw():
+        return (*smc.sample(1024, generator=gen), smc.last_resampled)
+
+    graph, out = _captured(draw, gen)
+    state = gen.get_state()
+    graph.replay()
+    got = [t.clone() for t in out]
+    gen.set_state(state)
+    want = draw()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(torch.isfinite(want[0]).all())
+
+
+@pytest.mark.gpu
+def test_scan_chain_chunk_equals_eager_and_unrolled(cuda):
+    """The flagship's 12 layers as one ScanChain: a captured chunk of 3
+    reverse-KL steps equals 3 eager steps (capturable Adam) bit for bit, and
+    leaves every parameter bit-equal to the unrolled flagship's chunk (its
+    losses within 1e-6 relative: the facade accumulates log q layer by
+    layer, ScanChain sums the log-dets first)."""
+    from normflows_tpu_torch.examples.nsf_cylinder import build_model
+    from normflows_tpu_torch.training import make_step_chunk, make_train_step
+
+    def build(scan):
+        model = build_model(cuda)
+        if scan:
+            model.flows = torch.nn.ModuleList([nft.ScanChain.create(list(model.flows))])
+        return model
+
+    def adam(m):
+        return torch.optim.Adam(m.parameters(), lr=5e-4, capturable=True)
+
+    eager = build(True)
+    state, step = make_train_step(eager, adam(eager), reverse_kld_1000)
+    gen = torch.Generator(cuda).manual_seed(6)
+    want = torch.stack([step(state, None, gen)[1]["loss"] for _ in range(3)])
+    out = {}
+    for scan in (True, False):
+        model = build(scan)
+        cstate, chunk = make_step_chunk(model, adam(model), reverse_kld_1000, chunk_len=3)
+        _, metrics = chunk(cstate, torch.Generator(cuda).manual_seed(6))
+        out[scan] = (metrics["loss"], {n: p.detach() for n, p in model.named_parameters()})
+    assert torch.equal(out[True][0], want)
+    for n, p in eager.named_parameters():
+        assert torch.equal(out[True][1][n], p.detach()), n
+    rel = ((out[True][0] - out[False][0]).abs() / out[False][0].abs()).max()
+    assert float(rel) <= 1e-6
+    for n, t in out[True][1].items():
+        if n.startswith("flows.0.stacked."):
+            path = n[len("flows.0.stacked."):]
+            for i in range(t.shape[0]):
+                assert torch.equal(t[i], out[False][1][f"flows.{i}.{path}"]), (n, i)
+
+
+@pytest.mark.gpu
+def test_nuts_leaf_graphs_equal_eager_leaves(cuda, monkeypatch):
+    """NUTS with each leaf a replayed CUDA graph (on a card) against the
+    same transitions op by op (``_leaf_graph`` stubbed out), on the
+    pullback of the small flagship: draws, depths, leapfrog counts, picks
+    and acceptance probabilities bit for bit, and the same host reads."""
+    from normflows_tpu_torch.sampling import NUTS, PullbackTarget
+
+    target = PullbackTarget(small_model(cuda, target=True))
+    z0 = torch.randn(128, 2, generator=torch.Generator(cuda).manual_seed(7), device=cuda)
+    out = {}
+    for graphs in (True, False):
+        if not graphs:
+            monkeypatch.setattr(NUTS, "_leaf_graph", lambda self, bufs: None)
+        nuts = NUTS.create(target, 2, step_size=0.3, max_depth=6, device=cuda)
+        gen = torch.Generator(cuda).manual_seed(8)
+        z, steps = z0, []
+        for _ in range(3):
+            z, st = nuts.transition(z, generator=gen)
+            steps.append((z, st, nuts.host_reads, nuts.leaves))
+        out[graphs] = steps
+    for (za, sa, ra, la), (zb, sb, rb, lb) in zip(out[False], out[True]):
+        assert torch.equal(za, zb) and (ra, la) == (rb, lb)
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+@pytest.mark.gpu
+def test_smc_rung_graphs_equal_the_eager_ladder(cuda):
+    """``AnnealedSMC.sample`` on a card (one temperature captured at the
+    first call and replayed for each; the second call replays the cached
+    graph) equals, bit for bit, the eager ladder of ``from_noise`` on the
+    draws taken from the same generator state, the resampling flags too."""
+    from normflows_tpu_torch.distributions.base import draw_noise
+    from normflows_tpu_torch.sampling import AnnealedSMC
+
+    smc = AnnealedSMC.create(small_model(cuda, target=True),
+                             nft.distributions.GaussianVonMises(device=cuda), num_temps=5,
+                             num_leapfrog=3)
+    n, out = 2048, {}
+    for seed in (9, 10):
+        gen = torch.Generator(cuda).manual_seed(seed)
+        graphed = (*smc.sample(n, generator=gen), smc.last_resampled)
+        assert smc.last_graph is not None
+        gen.manual_seed(seed)
+        eps0 = draw_noise(smc.proposal.q0.noise_spec, (2,), n, generator=gen, device=cuda)
+        noises = [(torch.rand((), generator=gen, device=cuda),
+                   torch.randn(n, 2, generator=gen, device=cuda),
+                   torch.rand(n, generator=gen, device=cuda)) for _ in range(4)]
+        eager = (*smc.from_noise(eps0, noises), smc.last_resampled)
+        assert smc.last_graph is None
+        assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
+        out[seed] = graphed
+    assert not torch.equal(out[9][0], out[10][0])
