@@ -110,6 +110,22 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   neutra_smc); a captured bf16 reverse-KL chunk of the flagship as one
   ScanChain against the unrolled flagship's (phase scan_chain).  Their
   planar kernel launches are the kernels line's ``launches_sampling``.
+* the native data loader and the data- and chain-parallel tier: the C++
+  loader built with g++ from the checkout, its batches against the plain
+  producer and ``utils.preprocessing``, across worker counts, and copied to
+  the card through ``prefetch_to_device`` (pinned memory, a copy stream),
+  host batches/s at CIFAR-10 geometry (phase loader); the flagship's
+  data-parallel reverse-KL step at 2^14 (``parallel.make_reverse_kld_step``),
+  a world of 1 (NCCL, in-process) bit-equal to ``make_train_step`` and its
+  step time against it, and a world of 2 spawned once on the one card (gloo
+  over CUDA tensors) against the single-process step, 24 + 24 planar
+  launches a step a rank (phase data_parallel); Glow model A fed from the
+  loader through ``prefetch_to_device`` against a batch already on the
+  card, images/s and busy share (phase glow_loader); the HAIS of
+  ``examples/snf_hais.py`` through ``parallel_chain_sample`` at worlds 1
+  and 2 against ``HAIS.sample``, log Z against the quadrature (phase
+  chains).  Their planar launches are the kernels line's
+  ``launches_parallel``.
 
 Every kernel on a model's path is reached through its ``torch.library``
 operator (``normflows_tpu_torch.ops.backend.kernel_op``).
@@ -192,7 +208,9 @@ LD_D, LD_HIDDEN, LD_BINS, LD_LAYERS, LD_BATCH = 64, 256, 8, 4, 4096
 LD_TAIL_BOUND = 3.0
 LD_CPU = 512  # samples of the card-against-CPU checks
 LD_TRAIN_STEPS = 20
-LD_TIMED_REPS = 2  # host medians of the large-D requests and steps (5 before PR 13, 3 before PR 14)
+# host medians of the large-D requests and steps (5 before PR 13, 3 before
+# PR 14, 2 before PR 18)
+LD_TIMED_REPS = 1
 # Flat kernel against its plain version: the JAX package's bars for the
 # runtime-tail entry (tests/test_pallas.py:427-428), 1e-5 on outputs and
 # 1e-4 on log-dets, for the static-tail entry (:41-42) 2e-5 and 2e-4, and
@@ -279,13 +297,14 @@ RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # serving: log_prob through one program at these batches; SERVE_REPS
 # requests a route's host median
 # (SERVE_REPS and REQUEST_REPS 3, from 5, and HAIS_REPS 2, from 3, to make
-# room for the samplers' phases)
-SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 3
+# room for the samplers' phases; SERVE_REPS and REQUEST_REPS 2, HAIS_REPS and
+# LD_TIMED_REPS 1, for the loader's and the parallel tier's phases)
+SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 2
 # host medians of the flagship's requests and eager steps (20 before PR 13;
 # PR 13 cut this, SERVE_REPS, LD_TIMED_REPS and TIMED_CHUNKS to make room for
 # the Glow phases; PR 14 cut it to 5, SERVE_REPS from 10 to 5, LD_TIMED_REPS
 # from 3 to 2 and TIMED_CHUNKS from 2 to 1 for the residual and small flows)
-REQUEST_REPS = 3
+REQUEST_REPS = 2
 
 # conditional flows.  Model A: examples/conditional_flow.py as published
 # (4 x (AR RQ spline on 2 features, 2 blocks of hidden 128, context 4, 8
@@ -4916,7 +4935,7 @@ ST_TOL = {k: (10 * v, 0.0) for k, v in ST_F64_GAP.items()}
 # grid over [-5, 5]^2; a 0.004 grid agrees to 1e-15); |log Z - LOG_Z| must be
 # at most max(0.02, 4 SE), SE = std(w) / (mean(w) sqrt(n)).
 LOG_Z = 0.804214
-HAIS_REPS = 2  # timed samples of each route
+HAIS_REPS = 1  # timed samples of each route (2 before PR 18)
 SNF_CHUNK, SNF_LR = 20, 1e-3  # reverse KL on the example's 1,024 draws a step
 VAE_PARITY_STEPS = 50
 # held-out -ELBO bars: the JAX package on the port example's initial weights
@@ -5944,6 +5963,446 @@ def phase_scan_chain():
     return launched
 
 
+# ---- the native loader and the data- and chain-parallel tier (PR 18) --------
+# Bars fixed before the first card run of these phases:
+# * the world of 1 (NCCL, in-process): make_reverse_kld_step's loss,
+#   gradients and parameters after Adam bit-equal to make_train_step's on the
+#   same generator (averaging over one rank is the identity);
+# * the world of 2 (gloo over CUDA tensors, both ranks on the one card):
+#   the averaged loss within DP2_LOSS_REL of the single-process 2^14 step's,
+#   each gradient leaf within DP2_GRAD_REL of its norm (the leaves that are
+#   0 there exactly 0), both ranks bit-equal, and each rank's Adam update
+#   bit-equal to Adam's on the rank's averaged gradient from the initial
+#   weights.  Reason for 1e-5: the same float32 sums over the batch in
+#   another order (two halves, then their mean); on the CPU that moves the
+#   flagship's gradient leaves by at most 3.2e-7 of their norm (1.2e-7 over
+#   the whole gradient, the loss not at all: `python -m tests.test_torch_parallel`,
+#   this step at 2^14 against its two halves, run before any card run);
+# * HAIS through parallel_chain_sample: at world 1 the chains bit-equal to
+#   HAIS.sample on the same generator; at world 2 every chain's draw within
+#   CHAIN_Z_TOL and its log weight within CHAIN_W_TOL (atol, rtol) of the
+#   single-process chain's, no chain excused (each chain's arithmetic is the
+#   same elementwise code whatever the batch, so bits are expected; the bar
+#   leaves room for a last-bit difference of a kernel chosen by batch size);
+#   log Z within max(0.02, 4 SE) of the quadrature (PR 15's bar);
+# * the loader: native batches with jitter and logit off bit-equal to the
+#   plain producer and to utils.preprocessing; with the logit on within 1e-6
+#   (tests/test_data_loader.py's bar); jittered batches bit-equal across 1
+#   and 4 workers; batches through prefetch_to_device bit-equal on the card.
+DP_SEED = SEED + 190  # the generator of the data-parallel steps' draws
+DP2_LOSS_REL, DP2_GRAD_REL = 1e-5, 1e-5
+DP_TIMED = 6  # steps of each route in each of six alternating blocks
+DP_AVERAGE_REPS = 20  # timed calls of the gradient average alone
+CHAIN_SEED, CHAINS = SEED + 191, 4096
+CHAIN_Z_TOL, CHAIN_W_TOL = (1e-6, 1e-6), (1e-5, 1e-6)
+LOADER_BATCHES, LOADER_NUMPY_BATCHES = 200, 10  # timed host batches, native / plain
+GLOW_LOADER_STEPS, GLOW_PROFILED = 6, 3  # timed steps of each feed, profiled steps
+
+
+def busy(fn):
+    """``fn`` once under torch.profiler tracing the device only (no host
+    operators recorded, so the profiler adds little host time): the call's
+    wall time, its kernels' device time and their ratio, its copies'
+    (memcpy, memset) device time, over the same call."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if not e.key.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3,
+            "kernel_launches": sum(e.count for e in kernels)}
+
+
+def uint8_images(n, seed=SEED):
+    """``examples.glow_image.synthetic_images`` as the uint8 images they
+    quantise (x = round(255 c) / 255), and their labels."""
+    from normflows_tpu_torch.examples import glow_image
+
+    x, y = glow_image.synthetic_images(n, seed=seed)
+    return (x * 255.0).round().to(torch.uint8).numpy(), y.numpy()
+
+
+def phase_loader():
+    """The native loader (``data.NativeImageLoader``, built with g++ from
+    the checkout) at CIFAR-10 geometry: its batches against the plain
+    producer and ``utils.preprocessing``, across worker counts, and copied
+    to the card through ``prefetch_to_device``; host batches/s."""
+    from normflows_tpu_torch import data
+    from normflows_tpu_torch.data import native_loader
+    from normflows_tpu_torch.utils import preprocessing
+
+    t0 = time.perf_counter()
+    native_loader._library()
+    build_s = time.perf_counter() - t0
+    images, labels = uint8_images(2048)
+    r = {"build_seconds": build_s, "shape": list(images.shape[1:]), "batch": GLOW_BATCH}
+
+    def take(k, **kw):
+        loader = data.NativeImageLoader(images, labels, batch_size=GLOW_BATCH, **kw)
+        out = [next(loader) for _ in range(k)]
+        loader.close()
+        return out
+
+    plain = dict(shuffle=False, jitter=False, logit=False)
+    native, numpy_ = take(2, **plain), take(2, force_numpy=True, **plain)
+    scale = preprocessing.Scale()
+    want = [scale(torch.from_numpy(images[i * GLOW_BATCH:(i + 1) * GLOW_BATCH]).double()
+                  / 255.0).float() for i in range(2)]
+    r["plain_bit_equal"] = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                               for a, b in zip(native, numpy_))
+    r["preprocessing_bit_equal"] = all(torch.equal(a[0], w) for a, w in zip(native, want))
+    (xl, _, _), = take(1, shuffle=False, jitter=False)
+    logit = preprocessing.Logit(alpha=0.05)(want[0].double()).float()
+    r["logit_excess"] = excess(xl, logit, 1e-6, 1e-6)
+    jittered = [take(20, seed=SEED, num_workers=w, logit=False) for w in (1, 4)]
+    r["workers_bit_equal"] = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                                 for a, b in zip(*jittered))
+    host = take(12, seed=SEED)
+    loader = data.NativeImageLoader(images, labels, batch_size=GLOW_BATCH, seed=SEED)
+    stream = data.prefetch_to_device(loader, size=2, device=DEVICE)
+    on_card = [next(stream) for _ in range(12)]
+    sync()
+    r["prefetch_bit_equal"] = all(
+        x.device.type == torch.device(DEVICE).type and torch.equal(x.cpu(), hx)
+        and torch.equal(y.cpu(), hy)
+        and e == he for (x, y, e), (hx, hy, he) in zip(on_card, host))
+    loader.close()
+    # host batches a second at the defaults (jitter and logit on)
+    for what, k, kw in (("native_4_workers", LOADER_BATCHES, {}),
+                        ("native_1_worker", LOADER_BATCHES // 4, {"num_workers": 1}),
+                        ("plain_numpy", LOADER_NUMPY_BATCHES, {"force_numpy": True})):
+        loader = data.NativeImageLoader(images, labels, batch_size=GLOW_BATCH, seed=SEED, **kw)
+        next(loader)
+        t0 = time.perf_counter()
+        for _ in range(k):
+            next(loader)
+        r[f"{what}_batches_per_s"] = k / (time.perf_counter() - t0)
+        loader.close()
+    loader = data.NativeImageLoader(images, labels, batch_size=GLOW_BATCH, seed=SEED)
+    stream = data.prefetch_to_device(loader, size=2, device=DEVICE)
+    next(stream)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(LOADER_BATCHES):
+        next(stream)
+    sync()
+    r["prefetched_to_card_batches_per_s"] = LOADER_BATCHES / (time.perf_counter() - t0)
+    loader.close()
+    ok = (r["plain_bit_equal"] and r["preprocessing_bit_equal"] and r["logit_excess"] <= 0
+          and r["workers_bit_equal"] and r["prefetch_bit_equal"])
+    emit("loader", ok=ok, results=r,
+         note="batches/s: the host's rate over the timed batches after one (native: the "
+              "loader's C++ threads; prefetched: delivered on the card through pinned "
+              "memory and a copy stream, ending in a synchronise)")
+    if not ok:
+        raise SystemExit("loader: a batch differed")
+
+
+def flagship_step_reference(launches):
+    """The single-process 2^14 reverse-KL step (``make_train_step``, Adam(LR))
+    of ``examples.nsf_cylinder.build_model`` on the generator DP_SEED."""
+    from normflows_tpu_torch.examples import nsf_cylinder
+    from normflows_tpu_torch.training import make_train_step
+
+    model = nsf_cylinder.build_model(DEVICE)
+    state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                  reverse_kld_loss(N))
+    gen = torch.Generator(DEVICE).manual_seed(DP_SEED)
+    with device_counters() as counts:
+        (_, metrics), launches["train_step"] = exact_on_card(
+            "make_train_step", counts, lambda: step(state, None, gen), **FLAGSHIP_STEP)
+    return model, state, step, metrics
+
+
+def leaves(model, what):
+    """The parameters (``what="param"``) or their gradients, by name (a
+    parameter without a gradient left out)."""
+    return {n: (p.grad if what == "grad" else p).detach().clone()
+            for n, p in model.named_parameters() if what == "param" or p.grad is not None}
+
+
+FLAGSHIP_STEP = {"rqs_transposed_inverse": 2 * LAYERS,
+                 "rqs_transposed_backward_inverse": 2 * LAYERS}
+
+
+def parallel_rank(rank, root, address):
+    """A rank of the world of two on the one card (gloo over CUDA tensors:
+    NCCL refuses two ranks on one card), spawned by phase_data_parallel: the
+    flagship's make_reverse_kld_step at 2^14 on the generator DP_SEED, then
+    HAIS through parallel_chain_sample; its results go to ``root``."""
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.examples import nsf_cylinder, snf_hais
+
+    parallel.initialize_distributed(address, 2, rank, device=DEVICE, backend="gloo",
+                                    timeout=600)
+    mesh = parallel.make_mesh(devices=DEVICE)
+    model = nsf_cylinder.build_model(DEVICE)
+    state, step = parallel.make_reverse_kld_step(
+        model, torch.optim.Adam(model.parameters(), lr=LR), mesh, N)
+    gen = torch.Generator(DEVICE).manual_seed(DP_SEED)
+    out = {}
+    with device_counters() as counts:
+        (_, metrics), out["launches"] = exact_on_card(
+            f"rank {rank}'s data-parallel step", counts, lambda: step(state, gen),
+            **FLAGSHIP_STEP)
+        out["loss"], out["finite"] = float(metrics["loss"]), metrics["finite"]
+        out["grads"] = {n: g.cpu() for n, g in leaves(model, "grad").items()}
+        out["params"] = {n: p.cpu() for n, p in leaves(model, "param").items()}
+        run = parallel.parallel_chain_sample(snf_hais.build_hais(DEVICE), mesh, CHAINS)
+        (z, log_w), out["chain_launches"] = exact_on_card(f"rank {rank}'s chains", counts,
+                                                          lambda: run(CHAIN_SEED))
+        out["chains"] = (z.cpu(), log_w.cpu())
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def world_of_two():
+    """Spawn the world of two once (parallel_rank); a rank that fails
+    raises here.  Returns each rank's results."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as root:
+        t0 = time.perf_counter()
+        mp.start_processes(parallel_rank, args=(root, f"127.0.0.1:{free_port()}"), nprocs=2,
+                           join=True, start_method="spawn")
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
+                 for r in range(2)]
+    return ranks, seconds
+
+
+def phase_data_parallel():
+    """The flagship's data-parallel reverse-KL step at 2^14, Adam(LR): the
+    world of 1 (NCCL, in-process) bit-equal to make_train_step, its step
+    time against make_train_step's; the world of 2 on the one card against
+    the single-process step; the planar launches a step a rank.  Returns the
+    world of two's results (phase chains reads its chains) and the launches."""
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.examples import nsf_cylinder
+    from normflows_tpu_torch.parallel.data_parallel import average_over
+
+    launches = {}
+    ref, ref_state, ref_step, ref_metrics = flagship_step_reference(launches)
+    mesh = parallel.make_mesh(devices=DEVICE)
+    model = nsf_cylinder.build_model(DEVICE)
+    init = leaves(model, "param")
+    state, step = parallel.make_reverse_kld_step(
+        model, torch.optim.Adam(model.parameters(), lr=LR), mesh, N)
+    gen = torch.Generator(DEVICE).manual_seed(DP_SEED)
+    with device_counters() as counts:
+        (_, metrics), launches["world_1"] = exact_on_card(
+            "data-parallel step", counts, lambda: step(state, gen), **FLAGSHIP_STEP)
+    r = {"backend": torch.distributed.get_backend(), "world": torch.distributed.get_world_size(),
+         "world_1": {
+             "loss": float(metrics["loss"]), "loss_make_train_step": float(ref_metrics["loss"]),
+             "loss_bit_equal": bool(torch.equal(metrics["loss"], ref_metrics["loss"])),
+             "grads_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                 leaves(model, "grad").values(), leaves(ref, "grad").values())),
+             "params_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                 leaves(model, "param").values(), leaves(ref, "param").values()))}}
+    want = {n: g.cpu() for n, g in leaves(ref, "grad").items()}
+    want_loss = float(ref_metrics["loss"])
+    # step ms: make_train_step's eager step against the world of 1's, in turns
+    times = {"make_train_step": [], "data_parallel": []}
+    for route in ("make_train_step", "data_parallel") * 3:
+        fn = (lambda: ref_step(ref_state, None, gen)) if route == "make_train_step" \
+            else (lambda: step(state, gen))
+        times[route].append(host_ms(fn, reps=DP_TIMED, warmup=1))
+    r["step_ms"] = {k: float(np.median(v)) for k, v in times.items()}
+    r["step_ms_blocks"] = times
+    r["samples_per_s"] = {k: N / (v / 1e3) for k, v in r["step_ms"].items()}
+    r["step_ms_difference"] = r["step_ms"]["data_parallel"] - r["step_ms"]["make_train_step"]
+    # the gradient average alone (a flat cat, the all-reduce, the divide, the
+    # copies back) on the step's gradients: host and device time
+    average = average_over(mesh, "data", list(model.parameters()))
+    loss = metrics["loss"]
+    r["average_ms"] = host_ms(lambda: average(loss), reps=DP_AVERAGE_REPS)
+    r["average_device_ms"] = cuda_ms(lambda: average(loss), reps=DP_AVERAGE_REPS)
+    r["global_draw_floats_a_rank"] = N * 2
+    del ref, ref_state, model, state
+    ranks, seconds = world_of_two()
+    r["world_2"] = {"spawn_and_run_seconds": seconds,
+                    "launches_per_rank": [x["launches"] for x in ranks]}
+    r["launches_per_step"] = {"make_train_step": launches["train_step"],
+                              "world_1": launches["world_1"]}
+    r0, r1 = ranks
+    rel = {n: float((r0["grads"][n] - g).norm() / g.norm()) for n, g in want.items()
+           if float(g.norm()) > 0}
+    worst = max(rel, key=rel.get)
+    # Adam's update on rank 0's averaged gradient, from the initial weights
+    adam = nsf_cylinder.build_model(DEVICE)
+    with torch.no_grad():
+        for n, p in adam.named_parameters():
+            p.copy_(init[n])
+            p.grad = r0["grads"][n].to(DEVICE)
+    torch.optim.Adam(adam.parameters(), lr=LR).step()
+    w2 = r["world_2"]
+    w2.update({
+        "loss": r0["loss"], "loss_single_process": want_loss,
+        "loss_rel": abs(r0["loss"] - want_loss) / abs(want_loss),
+        "leaves": len(want), "worst_leaf": worst, "worst_leaf_rel": rel[worst],
+        "zero_leaves_zero": all(bool((r0["grads"][n] == 0).all()) for n in want if n not in rel),
+        "ranks_bit_equal": r0["loss"] == r1["loss"] and all(
+            torch.equal(r0[k][n], r1[k][n]) for k in ("grads", "params") for n in want),
+        "adam_update_bit_equal": all(torch.equal(p.detach().cpu(), r0["params"][n])
+                                     for n, p in adam.named_parameters()),
+        "finite": r0["finite"] and r1["finite"]})
+    ok = (r["world_1"]["loss_bit_equal"] and r["world_1"]["grads_bit_equal"]
+          and r["world_1"]["params_bit_equal"] and w2["finite"]
+          and w2["loss_rel"] <= DP2_LOSS_REL and w2["worst_leaf_rel"] <= DP2_GRAD_REL
+          and w2["zero_leaves_zero"] and w2["ranks_bit_equal"] and w2["adam_update_bit_equal"])
+    emit("data_parallel", ok=ok, results=r,
+         bars={"world_1": "bit-equal to make_train_step", "world_2_loss_rel": DP2_LOSS_REL,
+               "world_2_grad_leaf_rel": DP2_GRAD_REL},
+         note=f"step_ms: host medians of {DP_TIMED} steps each ending in a synchronise, in "
+              "six blocks alternating (train, data-parallel), the median block; "
+              f"average_ms / average_device_ms: the gradient average alone, host median of "
+              f"{DP_AVERAGE_REPS} calls ending in a synchronise / CUDA events over as many; "
+              "each rank draws the global 2^14 x 2 base floats; the world of 2 runs on one "
+              "card with gloo (both ranks' kernels share it), so it is held for values, not "
+              "timed")
+    if not ok:
+        raise SystemExit("data_parallel: a data-parallel step disagreed with the "
+                         "single-process step")
+    total = {}
+    for got in [launches["train_step"], launches["world_1"]] + [x["launches"] for x in ranks]:
+        add_launches(total, got)
+    return ranks, total
+
+
+def phase_glow_loader():
+    """Glow model A (``examples.glow_image.build_glow``, f32), forward-KL
+    ``make_data_parallel_step`` at batch 128 with Adamax as in glow_image,
+    the world of 1: fed from ``NativeImageLoader(logit=False)`` over the
+    uint8 images (the example's Scale(255/256) and Jitter(1/256) law)
+    through ``prefetch_to_device``, against the same steps on a batch
+    already on the card: images/s and busy share over the same steps."""
+    from normflows_tpu_torch import data, parallel
+    from normflows_tpu_torch.examples import glow_image
+
+    images, labels = uint8_images(4096)
+    x = torch.from_numpy(images).float() / 255.0
+    y = torch.from_numpy(labels)
+    model = glow_image.build_glow(GLOW_L, GLOW_K, GLOW_HIDDEN, num_classes=GLOW_CLASSES,
+                                  device=DEVICE, seed=SEED)
+    model.init_actnorm(*(t.to(DEVICE) for t in glow_image.init_inputs(x, y, GLOW_BATCH,
+                                                                       SEED)))
+    state, step = parallel.make_data_parallel_step(
+        model, glow_image.make_optimizer(model, 1e-3),
+        lambda m, b, g: m.forward_kld(b[0], b[1]), parallel.make_mesh(devices=DEVICE))
+    loader = data.NativeImageLoader(images, labels, batch_size=GLOW_BATCH, seed=SEED,
+                                    logit=False)
+    stream = data.prefetch_to_device(loader, size=2, device=DEVICE)
+    resident = next(stream)[:2]
+    losses = []
+
+    def fed(k):
+        for _ in range(k):
+            xb, yb, _ = next(stream)
+            losses.append(step(state, (xb, yb))[1]["loss"])
+
+    def on_card(k):
+        for _ in range(k):
+            losses.append(step(state, resident)[1]["loss"])
+
+    fed(2)
+    on_card(2)
+    sync()
+    times = {"loader": [], "on_card": []}
+    for route in ("loader", "on_card", "on_card", "loader"):
+        fn = fed if route == "loader" else on_card
+        t0 = time.perf_counter()
+        fn(GLOW_LOADER_STEPS)
+        sync()
+        times[route].append((time.perf_counter() - t0) * 1e3 / GLOW_LOADER_STEPS)
+    r = {"batch": GLOW_BATCH, "timed_steps": GLOW_LOADER_STEPS, "step_ms_blocks": times,
+         "step_ms": {k: float(np.mean(v)) for k, v in times.items()}}
+    r["images_per_s"] = {k: GLOW_BATCH / (v / 1e3) for k, v in r["step_ms"].items()}
+    r["loader_over_on_card"] = r["images_per_s"]["loader"] / r["images_per_s"]["on_card"]
+    for route, fn in (("loader", fed), ("on_card", on_card)):
+        r[f"profiled_{route}"] = {"steps": GLOW_PROFILED, **busy(lambda: fn(GLOW_PROFILED))}
+    loader.close()
+    losses = torch.stack(losses).cpu()
+    r["all_finite"] = bool(torch.isfinite(losses).all())
+    r["loss_first"], r["loss_last"] = float(losses[0]), float(losses[-1])
+    ok = r["all_finite"]
+    emit("glow_loader", ok=ok, results=r,
+         note="step_ms: host time of each block of timed steps ending in a synchronise, over "
+              "the steps, blocks in turns (loader, on card, on card, loader); profiled_*: "
+              f"{GLOW_PROFILED} more steps of each feed under torch.profiler tracing the device "
+              "only: device_ms the kernels' time, wall_ms the same steps' host time, "
+              "busy_share their ratio, copy_ms the copies' device time")
+    if not ok:
+        raise SystemExit("glow_loader: a loss was not finite")
+
+
+def phase_chains(ranks):
+    """HAIS of ``examples.snf_hais`` (4,096 chains, 30 rungs) through
+    ``parallel_chain_sample``: the world of 1 bit-equal to ``HAIS.sample``
+    on the same generator, the world of 2's shards (phase data_parallel)
+    stacked in rank order against it, log Z against the quadrature."""
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.examples import snf_hais
+
+    hais = snf_hais.build_hais(DEVICE)
+    with torch.no_grad():
+        want_z, want_w = hais.sample(CHAINS, generator=torch.Generator(DEVICE).manual_seed(
+            CHAIN_SEED))
+    run = parallel.parallel_chain_sample(hais, parallel.make_mesh(devices=DEVICE), CHAINS)
+    with device_counters() as counts:
+        (z1, w1), got = exact_on_card("chains", counts, lambda: run(CHAIN_SEED))
+    z2 = torch.cat([x["chains"][0] for x in ranks]).to(DEVICE)
+    w2 = torch.cat([x["chains"][1] for x in ranks]).to(DEVICE)
+    quad = snf_hais.two_moons_log_z()
+
+    def chains_off(z, w):
+        bad_z = (z - want_z).abs() > CHAIN_Z_TOL[0] + CHAIN_Z_TOL[1] * want_z.abs()
+        bad_w = (w - want_w).abs() > CHAIN_W_TOL[0] + CHAIN_W_TOL[1] * want_w.abs()
+        return int((bad_z.any(1) | bad_w).sum())
+
+    r = {"chains": CHAINS, "rungs": len(hais.layers),
+         "world_1_bit_equal": bool(torch.equal(z1, want_z) and torch.equal(w1, want_w)),
+         "world_2_chains_off": chains_off(z2, w2),
+         "world_2_chains_bit_equal": int(((z2 == want_z).all(1) & (w2 == want_w)).sum()),
+         "world_2_max_abs_z": float((z2 - want_z).abs().max()),
+         "world_2_max_abs_log_w": float((w2 - want_w).abs().max()),
+         "launches_per_rank": [x["chain_launches"] for x in ranks],
+         "quadrature_log_z": quad}
+    for name, (z, w) in (("world_1", (z1, w1)), ("world_2", (z2, w2))):
+        est = snf_hais.estimates(z, w)
+        bar = max(0.02, 4 * est["log_z_se"])
+        r[f"{name}_log_z"] = {"log_z": est["log_z"], "gap": abs(est["log_z"] - LOG_Z),
+                              "bar": bar, "ess": est["ess"],
+                              "ok": abs(est["log_z"] - LOG_Z) <= bar and est["finite_weights"]}
+    ok = (r["world_1_bit_equal"] and r["world_2_chains_off"] == 0
+          and r["world_1_log_z"]["ok"] and r["world_2_log_z"]["ok"]
+          and abs(quad - LOG_Z) < 1e-6)
+    emit("chains", ok=ok, results=r, bars={"world_2_z": CHAIN_Z_TOL,
+                                           "world_2_log_w": CHAIN_W_TOL,
+                                           "log_z_gap_at_most": "max(0.02, 4 SE)"})
+    if not ok:
+        raise SystemExit("chains: a chain or log Z missed its bar")
+    return {k: v for k, v in got.items() if v}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -6004,6 +6463,10 @@ def main() -> int:
     sampling = [phase_sampling_path(), phase_nuts(), phase_neutra_smc(trained),
                 phase_scan_chain()]
     del trained
+    phase_loader()
+    ranks, dp_launches = phase_data_parallel()
+    phase_glow_loader()
+    parallel_paths = [dp_launches, phase_chains(ranks)]
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -6144,8 +6607,12 @@ def main() -> int:
         entry["launches_stochastic_vae"] = sum(p.get(entry["name"], 0) for p in stochastic_vae)
         # the samplers and ScanChain (rows 1 and 1b; 0 for the rest)
         entry["launches_sampling"] = sum(p.get(entry["name"], 0) for p in sampling)
+        # the data- and chain-parallel tier: the flagship's step through
+        # make_train_step, the world of 1 and both ranks of the world of 2
+        # (rows 1 and 1b; 0 for the rest: HAIS and Glow run no kernel of the port)
+        entry["launches_parallel"] = sum(p.get(entry["name"], 0) for p in parallel_paths)
         entry["launches"] += (entry["launches_conditional"] + entry["launches_image"]
-                              + entry["launches_sampling"])
+                              + entry["launches_sampling"] + entry["launches_parallel"])
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)

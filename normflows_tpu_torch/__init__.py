@@ -56,10 +56,15 @@ Gaussian and from a mixture.
 ``examples.real_nvp_twomoons`` trains Real NVP and serves it, and
 ``examples.spline_bwd_ablate`` times the four variants of the flat spline
 backward's ablation kernel.
+``data`` is the native C++ image pipeline and ``prefetch_to_device`` (pinned
+host memory, copies on a copy stream); ``parallel`` runs data and chain
+parallelism over ``torch.distributed`` processes, one card a rank
+(``examples.data_parallel_training``, ``examples.native_data_pipeline``,
+under ``torchrun`` or as one process).
 """
 
-from . import (core, distributions, flows, interop, nets, ops, sampling, serving, training,
-               transforms, utils)
+from . import (core, data, distributions, flows, interop, nets, ops, parallel, sampling, serving,
+               training, transforms, utils)
 from .core.flow import Composite, Flow, Identity, Reverse, ScanChain
 from .core.facades import (ClassCondFlow, ConditionalNormalizingFlow, MultiscaleFlow,
                            NormalizingFlow, NormalizingFlowVAE, load_model, save_model)

@@ -206,6 +206,10 @@ class NormalizingFlow(_Saved, nn.Module):
         """Base draws through the flows: ``(x, log_q)``; with ``states`` (a
         list), the flows' generator state before each layer is appended."""
         z, log_q = self.q0.sample_and_log_prob(num_samples, context, generator=generator)
+        return self._through_flows(z, log_q, context, generator, states)
+
+    def _through_flows(self, z, log_q, context, generator, states=None):
+        """Base draws ``(z, log_q)`` through the flows (see :meth:`_draw`)."""
         g = self._drawing(generator, z.device)
         for flow in self.flows:
             if states is not None and g is not None:
@@ -271,14 +275,25 @@ class NormalizingFlow(_Saved, nn.Module):
         ``score_fn=False`` drops the score-function term (sticking the landing,
         Roeder et al. 2017): log q is computed again at the sampled z through
         a copy of the model whose parameters are detached, so its gradient
-        reaches the parameters only through z.  ``z_sharding`` (a sharded
-        sample axis in the JAX package) waits for the parallel slice of the
-        port."""
-        if z_sharding is not None:
-            raise NotImplementedError(
-                "z_sharding waits for the parallel slice of the PyTorch port")
+        reaches the parameters only through z.
+
+        ``z_sharding`` (``parallel.batch_sharding(mesh, z.dim(), axis)``)
+        splits the sample axis over the ranks: every rank draws the GLOBAL
+        ``num_samples`` base draws from ``generator`` (seeded alike on every
+        rank), keeps its own rows (and those of a context with a row a
+        sample) and runs its part of the flow; the result is the mean over
+        this rank's rows, and its mean over the ranks (what
+        ``parallel.make_reverse_kld_step`` averages) is the loss on the
+        global draws.  Draws of the flows themselves (dropout, stochastic
+        layers) are made for this rank's rows."""
         states = [] if not score_fn else None
-        z, log_q = self._draw(num_samples, context, generator, states)
+        z, log_q = self.q0.sample_and_log_prob(num_samples, context, generator=generator)
+        if z_sharding is not None:
+            rows = z_sharding.rows(num_samples)
+            z, log_q = z_sharding.local(z), log_q[rows]
+            if context is not None and context.shape[0] == num_samples:
+                context = context[rows]
+        z, log_q = self._through_flows(z, log_q, context, generator, states)
         if not score_fn:
             log_q = self._log_q_detached(z, context, generator, states)
         log_p = self.p.log_prob(z) if context is None else self.p.log_prob(z, context)

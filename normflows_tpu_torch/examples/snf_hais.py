@@ -10,17 +10,19 @@ Metropolis–Hastings layers (a ``DiagGaussianProposal`` of scale 0.3, 5
 steps) toward ``TwoMoons``, from a ``DiagGaussian(2)`` base; it draws
 ``--snf-samples`` samples.  HAIS anneals from ``DiagGaussian(2)`` to
 ``TwoMoons`` over ``betas = linspace(1, 0, 32)`` (30 HMC rungs of 10
-leapfrog steps, step size 0.2, log mass 0) with ``--chains`` chains on one
-device, and estimates the target's log normaliser, the effective sample
-size and the weighted posterior mean.  The JAX script shards the chains
-over a device mesh (``parallel.parallel_chain_sample``); that waits for the
-parallel slice of the port.
+leapfrog steps, step size 0.2, log mass 0) with ``--chains`` chains, and
+estimates the target's log normaliser, the effective sample size and the
+weighted posterior mean.  As the JAX script shards the chains over a device
+mesh, the chains go through ``parallel.parallel_chain_sample``: under
+``torchrun --nproc_per_node=N`` each rank runs its block of the chains on
+its card, and the estimates are made from every rank's chains, gathered;
+as one process the world is one rank.
 
-``hais.sample`` runs eagerly, and on a card also captured once in a CUDA
+A rank's draw runs eagerly, and on a card also captured once in a CUDA
 graph (the generator registered with it, so that each replay draws anew)
 and replayed: the counterpart of the JAX package's one jitted ladder.  Both
 times are reported, each the host median of ``--reps`` calls ending in a
-synchronise.  The last line is one JSON record, unrounded.
+synchronise.  Rank 0 prints; the last line is one JSON record, unrounded.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .. import NormalizingFlow, distributions, flows
+from .. import NormalizingFlow, distributions, flows, parallel
 from ..nets import MLP
 from ..sampling import HAIS
 
@@ -150,8 +153,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
+    device = parallel.initialize_distributed(device=args.device)  # torchrun's, if any
+    mesh = parallel.make_mesh(devices=args.device)
+    try:
+        return sample_and_estimate(args, device, mesh)
+    finally:
+        dist.destroy_process_group()  # main ends the world it ran in
 
+
+def sample_and_estimate(args, device, mesh):
+    """The SNF's draws and HAIS across the ranks of ``mesh``, as the module
+    docstring says; returns the JSON record (every rank's)."""
+    rank = dist.get_rank()
     snf = build_snf(device, args.seed)
     gen = torch.Generator(device).manual_seed(args.seed + 1)
     with torch.no_grad():
@@ -159,32 +172,46 @@ def main(argv=None):
     snf_record = {"samples": args.snf_samples,
                   "mean_norm": float(torch.linalg.vector_norm(z, dim=1).mean()),
                   "finite": bool(torch.isfinite(z).all() and torch.isfinite(log_q).all())}
-    print(f"SNF samples: {tuple(z.shape)} mean |z|: {snf_record['mean_norm']:.4f}")
+    if rank == 0:
+        print(f"SNF samples: {tuple(z.shape)} mean |z|: {snf_record['mean_norm']:.4f}")
 
     hais = build_hais(device, args.betas)
+    chains = parallel.parallel_chain_sample(hais, mesh, args.chains)
     gen = torch.Generator(device).manual_seed(args.seed + 2)
 
     def draw():
-        with torch.no_grad():
-            return hais.sample(args.chains, generator=gen)
+        return chains(gen)
 
-    samples, log_w = draw()
-    record = {"chains": args.chains, "rungs": len(hais.layers), "leapfrog": LEAPFROG,
-              **estimates(samples, log_w), "eager_ms": host_ms(draw, args.reps, device)}
+    samples, log_w = gathered(draw())
+    record = {"chains": args.chains, "ranks": dist.get_world_size(),
+              "rungs": len(hais.layers), "leapfrog": LEAPFROG, **estimates(samples, log_w),
+              "eager_ms": host_ms(draw, args.reps, device)}
     if device.type == "cuda":
         replay, (c_samples, c_log_w) = captured(draw, gen)
         replay()
-        record["captured"] = estimates(c_samples, c_log_w)
+        record["captured"] = estimates(*gathered((c_samples, c_log_w)))
         record["captured_ms"] = host_ms(replay, args.reps, device)
     rate = args.chains * record["rungs"] * LEAPFROG / (record["eager_ms"] / 1e3)
-    print(f"HAIS: {args.chains} chains x {record['rungs']} HMC stages in "
-          f"{record['eager_ms']:.1f} ms eager ({rate:.0f} leapfrog-chain-steps/s)"
-          + (f", {record['captured_ms']:.2f} ms captured" if "captured_ms" in record else ""))
-    print(f"log Z estimate: {record['log_z']:.4f}   ESS: {record['ess']:.0f}")
-    print("posterior mean estimate:", record["posterior_mean"])
     out = {"snf": snf_record, "hais": record, "seed": args.seed,
            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
-    print(json.dumps(out))
+    if rank == 0:
+        print(f"HAIS: {args.chains} chains x {record['rungs']} HMC stages in "
+              f"{record['eager_ms']:.1f} ms eager ({rate:.0f} leapfrog-chain-steps/s)"
+              + (f", {record['captured_ms']:.2f} ms captured" if "captured_ms" in record
+                 else ""))
+        print(f"log Z estimate: {record['log_z']:.4f}   ESS: {record['ess']:.0f}")
+        print("posterior mean estimate:", record["posterior_mean"])
+        print(json.dumps(out))
+    return out
+
+
+def gathered(shards):
+    """Every rank's block of chains, stacked in rank order, on every rank."""
+    out = []
+    for t in shards:
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t.contiguous())
+        out.append(torch.cat(parts))
     return out
 
 

@@ -19,6 +19,9 @@ flags such as ``capturable`` kept), a tensor by ``copy_``, a generator by
 ``set_state``.  Writing in place keeps every address, so a chunk captured
 in a CUDA graph (``training.make_step_chunk``) trains on from the restored
 values.
+
+In a ``torch.distributed`` world the state is replicated: rank 0 writes,
+every rank waits on a barrier, and every rank restores from the file.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.facades import copy_tensors_like
@@ -60,15 +64,37 @@ def _file(path: str, step: Optional[int]) -> str:
     return path if step is None else os.path.join(path, str(int(step)))
 
 
+def _writes() -> bool:
+    """Whether this process writes: the only one, or rank 0 of a
+    ``torch.distributed`` world (whose state is replicated)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _written():
+    """In a world of processes, every rank waits here until rank 0 has
+    written, so that a restore after it finds the file."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _write(target: str, obj):
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    torch.save({"format": FORMAT, "tree": _tree(obj)}, target + ".tmp")
+    os.replace(target + ".tmp", target)
+
+
 def save_checkpoint(path: str, obj, step: Optional[int] = None):
     """Write ``obj`` (a model, an optimizer, a ``TrainState``, or dicts,
     lists and tuples of them, tensors, generators and numbers) to ``path``;
     with ``step``, to ``path/<step>``, so that successive saves are
-    versioned.  The file is written whole, then moved into place."""
-    target = _file(path, step)
-    os.makedirs(os.path.dirname(target), exist_ok=True)
-    torch.save({"format": FORMAT, "tree": _tree(obj)}, target + ".tmp")
-    os.replace(target + ".tmp", target)
+    versioned.  The file is written whole, then moved into place.
+
+    In a data-parallel world (``parallel``), whose training state is the
+    same on every rank, rank 0 writes and every rank waits on a barrier
+    until it has; every rank then restores from the one file."""
+    if _writes():
+        _write(_file(path, step), obj)
+    _written()
 
 
 def _load(target: str):
@@ -189,9 +215,14 @@ class CheckpointManager:
         return sorted(int(name) for name in os.listdir(self.directory) if name.isdigit())
 
     def save(self, step: int, obj):
-        save_checkpoint(self.directory, obj, step)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(os.path.join(self.directory, str(old)))
+        """Write ``obj`` as ``step`` and drop the oldest beyond
+        ``max_to_keep``: rank 0 of a world does both, as
+        :func:`save_checkpoint` says."""
+        if _writes():
+            _write(_file(self.directory, step), obj)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(os.path.join(self.directory, str(old)))
+        _written()
 
     def restore(self, like, step: Optional[int] = None):
         """Restore ``step`` (the newest if None) into ``like``; None when

@@ -64,19 +64,29 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``utils.optim.update_lipschitz(model, update_lipschitz_iters)`` after
     the update on every step, skipped ones included, as in the JAX
     package."""
+    return eager_step(model, optimizer, loss_fn, lambda loss: loss, update_lipschitz_iters)
+
+
+def eager_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
+               reduce: Callable, update_lipschitz_iters: Optional[int] = None):
+    """:func:`make_train_step` with ``reduce(loss)`` run after the backward
+    on the detached loss: what it returns is the step's loss, the one the
+    skip reads.  ``parallel.make_data_parallel_step`` averages the loss and
+    the gradients over the ranks there."""
     state = TrainState(model, optimizer)
 
     def step_fn(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.model, batch, generator)
         loss.backward()
+        loss = reduce(loss.detach())
         finite = bool(torch.isfinite(loss))
         if finite:
             state.optimizer.step()
         if update_lipschitz_iters is not None:
             update_lipschitz(state.model, update_lipschitz_iters)
         state.step += 1
-        return state, {"loss": loss.detach(), "finite": finite}
+        return state, {"loss": loss, "finite": finite}
 
     return state, step_fn
 

@@ -1374,3 +1374,79 @@ def test_smc_rung_graphs_equal_the_eager_ladder(cuda):
         assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
         out[seed] = graphed
     assert not torch.equal(out[9][0], out[10][0])
+
+
+@pytest.mark.gpu
+def test_prefetch_to_device_copies_pinned_batches_to_the_card(cuda):
+    """``data.prefetch_to_device`` on a card (pinned host buffers, copies on a
+    copy stream, two batches in flight): every batch equals its host batch
+    bit for bit, consumed on a stream of the caller's own, while the stream
+    it waits on is kept busy."""
+    from normflows_tpu_torch import data
+
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, size=(96, 3, 8, 8), dtype=np.uint8)
+    labels = rng.integers(0, 10, size=96)
+
+    def loader():
+        return data.NativeImageLoader(images, labels, batch_size=16, seed=3, num_workers=2)
+
+    host = loader()
+    want = [next(host) for _ in range(12)]
+    host.close()
+    source = loader()
+    stream = data.prefetch_to_device(source, size=2, device=cuda)
+    consumer = torch.cuda.Stream(cuda)
+    got = []
+    with torch.cuda.stream(consumer):
+        busy = torch.randn(2048, 2048, device=cuda)
+        for _ in range(12):
+            busy = busy @ busy / 2048  # work queued ahead of each batch's use
+            x, y, e = next(stream)
+            got.append((x * 1.0, y + 0, e))
+    torch.cuda.synchronize()
+    source.close()
+    for (x, y, e), (hx, hy, he) in zip(got, want):
+        assert x.device.type == "cuda" and y.device.type == "cuda" and e == he
+        assert torch.equal(x.cpu(), hx) and torch.equal(y.cpu(), hy)
+
+
+@pytest.mark.gpu
+def test_world_of_one_step_is_make_train_step(cuda):
+    """``parallel.make_reverse_kld_step`` in a world of one (NCCL) equals
+    ``make_train_step``'s reverse-KL step bit for bit on the same generator:
+    the loss, every gradient and the parameters after Adam; 4 + 4 planar
+    launches a step."""
+    import torch.distributed as dist
+
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.training import make_train_step
+
+    started = not dist.is_initialized()
+    try:
+        mesh = parallel.make_mesh()
+        assert dist.get_world_size() == 1
+        out = []
+        for data_parallel in (False, True):
+            model = small_model(cuda, target=True)
+            opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+            gen = torch.Generator(cuda).manual_seed(21)
+            if data_parallel:
+                state, step = parallel.make_reverse_kld_step(model, opt, mesh, 4096)
+                run = lambda: step(state, gen)  # noqa: E731
+            else:
+                state, step = make_train_step(
+                    model, opt, lambda m, b, g: m.reverse_kld(4096, generator=g))
+                run = lambda: step(state, None, gen)  # noqa: E731
+            spline_cuda.LAUNCHES = spline_cuda.BACKWARD_LAUNCHES = 0
+            _, metrics = run()
+            assert (spline_cuda.LAUNCHES, spline_cuda.BACKWARD_LAUNCHES) == (4, 4)
+            out.append((metrics["loss"], {n: (p.grad.clone(), p.detach().clone())
+                                          for n, p in model.named_parameters()}))
+        (la, a), (lb, b) = out
+        assert torch.equal(la, lb)
+        for n in a:
+            assert torch.equal(a[n][0], b[n][0]) and torch.equal(a[n][1], b[n][1]), n
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
