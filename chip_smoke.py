@@ -48,9 +48,9 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
 * the README's Real NVP (32 masked affine layers on MLPs, TwoMoons): one
   forward-KL step on the card against the CPU, the example's first 50
   chunked AdamW steps on the card against the CPU on the same inputs, then
-  ``normflows_tpu_torch.examples.real_nvp_twomoons`` as a user runs it,
-  4,000 chunked AdamW steps, its held-out log q and the ring radius of
-  draws served from its bundle reported beside their bars: phase realnvp;
+  ``normflows_tpu_torch.examples.real_nvp_twomoons`` at 1,000 of its
+  4,000 chunked AdamW steps, its held-out log q and the ring radius of the
+  live model's draws reported: phase realnvp;
 * conditional flows (``ConditionalNormalizingFlow``): model A, the port of
   ``examples/conditional_flow.py`` (4 conditional autoregressive RQ-spline
   layers of hidden 128 on 2 features, context 4), and model B, the
@@ -126,6 +126,22 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   and 2 against ``HAIS.sample``, log Z against the quadrature (phase
   chains).  Their planar launches are the kernels line's
   ``launches_parallel``.
+* the sharded tier, the flagship at full width (two f32 reverse-KL steps
+  at 2^14, Adam(5e-4) from bench.py's init): ``make_tensor_parallel_step``
+  over {"model": 1} (NCCL) bit-equal to ``make_train_step`` and timed
+  against it, and over {"model": 2} in the world of 2 (256 of the 512
+  hidden units a rank) against the single-process steps, collectives a
+  step and bytes a rank (phase tensor_parallel); ``make_fsdp_step`` alike
+  over {"data": 1} and {"data": 2}, bytes of parameters and moments a rank
+  (phase fsdp); ``make_pipeline_apply`` and ``make_pipeline_train_step``
+  over 2 stages of 6 layers, 4 microbatches of 4,096, against the layers in
+  turn and the single-process steps, 48 + 48 planar launches a stage a
+  step, each stage's kernel calls against their plain versions (phase
+  pipeline); the tensor-parallel state checkpointed shard by shard,
+  restored into a fresh state, onto FSDP's layout and onto a world of 1,
+  one step resumed bit-equal (phase sharded_checkpoint).  The world of 2's
+  part runs in the ranks that phase data_parallel spawns.  Their planar
+  launches are the kernels line's ``launches_sharded``.
 
 Every kernel on a model's path is reached through its ``torch.library``
 operator (``normflows_tpu_torch.ops.backend.kernel_op``).
@@ -199,7 +215,10 @@ G_TOL = 2e-3
 STEP_G_TOL = 2e-3
 N_TRAIN_CPU = 2**12
 LR = 5e-4  # bench.py's Adam
-TRAIN_STEPS = 100
+# the flagship's bf16 steps of train_path and the coupled NSF's of coupled_train:
+# runs that hold no bar (finite losses, the last 20 below the first 20), so
+# 40 steps, the fewest that check keeps apart
+TRAIN_STEPS = 40
 
 # large-D autoregressive NSF (examples/ar_large_d_bench.py:60-93): linear
 # tails at the wrapper's default bound, DiagGaussian base, DiagGaussian
@@ -260,7 +279,7 @@ ABLATE_SWEEP_BINS = (8, 16, 20)
 
 # coupled NSF of docs/getting_started.md:19-47: 8 layers, 2 residual blocks
 # of hidden 64, 8 bins, linear tails at 3; forward-KL steps on batches of 512
-CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 100
+CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, TRAIN_STEPS
 
 # the chunked trainer (training.make_step_chunk / make_chunked_train_step):
 # a chunk of CHUNK steps checked against as many eager steps (bars: the
@@ -268,8 +287,8 @@ CP_LAYERS, CP_BLOCKS, CP_HIDDEN, CP_BATCH, CP_TRAIN_STEPS = 8, 2, 64, 512, 100
 # norm), TIMED_CHUNK steps a timed chunk, the step made non-finite at
 # NAN_STEP; the coupled model's data set of CP_DATA TwoMoons points;
 # PROFILED_CHUNK steps a chunk profiled for the device time of a step
-CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 100, 1, 3, 2**16
-PROFILED_CHUNK = 10
+CHUNK, TIMED_CHUNK, TIMED_CHUNKS, NAN_STEP, CP_DATA = 50, 50, 1, 3, 2**16
+PROFILED_CHUNK = 2
 # bf16 flagship, CONV_STEPS chunked steps (chunks of CONV_CHUNK) under cosine
 # decay over CONV_STEPS from bench.py's init, then KL(q||p) on CONV_HELD_OUT
 # fresh samples.  Three runs on the H100 (generator seeds SEED + 13, + 20,
@@ -291,7 +310,10 @@ CONV_KL = 3e-3
 # trajectories of one seed within a few hundred steps (PERF.md, PR 11: the
 # example at 12 seeds on the card, its replay through the JAX package and
 # its run on the CPU).
-RNVP_K, RNVP_ITERS, RNVP_CHUNK, RNVP_BATCH, RNVP_SERVED = 32, 4000, 100, 512, 4096
+# The run holds no bar, so it takes 1,000 of the example's 4,000 steps and
+# draws from the live model (phase serving_export exports and holds a Real
+# NVP bundle).
+RNVP_K, RNVP_ITERS, RNVP_CHUNK, RNVP_BATCH, RNVP_SERVED = 32, 1000, 100, 512, 4096
 RNVP_LR, RNVP_PARITY_STEPS = 5e-4, 50
 RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # serving: log_prob through one program at these batches; SERVE_REPS
@@ -299,7 +321,7 @@ RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
 # (SERVE_REPS and REQUEST_REPS 3, from 5, and HAIS_REPS 2, from 3, to make
 # room for the samplers' phases; SERVE_REPS and REQUEST_REPS 2, HAIS_REPS and
 # LD_TIMED_REPS 1, for the loader's and the parallel tier's phases)
-SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 2
+SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 1
 # host medians of the flagship's requests and eager steps (20 before PR 13;
 # PR 13 cut this, SERVE_REPS, LD_TIMED_REPS and TIMED_CHUNKS to make room for
 # the Glow phases; PR 14 cut it to 5, SERVE_REPS from 10 to 5, LD_TIMED_REPS
@@ -366,11 +388,14 @@ GLOW_LOGQ_REL = 1e-5
 # within 2x of the CPU's.  (Model B's leaves: median 4.4e-6, worst 7.8e-4;
 # held to STEP_G_TOL each.)
 GLOW_G_MEDIAN, GLOW_G_MAX = 4 * 3.3e-4, 2 * 1.19e-2
-GLOW_TRAIN_ITERS = 1000  # model A, bf16, the example as a user runs it
+# model A, bf16, the example's recipe; its run holds no bar (finite losses,
+# the mean of the last 100 below that of the first 100), so 300 of the
+# example's 1,000 steps
+GLOW_TRAIN_ITERS = 300
 GLOW_F32_STEPS = 50  # model A, f32: chunked, timed, against eager steps
 # steps of the profiled chunk of model A: ~8,700 kernels a step, and
 # processing a profile takes host time by the kernel
-GLOW_PROFILED_CHUNK = 4
+GLOW_PROFILED_CHUNK = 2
 GLOW_SERVED = 64  # draws a request of model A's bundle
 # Model Q: examples/quality_compare.py's GLOW_CFG (L = 2, K = 4, hidden 64,
 # 8 x 8 x 3 images of 4 classes, 4,096 images with the last 1,024 held out,
@@ -415,7 +440,7 @@ IMG_N = IMG_BATCH * (IMG_C // 2) * IMG_HW * IMG_HW
 RES_K, RES_HIDDEN, RES_BATCH, RES_ITERS, RES_CHUNK, RES_CPU = 16, 128, 512, 1000, 100, 1024
 RES_MEM_BATCH = 2**14  # forward-KL batch of the peak-memory reading
 RES_EAGER_STEPS = 20  # a captured chunk against as many eager steps
-RES_PROFILED_CHUNK = 10
+RES_PROFILED_CHUNK = 2
 RES_LOG_Q = -1.7741339 - max(0.05, -1.7704459 - -1.7838097)
 RES_TRAIN_TOL, RES_EVAL_TOL = 1e-5, 1e-5
 # sample then log_prob in eval mode: the largest |z - inverse(forward(z))| and
@@ -886,13 +911,15 @@ def phase_requests(model):
     return requests
 
 
-def profile(fn, top=6):
+def profile(fn, top=6, warm=False):
     """One call under torch.profiler: wall time, device time of its kernels,
-    their share of the wall time, and the kernels that take the most."""
+    their share of the wall time, and the kernels that take the most.  A
+    call of ``fn`` comes first unless ``warm`` (it has just run)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    fn()
+    if not warm:
+        fn()
     sync()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -999,8 +1026,8 @@ def forward_kld_loss(model, batch, generator):
 
 def phase_train_path():
     """(a) one f32 step on the card against the CPU, (b) exact launch counts
-    of a reverse-KL and a forward-KL step at 2^14, (c) 200 bf16 steps from
-    bench.py's init: finite, and the loss falls."""
+    of a reverse-KL and a forward-KL step at 2^14, (c) TRAIN_STEPS bf16 steps
+    from bench.py's init: finite, and the loss falls."""
     from normflows_tpu_torch.training import make_train_step
     from normflows_tpu_torch.utils import set_compute_dtype
 
@@ -1644,8 +1671,8 @@ def large_d_request_and_step_times(model):
 
 
 def timed(fn, batch=LD_BATCH, reps=20):
-    ms = host_ms(fn, reps=reps)
-    prof = profile(fn, top=8)
+    ms = host_ms(fn, reps=reps, warmup=1)
+    prof = profile(fn, top=8, warm=True)
     return {"ms": ms, "samples_per_s": batch / (ms / 1e3), "profile": prof,
             "busy_share_of_median": prof["device_ms"] / ms}
 
@@ -3343,11 +3370,10 @@ def phase_realnvp(root):
     (every gradient leaf within 2e-3 of its norm; no kernel launch: the model
     runs no kernel of the port); (b) the example's first RNVP_PARITY_STEPS
     steps on the card against the CPU (``realnvp_parity``); (c)
-    ``examples.real_nvp_twomoons`` as a user runs it: RNVP_ITERS chunked
-    AdamW steps (chunks of RNVP_CHUNK, 2^16 points on the card), a bundle
-    written under ``root``, 4096 draws served from it; its held-out mean
-    log q and the draws' mean radius reported beside RNVP_LOG_Q and
-    RNVP_RADIUS.  Returns (b)'s model, trained RNVP_PARITY_STEPS steps on
+    ``examples.real_nvp_twomoons`` at RNVP_ITERS chunked AdamW steps
+    (chunks of RNVP_CHUNK, 2^16 points on the card) and 4096 draws of the
+    live model (``--no-serve``); its held-out mean log q and the draws' mean
+    radius reported, the radius beside RNVP_RADIUS.  Returns (b)'s model, trained RNVP_PARITY_STEPS steps on
     the card: its draws are finite, where (c)'s may not be."""
     from normflows_tpu_torch.examples import real_nvp_twomoons
 
@@ -3363,17 +3389,18 @@ def phase_realnvp(root):
     with contextlib.redirect_stdout(printed):
         _, record = real_nvp_twomoons.main(
             ["--iters", str(RNVP_ITERS), "--k", str(RNVP_K), "--chunk", str(RNVP_CHUNK),
-             "--bundle", os.path.join(root, "real_nvp_trained"), "--seed", str(SEED),
-             "--device", DEVICE])
+             "--no-serve", "--seed", str(SEED), "--device", DEVICE])
     record.pop("bundle")
     r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1],
-                "held_out_log_q_at_least": bool(record["held_out_log_q"] >= RNVP_LOG_Q),
                 "ring_radius_within": bool(RNVP_RADIUS[0] <= record["ring_radius"]
                                            <= RNVP_RADIUS[1])}
     emit("realnvp", ok=True, results=r,
          bars={"leaf_relative_norm": STEP_G_TOL, "loss": [CPU_TOL, CPU_TOL],
                "parity_loss_gap": CPU_TOL},
-         reported={"held_out_log_q": RNVP_LOG_Q, "ring_radius": RNVP_RADIUS})
+         reported={"ring_radius": RNVP_RADIUS},
+         note=f"the example's run cut to {RNVP_ITERS} of its 4,000 steps, its draws the "
+              f"live model's: its held-out log q is a reading, RNVP_LOG_Q ({RNVP_LOG_Q}) "
+              "the 4,000-step run's")
     return model
 
 
@@ -3401,8 +3428,8 @@ def route_times(fns):
     ending in a synchronise, and one profiled call's device time over it."""
     out = {}
     for route, fn in fns.items():
-        ms = host_ms(fn, reps=SERVE_REPS)
-        prof = profile(fn)
+        ms = host_ms(fn, reps=SERVE_REPS, warmup=1)
+        prof = profile(fn, warm=True)
         out[route] = {"ms": ms, "device_ms": prof["device_ms"],
                       "busy_share_of_median": prof["device_ms"] / ms,
                       "kernel_launches": prof["kernel_launches"]}
@@ -5434,7 +5461,7 @@ SP_TREES = {"nuts_small": ("nuts_small_z", "nuts_small_accept_prob"),
 # GaussianVonMises, step 0.2 before adaptation, a leaf a CUDA graph; warm-up
 # 20 transitions (200 in the example), sampling 8 and 24 (64 and 256)
 NUTS_CHAINS, NUTS_DEPTH, NUTS_ADAPT, NUTS_SHORT, NUTS_LONG = 1024, 8, 20, 8, 24
-NUTS_PROFILED = 2  # transitions under the profiler (kernels, busy share)
+NUTS_PROFILED = 1  # transitions under the profiler (kernels, busy share)
 # E[cos(phi - 3 x0)] under the cylinder law: I1(1) / I0(1)
 GVM_COS = 0.44639
 MOMENT_BARS = {"abs_mean_x0": 0.1, "abs_std_x0_gap": 0.1, "abs_cos_gap": 0.05}
@@ -5991,12 +6018,12 @@ def phase_scan_chain():
 #   and 4 workers; batches through prefetch_to_device bit-equal on the card.
 DP_SEED = SEED + 190  # the generator of the data-parallel steps' draws
 DP2_LOSS_REL, DP2_GRAD_REL = 1e-5, 1e-5
-DP_TIMED = 6  # steps of each route in each of six alternating blocks
+DP_TIMED = 3  # steps of each route in each of six alternating blocks
 DP_AVERAGE_REPS = 20  # timed calls of the gradient average alone
 CHAIN_SEED, CHAINS = SEED + 191, 4096
 CHAIN_Z_TOL, CHAIN_W_TOL = (1e-6, 1e-6), (1e-5, 1e-6)
 LOADER_BATCHES, LOADER_NUMPY_BATCHES = 200, 10  # timed host batches, native / plain
-GLOW_LOADER_STEPS, GLOW_PROFILED = 6, 3  # timed steps of each feed, profiled steps
+GLOW_LOADER_STEPS, GLOW_PROFILED = 3, 1  # timed steps of each feed, profiled steps
 
 
 def busy(fn):
@@ -6139,7 +6166,8 @@ def parallel_rank(rank, root, address):
     """A rank of the world of two on the one card (gloo over CUDA tensors:
     NCCL refuses two ranks on one card), spawned by phase_data_parallel: the
     flagship's make_reverse_kld_step at 2^14 on the generator DP_SEED, then
-    HAIS through parallel_chain_sample; its results go to ``root``."""
+    HAIS through parallel_chain_sample, then the sharded tier
+    (``sharded_modes``); its results go to ``root``."""
     from normflows_tpu_torch import parallel
     from normflows_tpu_torch.examples import nsf_cylinder, snf_hais
 
@@ -6162,6 +6190,7 @@ def parallel_rank(rank, root, address):
         (z, log_w), out["chain_launches"] = exact_on_card(f"rank {rank}'s chains", counts,
                                                           lambda: run(CHAIN_SEED))
         out["chains"] = (z.cpu(), log_w.cpu())
+        sharded_modes(rank, root, counts, out)
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -6174,27 +6203,27 @@ def free_port():
         return s.getsockname()[1]
 
 
-def world_of_two():
-    """Spawn the world of two once (parallel_rank); a rank that fails
-    raises here.  Returns each rank's results."""
+def world_of_two(root):
+    """Spawn the world of two once (parallel_rank), its files in ``root``; a
+    rank that fails raises here.  Returns each rank's results."""
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as root:
-        t0 = time.perf_counter()
-        mp.start_processes(parallel_rank, args=(root, f"127.0.0.1:{free_port()}"), nprocs=2,
-                           join=True, start_method="spawn")
-        seconds = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
-                 for r in range(2)]
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(root, f"127.0.0.1:{free_port()}"), nprocs=2,
+                       join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
+             for r in range(2)]
     return ranks, seconds
 
 
-def phase_data_parallel():
+def phase_data_parallel(root):
     """The flagship's data-parallel reverse-KL step at 2^14, Adam(LR): the
     world of 1 (NCCL, in-process) bit-equal to make_train_step, its step
-    time against make_train_step's; the world of 2 on the one card against
-    the single-process step; the planar launches a step a rank.  Returns the
-    world of two's results (phase chains reads its chains) and the launches."""
+    time against make_train_step's; the world of 2 on the one card (its
+    files in ``root``) against the single-process step; the planar launches
+    a step a rank.  Returns the world of two's results (phase chains reads
+    its chains, the sharded phases their parts) and the launches."""
     from normflows_tpu_torch import parallel
     from normflows_tpu_torch.examples import nsf_cylinder
     from normflows_tpu_torch.parallel.data_parallel import average_over
@@ -6238,8 +6267,9 @@ def phase_data_parallel():
     r["average_device_ms"] = cuda_ms(lambda: average(loss), reps=DP_AVERAGE_REPS)
     r["global_draw_floats_a_rank"] = N * 2
     del ref, ref_state, model, state
-    ranks, seconds = world_of_two()
+    ranks, seconds = world_of_two(root)
     r["world_2"] = {"spawn_and_run_seconds": seconds,
+                    "sharded_modes_seconds": ranks[0]["sharded_seconds"],
                     "launches_per_rank": [x["launches"] for x in ranks]}
     r["launches_per_step"] = {"make_train_step": launches["train_step"],
                               "world_1": launches["world_1"]}
@@ -6403,6 +6433,581 @@ def phase_chains(ranks):
     return {k: v for k, v in got.items() if v}
 
 
+# The sharded tier (tensor parallelism, FSDP, pipelining, sharded
+# checkpoints): the flagship at full width, two f32 reverse-KL steps at 2^14
+# with Adam(LR) from bench.py's init (the first moves the zero final layers,
+# so that the second's hidden-layer gradients are not zero), in the world of
+# two of phase_data_parallel (gloo over CUDA tensors: it carries all-reduce,
+# all-gather, reduce-scatter and broadcast there, not send / recv) and, for
+# tensor parallelism and FSDP, in the world of 1 (NCCL, in-process).  The
+# world of 2's bars: the loss and each gradient leaf of the second step are
+# phase_data_parallel's (float32 summation order: the loss within
+# DP2_LOSS_REL, each leaf within DP2_GRAD_REL of its own norm, the leaves
+# that are 0 there exactly 0); the parameters after the second Adam step
+# each within SHARDED_PARAM_REL of the norm of the single-process leaf's
+# move over the two steps (Adam divides each gradient entry by its root
+# mean square, so the relative gap of a small entry passes whole into its
+# update: two orders above the gradients' bar), the leaves that did not
+# move bit-equal; the ranks' losses, and their copies of every replicated
+# gradient and parameter, bit-equal.
+SHARDED_SEED = SEED + 192  # the generator of the sharded steps' draws
+SHARDED_PARAM_REL = 1e-3
+SHARDED_STEPS = 2
+SHARDED_TIMED = 4  # steps of each route in each of four alternating blocks
+PIPE_STAGES, PIPE_MICRO = 2, 4  # 6 layers a stage, microbatches of 4,096
+PIPE_TOL = 1e-5  # make_pipeline_apply against the layers in turn: z and log-det
+PIPE_STEP = {k: PIPE_MICRO * v // PIPE_STAGES for k, v in FLAGSHIP_STEP.items()}
+
+
+def sharded_blocks(model, what="param", optimizer=None):
+    """``{name: (local block, sharded dim or None)}`` of ``model``'s
+    parameters (``what="param"``), their gradients (``"grad"``) or, with
+    ``optimizer``, their Adam moments (``{name: {key: ...}}``), on the CPU."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def block(t, ref):
+        dims = [p.dim for p in getattr(ref, "placements", ()) if isinstance(p, Shard)]
+        local = t.to_local() if isinstance(t, DTensor) else t
+        return local.detach().cpu().clone(), (dims[0] if dims else None)
+
+    out = {}
+    for name, p in model.named_parameters():
+        if optimizer is not None:
+            out[name] = {k: block(v, p) for k, v in optimizer.state[p].items() if k != "step"}
+        elif what == "grad":
+            if p.grad is not None:
+                out[name] = block(p.grad, p)
+        else:
+            out[name] = block(p, p)
+    return out
+
+
+def whole(ranks_blocks):
+    """The whole tensors from the ranks' ``sharded_blocks``: a sharded leaf
+    concatenated in rank order, a replicated one rank 0's (the ranks' copies
+    must be equal: ``replicas_equal``)."""
+    first = ranks_blocks[0]
+    out = {}
+    for name, v in first.items():
+        if isinstance(v, dict):
+            out[name] = whole([{k: b[name][k] for k in v} for b in ranks_blocks])
+            continue
+        t, dim = v
+        out[name] = t if dim is None else torch.cat([b[name][0] for b in ranks_blocks], dim)
+    return out
+
+
+def replicas_equal(ranks_blocks):
+    """Whether every replicated leaf is bit-equal across the ranks."""
+    return all(torch.equal(v[0], b[name][0]) for name, v in ranks_blocks[0].items()
+               if not isinstance(v, dict) and v[1] is None for b in ranks_blocks[1:])
+
+
+def local_bytes(model, optimizer=None):
+    """Bytes of ``model``'s parameters this rank holds (and, with
+    ``optimizer``, of its Adam moments)."""
+    from torch.distributed.tensor import DTensor
+
+    def n(t):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        return t.numel() * t.element_size()
+
+    total = sum(n(p) for p in model.parameters())
+    if optimizer is not None:
+        total += sum(n(v) for st in optimizer.state.values() for k, v in st.items()
+                     if k != "step")
+    return total
+
+
+def sharded_steps(step, state, counts, what, want, gen, batch=None):
+    """SHARDED_STEPS steps, each with exact launches; the last metrics and
+    the losses."""
+    losses, launches = [], {}
+    for i in range(SHARDED_STEPS):
+        (state, metrics), got = exact_on_card(f"{what}, step {i}", counts,
+                                              lambda: step(state, batch, gen), **want)
+        add_launches(launches, got)
+        losses.append(float(metrics["loss"]))
+    return state, metrics, losses, launches
+
+
+def adam_factory(params):
+    return torch.optim.Adam(params, lr=LR)
+
+
+def sharded_modes(rank, root, counts, out):
+    """A rank's part of the sharded tier (module comment above): tensor
+    parallelism over {"model": 2}, FSDP over {"data": 2}, the pipeline over
+    {"stage": 2}, the tensor-parallel state checkpointed, restored into a
+    fresh step's state and onto FSDP's layout, and one step resumed from it,
+    the pipeline's state checkpointed; its readings go into ``out``."""
+    from normflows_tpu_torch import parallel, training
+    from normflows_tpu_torch.examples import nsf_cylinder
+
+    seconds = {}
+
+    def gen(seed=SHARDED_SEED):
+        return torch.Generator(DEVICE).manual_seed(seed)
+
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh({"model": 2}, devices=DEVICE)
+    tp, tp_step = parallel.make_tensor_parallel_step(
+        nsf_cylinder.build_model(DEVICE), adam_factory, reverse_kld_loss(N), mesh)
+    tp, metrics, losses, launches = sharded_steps(
+        tp_step, tp, counts, f"rank {rank}'s tensor-parallel step", FLAGSHIP_STEP, gen())
+    out["tp"] = {"losses": losses, "launches": launches, "collectives": metrics["collectives"],
+                 "grads": sharded_blocks(tp.model, "grad"), "params": sharded_blocks(tp.model),
+                 "param_bytes": local_bytes(tp.model),
+                 "state_bytes": local_bytes(tp.model, tp.optimizer)}
+    seconds["tp"] = time.perf_counter() - t0
+
+    # the checkpoint of that state, restored into a fresh step's state, and
+    # one step of each from it
+    t0 = time.perf_counter()
+    training.save_checkpoint(os.path.join(root, "tp_checkpoint"), tp)
+    out["ckpt_saved"] = {"params": sharded_blocks(tp.model),
+                         "moments": sharded_blocks(tp.model, optimizer=tp.optimizer),
+                         "step": tp.step}
+    fresh, fresh_step = parallel.make_tensor_parallel_step(
+        nsf_cylinder.build_model(DEVICE), adam_factory, reverse_kld_loss(N), mesh)
+    fresh = training.restore_checkpoint(os.path.join(root, "tp_checkpoint"), fresh)
+    restored = sharded_blocks(fresh.model)
+    restored_moments = sharded_blocks(fresh.model, optimizer=fresh.optimizer)
+    out["ckpt_restored_equal"] = (
+        fresh.step == tp.step
+        and all(torch.equal(restored[n][0], v[0]) for n, v in out["ckpt_saved"]["params"].items())
+        and all(torch.equal(restored_moments[n][k][0], v[0])
+                for n, m in out["ckpt_saved"]["moments"].items() for k, v in m.items()))
+    tp, m1 = tp_step(tp, None, gen(SHARDED_SEED + 1))
+    fresh, m2 = fresh_step(fresh, None, gen(SHARDED_SEED + 1))
+    out["ckpt_resumed"] = {
+        "losses": (float(m1["loss"]), float(m2["loss"])),
+        "bit_equal": bool(torch.equal(m1["loss"], m2["loss"])) and all(
+            torch.equal(a[0], b[0]) for a, b in zip(sharded_blocks(tp.model).values(),
+                                                     sharded_blocks(fresh.model).values()))}
+    del fresh, tp
+    data = parallel.make_mesh({"data": 2}, devices=DEVICE)
+    rows = parallel.batch_sharding(data, 2)
+
+    def fsdp_loss(m, batch, generator):
+        return m.reverse_kld(N, z_sharding=rows, generator=generator)
+
+    onto, _ = parallel.make_fsdp_step(nsf_cylinder.build_model(DEVICE), adam_factory,
+                                      fsdp_loss, data)
+    onto = training.restore_checkpoint(os.path.join(root, "tp_checkpoint"), onto)
+    out["ckpt_onto_fsdp"] = {"params": sharded_blocks(onto.model),
+                             "moments": sharded_blocks(onto.model, optimizer=onto.optimizer),
+                             "step": onto.step}
+    del onto
+    seconds["sharded_checkpoint"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fsdp, fsdp_step = parallel.make_fsdp_step(nsf_cylinder.build_model(DEVICE), adam_factory,
+                                              fsdp_loss, data)
+    fsdp, metrics, losses, launches = sharded_steps(
+        fsdp_step, fsdp, counts, f"rank {rank}'s FSDP step", FLAGSHIP_STEP, gen())
+    out["fsdp"] = {"losses": losses, "launches": launches,
+                   "collectives": metrics["collectives"],
+                   "grads": sharded_blocks(fsdp.model, "grad"),
+                   "params": sharded_blocks(fsdp.model),
+                   "param_bytes": local_bytes(fsdp.model),
+                   "state_bytes": local_bytes(fsdp.model, fsdp.optimizer)}
+    del fsdp
+    seconds["fsdp"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    stages = parallel.make_mesh({"stage": PIPE_STAGES}, devices=DEVICE)
+    flagship = nsf_cylinder.build_model(DEVICE)
+    z = flagship.q0.sample_and_log_prob(N, generator=gen(SHARDED_SEED + 3))[0]
+    apply = parallel.make_pipeline_apply(flagship.flows, stages, num_microbatches=PIPE_MICRO)
+    with torch.no_grad():
+        (zo, ld), out["pipe_apply_launches"] = exact_on_card(
+            f"rank {rank}'s pipelined flows", counts, lambda: apply(z),
+            rqs_transposed_inverse=PIPE_STEP["rqs_transposed_inverse"])
+    out["pipe_apply"] = (zo.cpu(), ld.cpu(), dict(apply.stages.counts))
+    pipe, pipe_step = parallel.make_pipeline_train_step(
+        nsf_cylinder.build_model(DEVICE), adam_factory, stages, num_microbatches=PIPE_MICRO,
+        objective="reverse_kld", num_samples=N)
+    g = gen()
+    with KernelCalls() as calls:
+        (pipe, metrics), first = exact_on_card(f"rank {rank}'s pipelined step 0", counts,
+                                               lambda: pipe_step(pipe, None, g), **PIPE_STEP)
+    out["pipe_kernels"] = hold_calls("pipeline", calls, {})
+    (pipe, metrics2), second = exact_on_card(f"rank {rank}'s pipelined step 1", counts,
+                                             lambda: pipe_step(pipe, None, g), **PIPE_STEP)
+    launches = dict(first)
+    add_launches(launches, second)
+    out["pipe"] = {"losses": [float(metrics["loss"]), float(metrics2["loss"])],
+                   "launches_per_step": second, "launches": launches,
+                   "collectives": metrics2["collectives"], "stage": rank,
+                   "grads": {n: p.grad.detach().cpu().clone()
+                             for n, p in pipe.model.named_parameters() if p.grad is not None},
+                   "params": {n: p.detach().cpu().clone()
+                              for n, p in pipe.model.named_parameters()},
+                   "held_layers": len(pipe.model.flows),
+                   "param_bytes": local_bytes(pipe.model),
+                   "state_bytes": local_bytes(pipe.model, pipe.optimizer)}
+    seconds["pipeline"] = time.perf_counter() - t0
+    # every stage writes its layers (phase_sharded_checkpoint restores them)
+    t0 = time.perf_counter()
+    training.save_checkpoint(os.path.join(root, "pipe_checkpoint"), pipe)
+    seconds["sharded_checkpoint"] += time.perf_counter() - t0
+    del pipe
+    out["sharded_seconds"] = seconds
+
+
+def flagship_two_steps():
+    """The single-process reference of the sharded phases:
+    ``make_train_step`` on ``examples.nsf_cylinder.build_model``, Adam(LR),
+    SHARDED_STEPS reverse-KL steps on the generator SHARDED_SEED; its
+    model, state, step, losses, last gradients and initial parameters (on
+    the CPU)."""
+    from normflows_tpu_torch.examples import nsf_cylinder
+    from normflows_tpu_torch.training import make_train_step
+
+    model = nsf_cylinder.build_model(DEVICE)
+    init = {n: p.cpu() for n, p in leaves(model, "param").items()}
+    state, step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                  reverse_kld_loss(N))
+    gen = torch.Generator(DEVICE).manual_seed(SHARDED_SEED)
+    losses = []
+    for _ in range(SHARDED_STEPS):
+        state, metrics = step(state, None, gen)
+        losses.append(float(metrics["loss"]))
+    grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return model, state, step, losses, grads, init
+
+
+def gaps(got, want):
+    """The gradient ``got`` against ``want``: each leaf's gap over its own
+    norm, the worst of them (held to DP2_GRAD_REL); the whole gradient's gap
+    over its norm; whether the leaves that are 0 in ``want`` are 0."""
+    whole_norm = float(torch.cat([w.reshape(-1) for w in want.values()]).norm())
+    gap = {n: float((got[n].to(w.device) - w).norm()) for n, w in want.items()}
+    own = {n: gap[n] / float(w.norm()) for n, w in want.items() if float(w.norm()) > 0}
+    worst = max(own, key=own.get)
+    return {"leaves": len(want), "nonzero_leaves": len(own),
+            "whole_gradient_rel": float(np.sqrt(sum(g * g for g in gap.values()))) / whole_norm,
+            "worst_leaf": worst, "worst_leaf_rel": own[worst],
+            "zero_leaves_zero": all(bool((got[n] == 0).all()) for n in want if n not in own)}
+
+
+def param_gaps(got, want, init):
+    """The parameters ``got`` after the steps against ``want``, the
+    single-process ones: each leaf's gap over the norm of ``want``'s move
+    from ``init``, the worst of them (held to SHARDED_PARAM_REL), the
+    largest gap of an entry; whether the leaves that did not move are
+    bit-equal."""
+    moved = {n: float((w - init[n]).norm()) for n, w in want.items()}
+    rel = {n: float((got[n] - w).norm()) / moved[n] for n, w in want.items() if moved[n] > 0}
+    worst = max(rel, key=rel.get)
+    return {"worst_param": worst, "worst_param_rel": rel[worst],
+            "max_abs_param": max(float((got[n] - w).abs().max()) for n, w in want.items()),
+            "unmoved_params_equal": all(torch.equal(got[n], want[n]) for n in want
+                                        if n not in rel)}
+
+
+def world_1_against_train_step(make, counts, what):
+    """A sharded step over a mesh of one rank (NCCL, in-process): the
+    SHARDED_STEPS steps bit-equal to ``make_train_step``'s (losses, every
+    gradient, every parameter), then its step time against it, in turns."""
+    from torch.distributed.tensor import DTensor
+
+    ref_model, ref_state, ref_step, ref_losses, _, _ = flagship_two_steps()
+    state, step = make()
+    gen = torch.Generator(DEVICE).manual_seed(SHARDED_SEED)
+    state, metrics, losses, launches = sharded_steps(step, state, counts, what,
+                                                     FLAGSHIP_STEP, gen)
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    got = dict(state.model.named_parameters())
+    r = {"losses": losses, "losses_make_train_step": ref_losses,
+         "losses_bit_equal": losses == ref_losses,
+         "grads_bit_equal": all(torch.equal(local(got[n].grad), p.grad)
+                                for n, p in ref_model.named_parameters() if p.grad is not None),
+         "params_bit_equal": all(torch.equal(local(got[n]).detach(), p.detach())
+                                 for n, p in ref_model.named_parameters()),
+         "collectives_per_step": metrics["collectives"],
+         "param_bytes": local_bytes(state.model),
+         "state_bytes": local_bytes(state.model, state.optimizer),
+         "state_bytes_one_process": local_bytes(ref_model, ref_state.optimizer)}
+    times = {"make_train_step": [], "sharded": []}
+    for route in ("make_train_step", "sharded", "sharded", "make_train_step"):
+        fn = (lambda: ref_step(ref_state, None, gen)) if route == "make_train_step" \
+            else (lambda: step(state, None, gen))
+        times[route].append(host_ms(fn, reps=SHARDED_TIMED, warmup=1))
+    r["step_ms"] = {k: float(np.median(v)) for k, v in times.items()}
+    r["step_ms_blocks"] = times
+    return r, launches
+
+
+def world_2_against_train_step(ranks, key, ref):
+    """The world of two's ``key`` steps (each rank's blocks) against the
+    single-process steps ``ref`` (flagship_two_steps): the losses, every
+    gradient leaf over its norm, every parameter after the last step over
+    its move; the ranks' copies of the replicated leaves."""
+    model, _, _, want_losses, want_grads, init = ref
+    r0, r1 = (x[key] for x in ranks)
+    grads = whole([r0["grads"], r1["grads"]])
+    params = whole([r0["params"], r1["params"]])
+    want_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return {"losses": r0["losses"], "losses_single_process": want_losses,
+            "loss_rel": abs(r0["losses"][-1] - want_losses[-1]) / abs(want_losses[-1]),
+            "ranks_losses_equal": r0["losses"] == r1["losses"],
+            "replicated_grads_equal": replicas_equal([r0["grads"], r1["grads"]]),
+            "replicated_params_equal": replicas_equal([r0["params"], r1["params"]]),
+            "launches_per_rank": [r0["launches"], r1["launches"]],
+            "collectives_per_step": r0["collectives"],
+            "param_bytes_per_rank": [r0["param_bytes"], r1["param_bytes"]],
+            "state_bytes_per_rank": [r0["state_bytes"], r1["state_bytes"]],
+            **gaps(grads, want_grads), **param_gaps(params, want_params, init)}
+
+
+def world_2_ok(w):
+    return (w["loss_rel"] <= DP2_LOSS_REL and w["worst_leaf_rel"] <= DP2_GRAD_REL
+            and w["zero_leaves_zero"] and w["worst_param_rel"] <= SHARDED_PARAM_REL
+            and w["unmoved_params_equal"] and w["ranks_losses_equal"]
+            and w["replicated_grads_equal"] and w["replicated_params_equal"])
+
+
+WORLD_2_BARS = {"world_2_loss_rel": DP2_LOSS_REL,
+                "world_2_each_gradient_leaf_over_its_norm": DP2_GRAD_REL,
+                "world_2_each_parameter_leaf_over_its_move": SHARDED_PARAM_REL,
+                "world_2_ranks": "losses and replicated leaves bit-equal"}
+
+
+def phase_tensor_parallel(ranks, ref):
+    """``parallel.make_tensor_parallel_step`` on the flagship (each MADE's
+    hidden layers column- and row-parallel): over {"model": 1} (NCCL)
+    bit-equal to make_train_step, its step time against it; over {"model":
+    2} in the world of two (each rank 256 of the 512 hidden units) against
+    the single-process steps; collectives a step, parameter bytes a rank."""
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.examples import nsf_cylinder
+
+    model = ref[0]
+    with device_counters() as counts:
+        r1, launches = world_1_against_train_step(
+            lambda: parallel.make_tensor_parallel_step(
+                nsf_cylinder.build_model(DEVICE), adam_factory, reverse_kld_loss(N),
+                parallel.make_mesh({"model": 1}, devices=DEVICE)),
+            counts, "tensor-parallel step over {model: 1}")
+    w2 = world_2_against_train_step(ranks, "tp", ref)
+    w2["hidden_width_a_rank"] = int(ranks[0]["tp"]["params"][
+        "flows.0.mprqat.autoregressive_net.blocks.0.linear_0.weight"][0].shape[0])
+    w2["param_bytes_one_process"] = sum(p.numel() * 4 for p in model.parameters())
+    ok = (r1["losses_bit_equal"] and r1["grads_bit_equal"] and r1["params_bit_equal"]
+          and world_2_ok(w2) and w2["hidden_width_a_rank"] == HIDDEN // 2)
+    emit("tensor_parallel", ok=ok, results={"world_1": r1, "world_2": w2,
+                                           "world_2_seconds": ranks[0]["sharded_seconds"]["tp"]},
+         bars={"world_1": "bit-equal to make_train_step", **WORLD_2_BARS},
+         note=f"{SHARDED_STEPS} f32 reverse-KL steps at 2^14 from bench.py's init, the last "
+              "held; step_ms: host medians of blocks of steps ending in a synchronise, in "
+              "turns; the world of 2 shares the one card over gloo, held for values, not "
+              "timed; collectives: a step's on each mesh axis by kind")
+    if not ok:
+        raise SystemExit("tensor_parallel: a tensor-parallel step disagreed with the "
+                         "single-process step")
+    total = dict(launches)
+    for x in ranks:
+        add_launches(total, x["tp"]["launches"])
+    return total
+
+
+def phase_fsdp(ranks, ref):
+    """``parallel.make_fsdp_step`` on the flagship (the leaves of at least
+    2^14 elements and their Adam moments sharded): over {"data": 1} (NCCL)
+    bit-equal to make_train_step; over {"data": 2} in the world of two (each
+    rank its 2^13 rows of the global draw) against the single-process steps;
+    bytes of parameters and moments a rank against one process's."""
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.examples import nsf_cylinder
+
+    model = ref[0]
+    mesh = parallel.make_mesh({"data": 1}, devices=DEVICE)
+    rows = parallel.batch_sharding(mesh, 2)
+    with device_counters() as counts:
+        r1, launches = world_1_against_train_step(
+            lambda: parallel.make_fsdp_step(
+                nsf_cylinder.build_model(DEVICE), adam_factory,
+                lambda m, b, g: m.reverse_kld(N, z_sharding=rows, generator=g), mesh),
+            counts, "FSDP step over {data: 1}")
+    w2 = world_2_against_train_step(ranks, "fsdp", ref)
+    one = r1["state_bytes_one_process"]
+    w2["state_bytes_over_one_process"] = [b / one for b in w2["state_bytes_per_rank"]]
+    big = sum(p.numel() for p in model.parameters() if p.numel() >= 2**14)
+    w2["share_of_parameters_in_leaves_of_2^14"] = big / sum(p.numel()
+                                                            for p in model.parameters())
+    ok = (r1["losses_bit_equal"] and r1["grads_bit_equal"] and r1["params_bit_equal"]
+          and world_2_ok(w2) and max(w2["state_bytes_over_one_process"]) < 0.6)
+    emit("fsdp", ok=ok, results={"world_1": r1, "world_2": w2,
+                                "world_2_seconds": ranks[0]["sharded_seconds"]["fsdp"]},
+         bars={"world_1": "bit-equal to make_train_step", **WORLD_2_BARS,
+               "state_bytes_over_one_process_below": 0.6},
+         note="state bytes: the parameters and Adam's two moments a rank holds between "
+              "steps (the gathered whole leaves live only inside a step)")
+    if not ok:
+        raise SystemExit("fsdp: an FSDP step disagreed with the single-process step, or a "
+                         "rank held more than 0.6 of one process's state")
+    total = dict(launches)
+    for x in ranks:
+        add_launches(total, x["fsdp"]["launches"])
+    return total
+
+
+def phase_pipeline(ranks, ref):
+    """``parallel.make_pipeline_apply`` and ``make_pipeline_train_step`` on
+    the flagship in the world of two: PIPE_STAGES stages of 6 layers,
+    PIPE_MICRO microbatches of 4,096: the pipelined flows against the layers
+    in turn, two reverse-KL steps' losses, each stage's gradients and its
+    parameters after them against the single-process steps (the world of
+    two's bars), the stages' copies of the base's parameters bit-equal, each
+    stage's planar launches exact (2 x 6 x 4 a direction a step), its kernel
+    calls against their plain versions."""
+    from normflows_tpu_torch.examples import nsf_cylinder
+
+    model, _, _, losses, grads, init = ref
+    flagship = nsf_cylinder.build_model(DEVICE)
+    z = flagship.q0.sample_and_log_prob(
+        N, generator=torch.Generator(DEVICE).manual_seed(SHARDED_SEED + 3))[0]
+    with torch.no_grad():
+        zs, lds = flagship.forward_and_log_det(z)
+    zs, lds = zs.cpu(), lds.cpu()
+    per = LAYERS // PIPE_STAGES
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    r = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO, "microbatch": N // PIPE_MICRO,
+         "apply": [], "steps": [], "kernel_calls": [x["pipe_kernels"] for x in ranks],
+         "world_2_seconds": ranks[0]["sharded_seconds"]["pipeline"]}
+    ok = True
+    for x in ranks:
+        zo, ld, broadcasts = x["pipe_apply"]
+        a = {"max_abs_z": float((zo - zs).abs().max()), "max_abs_log_det": float(
+            (ld - lds).abs().max()), "z_excess": excess(zo, zs, PIPE_TOL, PIPE_TOL),
+             "log_det_excess": excess(ld, lds, PIPE_TOL, PIPE_TOL),
+             "broadcasts": broadcasts, "launches": x["pipe_apply_launches"]}
+        r["apply"].append(a)
+        p = x["pipe"]
+        s = p["stage"]
+
+        def mine(n):
+            """Whether stage s holds the leaf ``n``: its layers, the base."""
+            return not n.startswith("flows.") or int(n.split(".")[1]) // per == s
+
+        want = {n: g for n, g in grads.items() if mine(n)}
+        same = set(p["grads"]) == set(want) and set(p["params"]) == {n for n in params
+                                                                       if mine(n)}
+        g = {**gaps(p["grads"], want), **param_gaps(p["params"], {
+            n: w for n, w in params.items() if mine(n)}, init)} if same else {}
+        st = {"stage": s, "losses": p["losses"], "losses_single_process": losses,
+              "loss_rel": abs(p["losses"][-1] - losses[-1]) / abs(losses[-1]),
+              "held_layers": p["held_layers"], "launches_per_step": p["launches_per_step"],
+              "collectives_per_step": p["collectives"], "param_bytes": p["param_bytes"],
+              "state_bytes": p["state_bytes"], "same_leaves": same, **g}
+        r["steps"].append(st)
+        ok = ok and a["z_excess"] <= 0 and a["log_det_excess"] <= 0 and same \
+            and st["loss_rel"] <= DP2_LOSS_REL and st["worst_leaf_rel"] <= DP2_GRAD_REL \
+            and st["zero_leaves_zero"] and st["worst_param_rel"] <= SHARDED_PARAM_REL \
+            and st["unmoved_params_equal"] and st["held_layers"] == per
+    p0, p1 = (x["pipe"] for x in ranks)
+    r["ranks_losses_equal"] = p0["losses"] == p1["losses"]
+    r["replicated_params_equal"] = all(torch.equal(v, p1["params"][n])
+                                       for n, v in p0["params"].items()
+                                       if not n.startswith("flows."))
+    ok = ok and r["ranks_losses_equal"] and r["replicated_params_equal"]
+    emit("pipeline", ok=ok, results=r,
+         bars={"apply_z_and_log_det": (PIPE_TOL, PIPE_TOL), **WORLD_2_BARS,
+               "launches_a_stage_a_step": PIPE_STEP},
+         note="hops are broadcasts between neighbouring stages (gloo over CUDA tensors "
+              "carries no send / recv); the microbatches' GEMMs run at 4,096 rows, another "
+              "cuBLAS kernel than at 16,384")
+    if not ok:
+        raise SystemExit("pipeline: the pipeline disagreed with the layers in turn")
+    total = {}
+    for x in ranks:
+        add_launches(total, x["pipe_apply_launches"])
+        add_launches(total, x["pipe"]["launches"])
+    return total
+
+
+def phase_sharded_checkpoint(ranks, root):
+    """The tensor-parallel state of the world of two (after its steps)
+    through ``training.save_checkpoint`` (every rank its blocks): restored
+    into a fresh step's state bit-equal and one step from it bit-equal to
+    the uninterrupted step (in the world); restored onto FSDP's layout
+    ({"data": 2}) equal to the saved values; restored here, in the world of
+    one, into make_train_step's plain state and into a {"model": 1}
+    tensor-parallel state, each equal to the saved values, and one step of
+    each from it bit-equal to the other's.  The pipeline's state (each stage
+    its layers) restored here into the whole flow, every layer the one its
+    stage held."""
+    from normflows_tpu_torch import parallel, training
+    from normflows_tpu_torch.examples import nsf_cylinder
+
+    t0 = time.perf_counter()
+    saved = whole([x["ckpt_saved"]["params"] for x in ranks])
+    saved_moments = whole([x["ckpt_saved"]["moments"] for x in ranks])
+    onto = whole([x["ckpt_onto_fsdp"]["params"] for x in ranks])
+    onto_moments = whole([x["ckpt_onto_fsdp"]["moments"] for x in ranks])
+
+    def equal(params, moments):
+        return all(torch.equal(params[n], v) for n, v in saved.items()) and all(
+            torch.equal(moments[n][k], v) for n, m in saved_moments.items()
+            for k, v in m.items())
+
+    path = os.path.join(root, "tp_checkpoint")
+    model = nsf_cylinder.build_model(DEVICE)
+    plain = training.TrainState(model, torch.optim.Adam(model.parameters(), lr=LR))
+    plain = training.restore_checkpoint(path, plain)
+    from normflows_tpu_torch.training import make_train_step
+    _, plain_step = make_train_step(plain.model, plain.optimizer, reverse_kld_loss(N))
+    tp, tp_step = parallel.make_tensor_parallel_step(
+        nsf_cylinder.build_model(DEVICE), adam_factory, reverse_kld_loss(N),
+        parallel.make_mesh({"model": 1}, devices=DEVICE))
+    tp = training.restore_checkpoint(path, tp)
+
+    def plain_blocks(state):
+        return ({n: b[0] for n, b in sharded_blocks(state.model).items()},
+                {n: {k: b[0] for k, b in m.items()}
+                 for n, m in sharded_blocks(state.model, optimizer=state.optimizer).items()})
+
+    r = {"world_2_restored_bit_equal": all(x["ckpt_restored_equal"] for x in ranks),
+         "world_2_resumed": [x["ckpt_resumed"] for x in ranks],
+         "onto_fsdp_equal": equal(onto, onto_moments)
+         and all(x["ckpt_onto_fsdp"]["step"] == x["ckpt_saved"]["step"] for x in ranks),
+         "world_1_plain_equal": equal(*plain_blocks(plain)) and plain.step == SHARDED_STEPS,
+         "world_1_tp_equal": equal(*plain_blocks(tp)) and tp.step == SHARDED_STEPS,
+         "bytes_saved": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))}
+    gen = SHARDED_SEED + 1
+    plain, m1 = plain_step(plain, None, torch.Generator(DEVICE).manual_seed(gen))
+    tp, m2 = tp_step(tp, None, torch.Generator(DEVICE).manual_seed(gen))
+    r["world_1_resumed_bit_equal"] = bool(torch.equal(m1["loss"], m2["loss"])) and all(
+        torch.equal(a, b) for a, b in zip(plain_blocks(plain)[0].values(),
+                                          plain_blocks(tp)[0].values()))
+    del plain, tp
+    model = nsf_cylinder.build_model(DEVICE)
+    pipe = training.restore_checkpoint(
+        os.path.join(root, "pipe_checkpoint"),
+        training.TrainState(model, torch.optim.Adam(model.parameters(), lr=LR)))
+    held = {n: v for x in ranks for n, v in x["pipe"]["params"].items()}
+    r["pipeline_into_one_process_equal"] = pipe.step == SHARDED_STEPS and set(held) == {
+        n for n, _ in model.named_parameters()} and all(
+        torch.equal(p.detach().cpu(), held[n]) for n, p in model.named_parameters())
+    r["world_1_seconds"] = time.perf_counter() - t0
+    r["world_2_seconds"] = ranks[0]["sharded_seconds"]["sharded_checkpoint"]
+    ok = (r["world_2_restored_bit_equal"] and all(x["bit_equal"] for x in r["world_2_resumed"])
+          and r["onto_fsdp_equal"] and r["world_1_plain_equal"] and r["world_1_tp_equal"]
+          and r["world_1_resumed_bit_equal"] and r["pipeline_into_one_process_equal"])
+    emit("sharded_checkpoint", ok=ok, results=r,
+         bars={"all": "bit-equal"},
+         note="torch.distributed.checkpoint: each rank writes its blocks; a restore reads "
+              "the blocks its template's placements ask for")
+    if not ok:
+        raise SystemExit("sharded_checkpoint: a restored or resumed state differed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -6464,9 +7069,15 @@ def main() -> int:
                 phase_scan_chain()]
     del trained
     phase_loader()
-    ranks, dp_launches = phase_data_parallel()
-    phase_glow_loader()
-    parallel_paths = [dp_launches, phase_chains(ranks)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_root:
+        ranks, dp_launches = phase_data_parallel(world_root)
+        phase_glow_loader()
+        parallel_paths = [dp_launches, phase_chains(ranks)]
+        ref = flagship_two_steps()
+        sharded_paths = [phase_tensor_parallel(ranks, ref), phase_fsdp(ranks, ref),
+                         phase_pipeline(ranks, ref)]
+        del ref
+        phase_sharded_checkpoint(ranks, world_root)
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -6611,8 +7222,12 @@ def main() -> int:
         # make_train_step, the world of 1 and both ranks of the world of 2
         # (rows 1 and 1b; 0 for the rest: HAIS and Glow run no kernel of the port)
         entry["launches_parallel"] = sum(p.get(entry["name"], 0) for p in parallel_paths)
+        # the sharded tier: tensor parallelism and FSDP at worlds 1 and 2, the
+        # pipeline's two stages (rows 1 and 1b; 0 for the rest)
+        entry["launches_sharded"] = sum(p.get(entry["name"], 0) for p in sharded_paths)
         entry["launches"] += (entry["launches_conditional"] + entry["launches_image"]
-                              + entry["launches_sampling"] + entry["launches_parallel"])
+                              + entry["launches_sampling"] + entry["launches_parallel"]
+                              + entry["launches_sharded"])
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)

@@ -149,6 +149,43 @@ def _equal(a, b) -> bool:
     return type(a) is type(b) and a == b
 
 
+def check_homogeneous(layers, who: str):
+    """Raise ``ValueError`` ("``who`` requires homogeneous layers: ...",
+    naming the first difference) unless ``layers`` have the same tensors
+    (names, shapes, dtypes, devices), the same module classes and equal
+    Python-side settings, the host mirrors of a buffer (``host_mirrors``)
+    excepted.  Returns each layer's tensors and settings, and the mirrored
+    ``(path, attribute)`` keys."""
+    first = layers[0]
+    tensors = [{**dict(l.named_parameters()), **dict(l.named_buffers())} for l in layers]
+    configs = [_host_config(l) for l in layers]
+    mirrored = {(path, name) for path, sub in first.named_modules()
+                for name in getattr(sub, "host_mirrors", ())}
+    for i in range(1, len(layers)):
+        if set(tensors[i]) != set(tensors[0]):
+            diff = sorted(set(tensors[i]) ^ set(tensors[0]))
+            raise ValueError(f"{who} requires homogeneous layers: layer {i} differs "
+                             f"from layer 0 in its tensors ({diff[0]})")
+        for name, t in tensors[i].items():
+            t0 = tensors[0][name]
+            if t.shape != t0.shape or t.dtype != t0.dtype or t.device != t0.device:
+                raise ValueError(
+                    f"{who} requires homogeneous layers: {name} of layer {i} is "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}, layer 0's "
+                    f"{tuple(t0.shape)} {t0.dtype} on {t0.device}")
+        for key in sorted(set(configs[i]) | set(configs[0]), key=str):
+            if key in mirrored:
+                continue
+            if key not in configs[i] or key not in configs[0] or not _equal(
+                    configs[i][key], configs[0][key]):
+                path, name = key
+                raise ValueError(
+                    f"{who} requires homogeneous layers: {path + '.' if path else ''}"
+                    f"{name} of layer {i} differs from layer 0's (a Python-side setting "
+                    f"cannot be stacked)")
+    return tensors, configs, mirrored
+
+
 class ScanChain(Flow):
     """A homogeneous flow stack held as one layer of stacked tensors (port
     of the JAX package's ``ScanChain``, ``core/flow.py:121-182``).
@@ -184,32 +221,7 @@ class ScanChain(Flow):
         if not layers:
             raise ValueError("ScanChain needs at least one layer")
         first = layers[0]
-        tensors = [{**dict(l.named_parameters()), **dict(l.named_buffers())} for l in layers]
-        configs = [_host_config(l) for l in layers]
-        mirrored = {(path, name) for path, sub in first.named_modules()
-                    for name in getattr(sub, "host_mirrors", ())}
-        for i in range(1, len(layers)):
-            if set(tensors[i]) != set(tensors[0]):
-                diff = sorted(set(tensors[i]) ^ set(tensors[0]))
-                raise ValueError(f"ScanChain requires homogeneous layers: layer {i} differs "
-                                 f"from layer 0 in its tensors ({diff[0]})")
-            for name, t in tensors[i].items():
-                t0 = tensors[0][name]
-                if t.shape != t0.shape or t.dtype != t0.dtype or t.device != t0.device:
-                    raise ValueError(
-                        f"ScanChain requires homogeneous layers: {name} of layer {i} is "
-                        f"{tuple(t.shape)} {t.dtype} on {t.device}, layer 0's "
-                        f"{tuple(t0.shape)} {t0.dtype} on {t0.device}")
-            for key in sorted(set(configs[i]) | set(configs[0]), key=str):
-                if key in mirrored:
-                    continue
-                if key not in configs[i] or key not in configs[0] or not _equal(
-                        configs[i][key], configs[0][key]):
-                    path, name = key
-                    raise ValueError(
-                        f"ScanChain requires homogeneous layers: {path + '.' if path else ''}"
-                        f"{name} of layer {i} differs from layer 0's (a Python-side setting "
-                        f"cannot be stacked)")
+        tensors, configs, mirrored = check_homogeneous(layers, "ScanChain")
         stacked = copy.deepcopy(first)
         with torch.no_grad():
             for name, t in tensors[0].items():

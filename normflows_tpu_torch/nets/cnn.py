@@ -94,13 +94,18 @@ class Conv2d(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = compute_dtype
 
     def forward(self, x):
+        return self.convolve(x, self.weight, self.bias)
+
+    def convolve(self, x, weight, bias):
+        """The convolution of ``x`` with ``weight`` and ``bias`` (None:
+        none), this layer's or a shard of them (``parallel.tensor_parallel``)."""
         dt = self.compute_dtype
         if dt is None:
-            return _FP32Conv.apply(x, self.weight, self.bias, self.padding)
+            return _FP32Conv.apply(x, weight, bias, self.padding)
         with fp32_convs():
-            y = F.conv2d(x.to(dt), self.weight.to(dt), padding=self.padding).to(x.dtype)
-        if self.bias is not None:
-            y = y + self.bias[None, :, None, None].to(y.dtype)
+            y = F.conv2d(x.to(dt), weight.to(dt), padding=self.padding).to(x.dtype)
+        if bias is not None:
+            y = y + bias[None, :, None, None].to(y.dtype)
         return y
 
 

@@ -99,24 +99,36 @@ class MaskedLinear(Linear):
 
     def forward(self, x):
         """(B, in) -> (B, out)."""
-        w = self.weight * self.mask
-        if self.compute_dtype is not None:
-            dt = self.compute_dtype
-            y = x.to(dt) @ w.to(dt).T
-            return y + self.bias.to(dt) if self.bias is not None else y
-        y = x @ w.T
-        return y + self.bias if self.bias is not None else y
+        return self.finish(self.product(x, self.weight * self.mask), self.bias, x.dtype)
 
     def apply_t(self, x_t):
         """Transposed layout, (in, B) -> (out, B): the batch stays on the last
         axis, the layout the planar spline kernel takes."""
-        w = self.weight * self.mask
+        return self.finish_t(self.product_t(x_t, self.weight * self.mask), self.bias)
+
+    def product(self, x, w):
+        """``x @ w.T`` with the masked weight ``w`` (or a shard of it), in
+        the compute dtype where one is set, before the bias."""
         if self.compute_dtype is not None:
-            dt = self.compute_dtype
-            y = w.to(dt) @ x_t.to(dt)
-            return y + self.bias.to(dt)[:, None] if self.bias is not None else y
-        y = w @ x_t
-        return y + self.bias[:, None] if self.bias is not None else y
+            return x.to(self.compute_dtype) @ w.to(self.compute_dtype).T
+        return x @ w.T
+
+    def finish(self, y, bias, dtype=None):
+        """The product ``y`` plus ``bias`` (None: none), in the compute
+        dtype where one is set (the MADE casts its output back)."""
+        if bias is None:
+            return y
+        return y + (bias.to(self.compute_dtype) if self.compute_dtype is not None else bias)
+
+    def product_t(self, x_t, w):
+        """:meth:`product` in the transposed layout: ``w @ x_t``."""
+        if self.compute_dtype is not None:
+            return w.to(self.compute_dtype) @ x_t.to(self.compute_dtype)
+        return w @ x_t
+
+    def finish_t(self, y, bias):
+        """:meth:`finish` in the transposed layout (the bias a column)."""
+        return self.finish(y, None if bias is None else bias[:, None])
 
 
 

@@ -38,15 +38,22 @@ class Linear(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x):
-        w = self.weight
+        return self.finish(self.product(x, self.weight), self.bias, x.dtype)
+
+    def product(self, x, w):
+        """``x @ w.T``, the layer's product before its bias (``w`` the
+        weight, or a shard of it: ``parallel.tensor_parallel`` splits the
+        two steps)."""
         if self.compute_dtype is not None:
             # low-precision operands, f32 accumulation and result
-            y = (x.to(self.compute_dtype) @ w.to(self.compute_dtype).T).float()
-        else:
-            y = x @ w.T
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(x.dtype)
+            return (x.to(self.compute_dtype) @ w.to(self.compute_dtype).T).float()
+        return x @ w.T
+
+    def finish(self, y, bias, dtype):
+        """The product ``y`` plus ``bias`` (None: none), cast to ``dtype``."""
+        if bias is not None:
+            y = y + bias
+        return y.to(dtype)
 
 
 _OUTPUT_FNS = {"sigmoid": torch.sigmoid, "relu": torch.relu, "tanh": torch.tanh,

@@ -20,27 +20,32 @@ every rank (restored from one checkpoint).
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from ..training.loop import eager_step
 from .mesh import batch_sharding, broadcast_
 
 
-def average_over(mesh: DeviceMesh, axis: str, params) -> Callable:
+def average_over(mesh: DeviceMesh, axis: str, params, counts: Optional[Counter] = None
+                 ) -> Callable:
     """``reduce(loss)`` for :func:`training.loop.eager_step`: the loss and the
-    gradients of ``params`` (those that have one) averaged over the ranks of
-    ``axis``, one ``all_reduce`` for each dtype and device (one a step when
-    all are float32), the gradients written back in place."""
+    gradients of ``params`` (those that have one; a DTensor's local block)
+    averaged over the ranks of ``axis``, one ``all_reduce`` for each dtype
+    and device (one a step when all are float32), the gradients written back
+    in place.  ``counts["all_reduce"]`` counts them."""
     group = mesh.get_group(axis)
     ranks = dist.get_world_size(group)
 
     def reduce(loss: torch.Tensor) -> torch.Tensor:
-        grads = [p.grad for p in params if p.grad is not None]
+        grads = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+                 for p in params if p.grad is not None]
         kinds = {}
         for t in [loss, *grads]:
             kinds.setdefault((t.dtype, t.device), []).append(t)
@@ -48,6 +53,8 @@ def average_over(mesh: DeviceMesh, axis: str, params) -> Callable:
         for members in kinds.values():
             flat = torch.cat([t.reshape(-1) for t in members])
             dist.all_reduce(flat, group=group)
+            if counts is not None:
+                counts["all_reduce"] += 1
             flat /= ranks
             offset = 0
             for t in members:

@@ -67,6 +67,18 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return eager_step(model, optimizer, loss_fn, lambda loss: loss, update_lipschitz_iters)
 
 
+def build_optimizer(factory: Callable, params) -> torch.optim.Optimizer:
+    """``factory(params)``: the optimizer of a step that trains parameters
+    it made itself (the sharded steps of ``parallel``, on copies of the
+    caller's model).  An optimizer in the factory's place raises: it holds
+    other parameters."""
+    if isinstance(factory, torch.optim.Optimizer):
+        raise TypeError("this step builds its optimizer on the parameters it made: pass a "
+                        "factory, params -> optimizer (e.g. lambda ps: torch.optim.Adam(ps, "
+                        "lr=1e-3))")
+    return factory(params)
+
+
 def eager_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
                reduce: Callable, update_lipschitz_iters: Optional[int] = None):
     """:func:`make_train_step` with ``reduce(loss)`` run after the backward

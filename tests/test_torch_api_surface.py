@@ -16,20 +16,16 @@ MODULES = ["", ".core", ".core.flow", ".flows", ".flows.neural_spline", ".flows.
            ".nets", ".distributions", ".utils", ".sampling", ".sampling.adaptation",
            ".sampling.smc", ".sampling.neutra", ".sampling.nuts", ".transforms", ".data",
            ".data.native_loader", ".parallel", ".parallel.mesh", ".parallel.distributed",
-           ".parallel.data_parallel", ".parallel.chains"]
+           ".parallel.data_parallel", ".parallel.chains", ".parallel.tensor_parallel",
+           ".parallel.pipeline"]
 
 # the JAX package's pytree module system: the port's modules are nn.Modules
 MODULE_SYSTEM = {"Module", "static_field", "buffer_field", "partition", "combine",
                  "trainable_filter", "module"}
 # private names a JAX package's __init__ exports
 PRIVATE = {"_LULinear", "_Permutation", "_RandomPermutation"}
-# later slices of the port: tensor parallelism, FSDP and pipelining (label
-# 14b), the six names ``normflows_tpu.parallel`` exports from them and the
-# two modules themselves, which a package's surface also holds
-LATER = {"make_pipeline_apply": "14b", "make_pipeline_train_step": "14b",
-         "tp_shardings": "14b", "fsdp_shardings": "14b",
-         "make_tensor_parallel_step": "14b", "make_fsdp_step": "14b",
-         "pipeline": "14b", "tensor_parallel": "14b"}
+# later slices of the port: none left
+LATER = {}
 ALLOWED = MODULE_SYSTEM | PRIVATE | set(LATER)
 
 

@@ -1450,3 +1450,111 @@ def test_world_of_one_step_is_make_train_step(cuda):
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tensor_parallel", "fsdp"])
+def test_world_of_one_sharded_step_is_make_train_step(cuda, mode):
+    """``parallel.make_tensor_parallel_step`` over {"model": 1} and
+    ``make_fsdp_step`` over {"data": 1} (NCCL, hidden 64 so that every MADE
+    layer is sharded) equal ``make_train_step``'s reverse-KL steps bit for
+    bit on the same generator: the losses, every gradient and the
+    parameters after two Adam steps; 4 + 4 planar launches a step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from normflows_tpu_torch import parallel
+    from normflows_tpu_torch.training import make_train_step
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    started = not dist.is_initialized()
+    try:
+        parallel.make_mesh()
+        loss_fn = lambda m, b, g: m.reverse_kld(4096, generator=g)  # noqa: E731
+        out = []
+        for sharded in (False, True):
+            model = small_model(cuda, target=True)
+            adam = lambda ps: torch.optim.Adam(ps, lr=5e-4)  # noqa: E731
+            if not sharded:
+                state, step = make_train_step(model, adam(model.parameters()), loss_fn)
+            elif mode == "tensor_parallel":
+                state, step = parallel.make_tensor_parallel_step(
+                    model, adam, loss_fn, parallel.make_mesh({"model": 1}), min_dim=16)
+            else:
+                state, step = parallel.make_fsdp_step(
+                    model, adam, loss_fn, parallel.make_mesh({"data": 1}), min_size=256)
+            gen = torch.Generator(cuda).manual_seed(22)
+            losses = []
+            for _ in range(2):
+                spline_cuda.LAUNCHES = spline_cuda.BACKWARD_LAUNCHES = 0
+                state, metrics = step(state, None, gen)
+                assert (spline_cuda.LAUNCHES, spline_cuda.BACKWARD_LAUNCHES) == (4, 4)
+                losses.append(metrics["loss"])
+            assert sharded == any(isinstance(p, DTensor) for p in state.model.parameters())
+            out.append((losses, {n: (local(p.grad).clone(), local(p).detach().clone())
+                                 for n, p in state.model.named_parameters()}))
+        (la, a), (lb, b) = out
+        assert all(torch.equal(x, y) for x, y in zip(la, lb))
+        for n in a:
+            assert torch.equal(a[n][0], b[n][0]) and torch.equal(a[n][1], b[n][1]), n
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """Tensor-parallel state on the card (DTensors over {"model": 1})
+    through ``training.save_checkpoint`` (torch.distributed.checkpoint)
+    restored into a fresh step's state and into ``make_train_step``'s plain
+    state: every tensor bit-equal, and one more step from each bit-equal to
+    the uninterrupted step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from normflows_tpu_torch import parallel, training
+
+    def local(t):
+        return (t.to_local() if isinstance(t, DTensor) else t).detach()
+
+    started = not dist.is_initialized()
+    try:
+        parallel.make_mesh()
+        mesh = parallel.make_mesh({"model": 1})
+        loss_fn = lambda m, b, g: m.reverse_kld(4096, generator=g)  # noqa: E731
+
+        def adam(ps):
+            return torch.optim.Adam(ps, lr=5e-4)
+
+        state, step = parallel.make_tensor_parallel_step(small_model(cuda, target=True), adam,
+                                                         loss_fn, mesh, min_dim=16)
+        gen = torch.Generator(cuda).manual_seed(23)
+        for _ in range(2):
+            state, _ = step(state, None, gen)
+        training.save_checkpoint(str(tmp_path / "ckpt"), state)
+        fresh, fresh_step = parallel.make_tensor_parallel_step(
+            small_model(cuda, target=True), adam, loss_fn, mesh, min_dim=16)
+        fresh = training.restore_checkpoint(str(tmp_path / "ckpt"), fresh)
+        model = small_model(cuda, target=True)
+        plain = training.restore_checkpoint(
+            str(tmp_path / "ckpt"), training.TrainState(model, adam(model.parameters())))
+        _, plain_step = training.make_train_step(plain.model, plain.optimizer, loss_fn)
+        assert fresh.step == plain.step == 2
+        for restored in (fresh, plain):
+            got = dict(restored.model.named_parameters())
+            for n, p in state.model.named_parameters():
+                assert torch.equal(local(got[n]), local(p)), n
+                for k, v in state.optimizer.state[p].items():
+                    assert torch.equal(local(restored.optimizer.state[got[n]][k]), local(v)), (n, k)
+        after = []
+        for s, st in ((step, state), (fresh_step, fresh), (plain_step, plain)):
+            st, metrics = s(st, None, torch.Generator(cuda).manual_seed(24))
+            after.append((metrics["loss"], [local(p) for _, p in st.model.named_parameters()]))
+        for loss, params in after[1:]:
+            assert torch.equal(loss, after[0][0])
+            assert all(torch.equal(a, b) for a, b in zip(params, after[0][1]))
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
