@@ -316,11 +316,13 @@ CONV_KL = 3e-3
 RNVP_K, RNVP_ITERS, RNVP_CHUNK, RNVP_BATCH, RNVP_SERVED = 32, 1000, 100, 512, 4096
 RNVP_LR, RNVP_PARITY_STEPS = 5e-4, 50
 RNVP_LOG_Q, RNVP_RADIUS = -1.65, (1.9, 2.2)
-# serving: log_prob through one program at these batches; SERVE_REPS
-# requests a route's host median
+# serving: log_prob through one program at these batches, each held bit for
+# bit, the last timed; SERVE_REPS requests a route's host median
 # (SERVE_REPS and REQUEST_REPS 3, from 5, and HAIS_REPS 2, from 3, to make
 # room for the samplers' phases; SERVE_REPS and REQUEST_REPS 2, HAIS_REPS and
-# LD_TIMED_REPS 1, for the loader's and the parallel tier's phases)
+# LD_TIMED_REPS 1, for the loader's and the parallel tier's phases; log_prob
+# timed at the last batch only, from every batch, for phase
+# serving_stochastic)
 SERVE_BATCHES, SERVE_REPS = (1, 1000, N), 1
 # host medians of the flagship's requests and eager steps (20 before PR 13;
 # PR 13 cut this, SERVE_REPS, LD_TIMED_REPS and TIMED_CHUNKS to make room for
@@ -3453,8 +3455,8 @@ def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batc
     With ``labels`` (a class-conditional model, exported with
     ``class_cond=True``) the requests take ``labels[:n]``.  With ``timed``:
     the three routes of a request (the live model eager, the bundle eager,
-    the bundle graphed) and ``log_prob`` live and from the bundle at each
-    batch (``route_times``)."""
+    the bundle graphed) and ``log_prob`` live and from the bundle at the
+    last batch (``route_times``)."""
     from normflows_tpu_torch import serving
 
     if path is None:
@@ -3512,7 +3514,7 @@ def serve(what, model, root, counts, sample_launches, log_prob_launches, x, batc
         r["sample_ms"] = route_times({"live_eager": live_sample,
                                       "bundle_eager": lambda: bundle.sample(seed, graphed=False),
                                       "bundle_graphed": lambda: bundle.sample(seed)})
-        for b in batches:
+        for b in batches[-1:]:
             def live_log_prob():
                 with torch.inference_mode():
                     return model.log_prob(x[:b])
@@ -3598,8 +3600,8 @@ def phase_serving_export(root, real_nvp):
          "bytes: the bundle's files; launches: the device counters over one request; "
          f"sample_ms: the request by three routes, host median of {SERVE_REPS} calls each ending in "
          "a synchronise, device_ms of one call under torch.profiler, busy share that over "
-         "the median; log_prob_ms_<b>: the same at batch b, live and from the bundle's "
-         "one program")
+         "the median; log_prob_ms_<b>: the same at the largest batch b, live and from the "
+         "bundle's one program")
     served = {}
     for bundle, r in results.items():
         for request, launched in r["launches"].items():
@@ -4565,8 +4567,8 @@ def phase_glow_train():
 
 # ---- residual flows and the small flows (PR 14) ---------------------------------
 
-def build_residual(random_last=True):
-    """Model R (``examples.residual_twomoons.inputs`` at SEED) on the CPU, with
+def build_residual(random_last=True, k=RES_K):
+    """Model R (``examples.residual_twomoons.inputs`` at SEED, ``k`` blocks) on the CPU, with
     every net's last layer drawn ~ N(0, 1/in) and its power iteration run
     (``random_last``), ActNorm set from the first batch.  Returns ``(model,
     x_all, x_held_out)``; the card's copy is ``copy.deepcopy(model).to(DEVICE)``."""
@@ -4574,7 +4576,7 @@ def build_residual(random_last=True):
     from normflows_tpu_torch.examples import residual_twomoons as example
     from normflows_tpu_torch.utils import update_lipschitz
 
-    model, x_all, x_held = example.inputs(RES_K, SEED, "cpu", RES_HIDDEN)
+    model, x_all, x_held = example.inputs(k, SEED, "cpu", RES_HIDDEN)
     if random_last:
         gen = torch.Generator().manual_seed(SEED + 150)
         with torch.no_grad():
@@ -5923,6 +5925,193 @@ def phase_neutra_smc(model):
     return launched
 
 
+# phase serving_stochastic: bundles of the models whose sampler the JAX
+# package's export_sampler serves past plain flows, at the widths of the
+# stochastic and sampling phases: the SNF of examples/snf_hais.py (MH, and its HMC
+# variant) at 1,024 draws, its HAIS (4,096 chains, 30 rungs of 10 leapfrog
+# steps), annealed SMC with the convergence phase's flagship as proposal
+# (SMC_N particles, SMC_TEMPS temperatures, SMC_L leapfrog steps of
+# SMC_STEP), and model R in eval mode at 2^14 draws with its log_prob on a
+# symbolic batch.  Depth is cut, widths kept: a program's export, save and
+# load grow with its graph's nodes, which each layer adds, and the phase
+# holds a budget of ~60 s: the SNF to
+# SS_SNF_BLOCKS of its 4 coupling + MCMC blocks, the flagship proposal to
+# its first SS_SMC_LAYERS of 12 layers (trained), model R to SS_RES_K of 16
+# blocks.
+SS_SNF_N, SS_HAIS_N, SS_RES_N = 1024, 4096, 2**14
+SS_SNF_BLOCKS, SS_SMC_LAYERS, SS_RES_K = 2, 3, 2
+SS_BATCHES = (1, 7, 4096)  # model R's log_prob requests through its one program
+
+
+def scan_extra_calls():
+    """How many calls of its body more than its length the installed torch's
+    eager ``scan`` makes (torch 2.11's runs element 0 twice, once to size its
+    outputs; torch 2.13's once): a served program's loops are scans."""
+    calls = []
+
+    def body(carry, x):
+        calls.append(x)
+        return carry + x, x
+
+    with torch.no_grad():
+        torch.ops.higher_order.scan(body, [torch.zeros(())], [torch.arange(3.0)], ())
+    return len(calls) - 3
+
+
+def ss_bundle(what, root, counts, model, n, live, want, event_shape=None, seed=SEED + 190):
+    """Save ``model``'s bundle under ``root`` (``event_shape`` None: its
+    sampler alone), load it, and hold its sampler from ``seed`` against
+    ``live(generator)``, the live model on a generator seeded alike, bit for
+    bit: the program eagerly and, where its route is graphed, as the CUDA
+    graph (after the call that captures it).  Each request launches exactly
+    ``want`` on the device counters, and is the one timed (host ms ending in
+    a synchronise; the live model's is its first call, SMC's capture of its
+    rung graph included).  Device ms: CUDA events around one replay of the
+    graph (its kernels and the gaps between them), or, on the eager route,
+    torch.profiler's kernel time of one request.  Returns the readings, the
+    bundle, the program's output and the launches counted."""
+    from normflows_tpu_torch import serving
+
+    path = os.path.join(root, what)
+    t0 = time.perf_counter()
+    manifest = serving.save_bundle(model, path, n, event_shape)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = serving.load_bundle(path)
+    load_s = time.perf_counter() - t0
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        want_out, live_ms = timed(lambda: live(torch.Generator(DEVICE).manual_seed(seed)))
+    routes = {"program_eager": lambda: bundle.sample(seed, graphed=False)}
+    if manifest["route"] == "graphed":
+        routes["program_graphed"] = lambda: bundle.sample(seed)
+    r = {"route": manifest["route"], "export_seconds": manifest["export_seconds"],
+         "save_seconds": save_s, "load_seconds": load_s, "bytes": bundle_bytes(path),
+         "kernel_ops": manifest["kernel_ops"], "outputs": manifest["outputs"],
+         "launches": {}, "bit_equal": {}, "max_abs_diff": {}, "request_ms": {"live": live_ms}}
+    launched, outs = {}, {}
+    for route, fn in routes.items():
+        if route == "program_graphed":
+            bundle.sample(seed + 1)  # captures the graph
+        (outs[route], r["request_ms"][route]), got = on_card(counts, lambda: timed(fn))
+        r["launches"][route] = expect_launches(f"{what} {route}", got, want)
+        add_launches(launched, got)
+        r["bit_equal"][route] = all(bool(torch.equal(a, b)) for a, b in zip(outs[route], want_out))
+        r["max_abs_diff"][route] = [float((a.double() - b.double()).abs().max())
+                                    for a, b in zip(outs[route], want_out)]
+    r["finite"] = all(bool(torch.isfinite(a).all()) for a in outs["program_eager"])
+    if bundle._graph is not None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        bundle._graph.replay()
+        end.record()
+        sync()
+        device_ms, source = start.elapsed_time(end), "CUDA events around one graph replay"
+    else:
+        device_ms, source = profile(routes["program_eager"], warm=True)["device_ms"], \
+            "torch.profiler, one eager request"
+    r["device_ms"] = {"ms": device_ms, "source": source,
+                      "busy_share": {route: device_ms / ms for route, ms in r["request_ms"].items()}}
+    return r, bundle, outs["program_eager"], launched
+
+
+def phase_serving_stochastic(root, trained):
+    """``serving`` on the card for the SNF (MH and HMC), HAIS, annealed SMC
+    on the trained flagship's first SS_SMC_LAYERS layers and model R (eval
+    mode), cut as their constants say: each bundle against its
+    live model, bit for bit (``ss_bundle``); the served HAIS's log Z against
+    LOG_Z within the ``hais`` phase's bar, the served SMC's |log Z| within
+    LOG_Z_BAR; the SMC bundle's planar launches a request equal to the
+    counts worked out from its program (per temperature one evaluation of
+    the proposal's log-density for the reweighting and SMC_L + 1 of its
+    value and gradient in the move; the proposal's draw 2 inverse launches a
+    layer), the others none; model R's fixed-point steps a request and its
+    log_prob at SS_BATCHES through one program.  Each of the SMC program's
+    scans (over the temperatures, and over each move's leapfrog steps) runs
+    its body ``scan_extra_calls()`` more times than its length."""
+    from normflows_tpu_torch import NormalizingFlow
+    from normflows_tpu_torch import distributions as D
+    from normflows_tpu_torch.examples import snf_hais
+    from normflows_tpu_torch.examples.residual_twomoons import set_train
+    from normflows_tpu_torch.sampling import AnnealedSMC
+    from normflows_tpu_torch.utils import set_compute_dtype
+
+    r, launched, t_phase = {}, {}, time.perf_counter()
+    extra = scan_extra_calls()
+    rung_bodies, move_evals = SMC_TEMPS - 1 + extra, SMC_L + 1 + extra
+    smc_want = {"rqs_transposed_inverse": 2 * SS_SMC_LAYERS,
+                "rqs_transposed_forward": rung_bodies * (1 + move_evals) * SS_SMC_LAYERS,
+                "rqs_transposed_backward_forward": rung_bodies * move_evals * SS_SMC_LAYERS}
+    with device_counters() as counts:
+        for mcmc in ("mh", "hmc"):
+            model = snf_hais.build_snf(DEVICE, SEED, mcmc)
+            model.flows = torch.nn.ModuleList(list(model.flows)[:2 * SS_SNF_BLOCKS])
+            r[f"snf_{mcmc}"], *_ = ss_bundle(
+                f"snf_{mcmc}", root, counts, model, SS_SNF_N,
+                lambda g, m=model: m.sample(SS_SNF_N, generator=g), {})
+        hais = snf_hais.build_hais(DEVICE)
+        r["hais"], _, out, _ = ss_bundle("hais", root, counts, hais, SS_HAIS_N,
+                                         lambda g: hais.sample(SS_HAIS_N, generator=g), {})
+        est = snf_hais.estimates(*out)
+        bar = max(0.02, 4 * est["log_z_se"])
+        r["hais"]["estimates"] = {**est, "gap": abs(est["log_z"] - LOG_Z), "bar": bar}
+        set_compute_dtype(trained, "float32")
+        proposal = NormalizingFlow(trained.q0, list(trained.flows)[:SS_SMC_LAYERS], trained.p)
+        smc = AnnealedSMC.create(proposal, D.GaussianVonMises(device=DEVICE),
+                                 num_temps=SMC_TEMPS, num_leapfrog=SMC_L, step_size=SMC_STEP)
+        r["smc"], _, out, got = ss_bundle("smc", root, counts, smc, SMC_N,
+                                          lambda g: smc.sample(SMC_N, generator=g), smc_want)
+        add_launches(launched, got)
+        particles, log_w, log_z = out
+        w = torch.softmax(log_w.double(), 0)
+        r["smc"].update(log_z=float(log_z), ess=float(1.0 / torch.sum(w * w)),
+                        moments_weighted=moments(particles, w), launches_predicted=smc_want,
+                        scan_extra_calls=extra)
+        model, _, x_held = build_residual(k=SS_RES_K)
+        model = copy.deepcopy(model).to(DEVICE)
+        set_train(model, False)
+        x = x_held.to(DEVICE).repeat(2, 1)[:max(SS_BATCHES)]
+        r["residual"], bundle, _, _ = ss_bundle(
+            "residual", root, counts, model, SS_RES_N,
+            lambda g: model.sample(SS_RES_N, generator=g), {}, event_shape=(2,))
+        r["residual"]["fixed_point_steps"] = [
+            int(f.iresblock.last_inverse["steps"]) for f in model.flows
+            if hasattr(f, "iresblock")]
+        with torch.no_grad():
+            want = {b: model.log_prob(x[:b]) for b in SS_BATCHES}
+        r["residual"]["log_prob_bit_equal"] = {
+            b: bool(torch.equal(bundle.log_prob(x[:b]), want[b])) for b in SS_BATCHES}
+        r["residual"]["log_prob_ms"] = {b: host_ms(lambda b=b: bundle.log_prob(x[:b]),
+                                                   reps=1, warmup=0) for b in SS_BATCHES}
+    seconds = time.perf_counter() - t_phase
+    bundles = [r[k] for k in ("snf_mh", "snf_hmc", "hais", "smc", "residual")]
+    ok = (all(all(b["bit_equal"].values()) and b["finite"] for b in bundles)
+          and all(r["residual"]["log_prob_bit_equal"].values())
+          and r["hais"]["estimates"]["gap"] <= bar and r["hais"]["estimates"]["finite_weights"]
+          and abs(r["smc"]["log_z"]) <= LOG_Z_BAR)
+    emit("serving_stochastic", ok=ok, results=r, phase_seconds=seconds,
+         bars={"hais_log_z": LOG_Z, "hais_gap_at_most": "max(0.02, 4 SE)",
+               "smc_abs_log_z": LOG_Z_BAR, "bundles": "bit-equal to the live model"},
+         sizes={"snf": [SS_SNF_N, SS_SNF_BLOCKS], "hais": SS_HAIS_N,
+                "smc": [SMC_N, SMC_TEMPS, SMC_L, SMC_STEP, SS_SMC_LAYERS],
+                "residual": [SS_RES_N, SS_RES_K, RES_HIDDEN], "log_prob_batches": SS_BATCHES},
+         note="request_ms: host time of the one checked request a route, ending in a "
+         "synchronise (live: the live model's first sample on a generator, SMC's capture of "
+         "its rung graph included; program_graphed: the replay after the capturing call); "
+         "device_ms: see its source, over each route's ms the busy shares; export_seconds: "
+         "the manifest's (the programs' export), save_seconds the whole save_bundle")
+    if not ok:
+        raise SystemExit("serving_stochastic: a bundle missed its bar")
+    return launched
+
+
 def stacked_equal(scan, unrolled, prefix="flows.0.stacked."):
     """Every tensor of a ScanChain model (``scan``: name -> tensor) equal,
     bit for bit, to the unrolled model's: a stacked tensor's slice i to
@@ -7067,6 +7256,8 @@ def main() -> int:
                       phase_vae_train(), phase_change_base()]
     sampling = [phase_sampling_path(), phase_nuts(), phase_neutra_smc(trained),
                 phase_scan_chain()]
+    with tempfile.TemporaryDirectory() as root:
+        served_stochastic = phase_serving_stochastic(root, trained)
     del trained
     phase_loader()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_root:
@@ -7225,9 +7416,12 @@ def main() -> int:
         # the sharded tier: tensor parallelism and FSDP at worlds 1 and 2, the
         # pipeline's two stages (rows 1 and 1b; 0 for the rest)
         entry["launches_sharded"] = sum(p.get(entry["name"], 0) for p in sharded_paths)
+        # the bundles of phase serving_stochastic (the SMC bundle's program
+        # requests: rows 1 and 1b; 0 for the rest)
+        entry["launches_served_stochastic"] = served_stochastic.get(entry["name"], 0)
         entry["launches"] += (entry["launches_conditional"] + entry["launches_image"]
                               + entry["launches_sampling"] + entry["launches_parallel"]
-                              + entry["launches_sharded"])
+                              + entry["launches_sharded"] + entry["launches_served_stochastic"])
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)

@@ -243,22 +243,59 @@ class NormalizingFlow(_Saved, nn.Module):
                             generator: Optional[torch.Generator] = None):
         return self.sample(num_samples, context, generator=generator)
 
-    def from_noise(self, eps, context=None):
-        """``(x, log_q)`` of :meth:`sample` with the base draws given: ``eps``
+    def drawing_flows(self, num_samples: int) -> list:
+        """``(index, layout)`` of each flow that draws in the sampling
+        direction on ``num_samples`` draws (an MCMC layer; a residual layer
+        whose log-det draws in its mode), in order, its layout that of
+        ``distributions.base.draw_layout``.  The layers keep the base's
+        event shape."""
+        shape = (num_samples, *self.q0.noise_shape)
+        found = []
+        for i, flow in enumerate(self.flows):
+            layout = flow.noise_layout(shape) if hasattr(flow, "noise_layout") else None
+            if layout is not None:
+                found.append((i, layout))
+        return found
+
+    def draw_noise(self, num_samples: int, *, generator: Optional[torch.Generator] = None):
+        """``(eps, layer_noise)``, every draw of :meth:`sample` in its order:
+        the base's noise (by its ``noise_spec``), then one tuple a drawing
+        flow (:meth:`drawing_flows`), from the generator the flows get (the
+        device's default one where ``generator`` is None).
+        ``from_noise(eps, layer_noise=layer_noise)`` is then ``sample(n,
+        generator=g)``."""
+        ref = next(iter([*self.q0.parameters(), *self.q0.buffers()]))
+        eps = draw_noise(self.q0.noise_spec, self.q0.noise_shape, num_samples,
+                         generator=generator, dtype=ref.dtype, device=ref.device)
+        drawing = self.drawing_flows(num_samples)
+        g = self._drawing(generator, ref.device) if drawing else None
+        shape = (num_samples, *self.q0.noise_shape)
+        return eps, [self.flows[i].draw_noise(shape, generator=g, dtype=ref.dtype,
+                                              device=ref.device) for i, _ in drawing]
+
+    def from_noise(self, eps, context=None, layer_noise=None):
+        """``(x, log_q)`` of :meth:`sample` with the draws given: ``eps``
         (num_samples, *event) is the base's noise, drawn by its
-        ``noise_spec`` (``distributions.base.draw_noise``), so that
-        ``sample(n, generator=g)`` is ``from_noise(draw_noise(...))`` on
-        the same draws.  The program ``serving.export_sampler`` exports.
-        It draws nothing else, so dropout stays off; a model with an MCMC
-        layer, whose moves draw, raises."""
-        if mcmc_layers(self.flows):
-            raise NotImplementedError(
-                "from_noise takes the base's noise only, and an MCMC layer "
-                "(MetropolisHastings, HamiltonianMonteCarlo) draws its own: a sampler "
-                "fed with every layer's draws waits for a later slice of the PyTorch port")
+        ``noise_spec`` (``distributions.base.draw_noise``), and
+        ``layer_noise`` one tuple a flow that draws (:meth:`drawing_flows`:
+        an MCMC layer's moves, a residual layer's log-det), so that
+        ``sample(n, generator=g)`` is ``from_noise(eps, layer_noise=noise)``
+        for ``eps, noise = draw_noise(n, generator=g)``.  What
+        ``serving.export_sampler`` exports.  Dropout stays off."""
+        drawing = dict(self.drawing_flows(eps.shape[0])) if layer_noise is not None else {}
+        if layer_noise is None and mcmc_layers(self.flows):
+            raise ValueError("from_noise of a model with an MCMC layer takes every layer's "
+                             "draws: pass layer_noise (draw_noise gives them)")
+        if len(drawing) != len(layer_noise or ()):
+            raise ValueError(f"layer_noise holds {len(layer_noise)} entries; this model's "
+                             f"flows draw at {len(drawing)} layers (drawing_flows)")
+        noises = iter(layer_noise or ())
         z, log_q = self.q0.from_noise(eps, context)
-        for flow in self.flows:
-            z, ld = flow.forward(z, context)
+        for i, flow in enumerate(self.flows):
+            if i in drawing:
+                z, ld = flow.forward(z, context, noise=next(noises))
+            else:
+                z, ld = flow.forward(z, context)
             log_q = log_q - ld
         return z, log_q
 

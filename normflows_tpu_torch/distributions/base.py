@@ -70,6 +70,44 @@ def draw_noise(noise_spec, event_shape, num_samples: int, *,
     return torch.stack([columns[i] for i in range(len(spec))], dim=-1).reshape(shape)
 
 
+def draw_one(kind: str, shape, params=(), *, generator: Optional[torch.Generator] = None,
+             dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """One draw of ``shape`` from ``generator``: ``"normal"``, ``"uniform"``
+    (on [0, 1)), ``"geometric"`` (on {1, 2, ...}, ``params = (p,)``, in the
+    default dtype) or ``"poisson"`` (``params = (rate,)``, float32)."""
+    shape = tuple(shape)
+    if kind == "normal":
+        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    if kind == "uniform":
+        return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    if kind == "geometric":
+        return torch.empty(shape, device=device).geometric_(params[0], generator=generator)
+    if kind == "poisson":
+        rate = torch.full(shape, params[0], dtype=torch.float32, device=device)
+        return torch.poisson(rate, generator=generator)
+    raise ValueError(f"a draw is 'normal', 'uniform', 'geometric' or 'poisson', not {kind!r}")
+
+
+def draw_layout(layout: dict, *, generator: Optional[torch.Generator] = None,
+                dtype=torch.float32, device="cpu") -> tuple:
+    """The draws of one drawing flow layer or of a sampler's rungs, by its
+    ``layout`` (what a serving manifest records): ``layout["draws"]``, a
+    list of ``[kind, shape, *params]`` (:func:`draw_one`) drawn in turn,
+    that ``layout["repeat"]`` times where it is set (a layer's steps, a
+    ladder's rungs), each draw then stacked on a new leading axis.  One
+    tensor a draw of the list."""
+    draws, repeat = layout["draws"], layout.get("repeat")
+
+    def once():
+        return [draw_one(kind, shape, params, generator=generator, dtype=dtype, device=device)
+                for kind, shape, *params in draws]
+
+    if repeat is None:
+        return tuple(once())
+    rows = [once() for _ in range(repeat)]
+    return tuple(torch.stack(column) for column in zip(*rows))
+
+
 def one_hot(y, num_classes: int, dtype=torch.float32):
     """Integer labels (batch,) as one-hot rows (batch, num_classes); a (batch,
     C) tensor (already one-hot, or soft) is cast to ``dtype``."""

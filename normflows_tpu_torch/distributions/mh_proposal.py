@@ -34,6 +34,11 @@ class MHProposal(nn.Module):
     def propose_from_noise(self, z, eps):
         raise NotImplementedError
 
+    def noise_layout(self, num: int) -> list:
+        """The draws of one move of ``num`` chains, as
+        ``distributions.base.draw_layout`` lists them."""
+        raise NotImplementedError
+
 
 class DiagGaussianProposal(MHProposal):
     """Gaussian random walk z' = z + scale * eps; symmetric, so the log-ratio
@@ -53,6 +58,9 @@ class DiagGaussianProposal(MHProposal):
         """The standard normals (batch, *shape) of one move."""
         return torch.randn((z.shape[0], *self.shape), generator=generator, dtype=z.dtype,
                            device=z.device)
+
+    def noise_layout(self, num: int) -> list:
+        return [["normal", [num, *self.shape]]]
 
     def sample(self, z, generator: Optional[torch.Generator] = None):
         return self.propose_from_noise(z, self.draw(z, generator))[0]

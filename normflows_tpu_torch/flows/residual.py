@@ -40,6 +40,14 @@ The inverse is the fixed point x = y - g(x), iterated on the device in
 blocks of :data:`FIXED_POINT_BLOCK` steps, each step frozen once the
 JAX package's stopping test fails, with one host read a block: the same x as
 a test a step.
+
+:meth:`Residual.program` is the layer's sampling direction in the form an
+exported program takes: the fixed point a ``while_loop`` (the JAX
+package's ``lax.while_loop``), its steps those of the eager loop, over a
+traced graph of g; the log-det a traced graph (its pullbacks are
+``torch.autograd.grad``, which ``torch.export`` cannot trace), its draws
+the program's inputs, a dynamic series run to ``n_power_series_max``
+terms (the capture rule above).
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ import torch
 from torch import nn
 
 from ..core.flow import Flow, sum_except_batch
-from ..ops.backend import capturing
+from ..distributions.base import draw_one
+from ..ops.backend import capturing, trace_graph
 
 FIXED_POINT_BLOCK = 10  # fixed-point steps between host reads
 FIXED_POINT_MAX = 1000  # the JAX package's cap (residual.py:253)
@@ -68,8 +77,8 @@ def draw_horizon(generator, n_dist, geom_p: float, lamb, n_samples, device):
     """The russian roulette's horizons, (n_samples,) float32: geometric(p)
     on {1, 2, ...} or Poisson(lamb)."""
     if n_dist == "geometric":
-        return torch.empty(n_samples, device=device).geometric_(geom_p, generator=generator)
-    if n_dist == "poisson":
+        return draw_one("geometric", (n_samples,), (geom_p,), generator=generator, device=device)
+    if n_dist == "poisson":  # lamb stays on the device: no host read under a capture
         return torch.poisson(lamb.expand(n_samples).float(), generator=generator)
     raise NotImplementedError(n_dist)
 
@@ -260,16 +269,23 @@ def _rematerialised(g_fn, x, vareps, series):
 
 
 def batch_jacobian(g_fn, x):
-    """Per-sample Jacobians (B, d, d) of ``g_fn`` at ``x``, by
-    ``torch.func.vmap(torch.func.jacfwd)`` over ``functional_call`` of the
-    net's current tensors (differentiable in them)."""
-    d = math.prod(x.shape[1:])
-    tensors = {**dict(g_fn.named_parameters()), **dict(g_fn.named_buffers())}
-
-    def single(xi):
-        return torch.func.functional_call(g_fn, tensors, (xi[None],)).reshape(-1)
-
-    return torch.func.vmap(torch.func.jacfwd(single))(x).reshape(x.shape[0], d, d)
+    """Per-sample Jacobians (B, d, d) of ``g_fn`` at ``x``, a row a
+    pullback: g acts on each sample alone, so the pullback of output
+    coordinate i's one-hot cotangent over the batch is row i of every
+    sample's Jacobian.  With grad mode on it keeps its graph (differentiable
+    in x and g's tensors).  Reverse mode, where ``torch.func.jacfwd`` would
+    do: a symbolic-batch program traces these pullbacks and not jacfwd's
+    forward mode."""
+    b, d = x.shape[0], math.prod(x.shape[1:])
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xs = _leaf_or_graph(x)
+        gx = g_fn(xs).reshape(b, d)
+        eye = torch.eye(d, dtype=gx.dtype, device=gx.device)
+        rows = [_pullback(gx, xs, eye[i].expand(b, d), create).reshape(b, d)
+                for i in range(d)]
+    jac = torch.stack(rows, 1)
+    return jac if create else jac.detach()
 
 
 # ---------------------------------------------------------------------------
@@ -306,15 +322,15 @@ class iResBlock(nn.Module):
                    n_exact_terms, n_dist, neumann_grad, grad_in_forward, n_power_series_max)
 
     # -- transport ---------------------------------------------------------
-    def apply_forward(self, x, logpx, generator=None):
+    def apply_forward(self, x, logpx, generator=None, noise=None):
         """y = x + g(x), logpy = logpx - logdet."""
-        g, logdetgrad = self._logdetgrad(x, generator)
+        g, logdetgrad = self._logdetgrad(x, generator, noise)
         return x + g, logpx - logdetgrad
 
-    def apply_inverse(self, y, logpy, generator=None):
+    def apply_inverse(self, y, logpy, generator=None, noise=None):
         """x with x + g(x) = y, by fixed-point iteration; logpy + logdet."""
         x = self._inverse_fixed_point(y)
-        _, logdetgrad = self._logdetgrad(x, generator)
+        _, logdetgrad = self._logdetgrad(x, generator, noise)
         return x, logpy + logdetgrad
 
     @torch.no_grad()
@@ -349,29 +365,68 @@ class iResBlock(nn.Module):
         roulette = not (self.training and self.n_power_series is not None)
         return roulette or not self.exact_trace
 
-    def _logdetgrad(self, x, generator=None):
-        """``(g(x), logdet |d(x + g(x)) / dx|)``."""
+    def _brute_force_2d(self, shape) -> bool:
+        return (self.brute_force or not self.training) and len(shape) == 2 and shape[1] == 2
+
+    def _draw_kinds(self, shape) -> tuple:
+        """What a log-det at inputs of ``shape`` draws, in order: the
+        russian roulette's ``"horizon"`` and Hutchinson's ``"probe"``, or
+        some of them, or nothing."""
+        if self._brute_force_2d(shape) or not self.log_det_draws():
+            return ()
+        if (self.training and self.n_power_series is None and self.neumann_grad
+                and not self.exact_trace):
+            return ("horizon", "probe")
+        roulette = () if self.training and self.n_power_series is not None else ("horizon",)
+        return roulette + (() if self.exact_trace else ("probe",))
+
+    def noise_layout(self, shape) -> Optional[dict]:
+        """The layout of a log-det's draws at inputs of ``shape``
+        (``distributions.base.draw_layout``), None where it draws nothing."""
+        kinds = self._draw_kinds(shape)
+        if not kinds:
+            return None
+        param = self.geom_p if self.n_dist == "geometric" else float(self.lamb)
+        return {"repeat": None, "draws": [
+            [self.n_dist, [self.n_samples], param] if k == "horizon" else ["normal", list(shape)]
+            for k in kinds]}
+
+    def draw_noise(self, shape, *, generator=None, dtype=torch.float32, device="cpu") -> tuple:
+        """A log-det's draws at inputs of ``shape``, through
+        :func:`draw_horizon` and :func:`draw_probe`: its ``noise=``."""
+        return tuple(
+            draw_horizon(generator, self.n_dist, self.geom_p, self.lamb, self.n_samples, device)
+            if k == "horizon" else draw_probe(generator, tuple(shape), dtype, device)
+            for k in self._draw_kinds(shape))
+
+    def _logdetgrad(self, x, generator=None, noise=None, capped=False):
+        """``(g(x), logdet |d(x + g(x)) / dx|)``, its draws from
+        ``generator`` or given as ``noise`` (:meth:`draw_noise`'s); with
+        ``capped``, a dynamic series runs ``n_power_series_max`` terms, as
+        under a CUDA graph's capture."""
         g_fn = self.nnet
-        if (self.brute_force or not self.training) and x.dim() == 2 and x.shape[1] == 2:
+        if self._brute_force_2d(x.shape):
             g = g_fn(x)
             jac = batch_jacobian(g_fn, x)
             dets = (jac[:, 0, 0] + 1) * (jac[:, 1, 1] + 1) - jac[:, 0, 1] * jac[:, 1, 0]
             return g, torch.log(torch.abs(dets))
-        if self.log_det_draws() and generator is None:
+        kinds = self._draw_kinds(x.shape)
+        if kinds and noise is None and generator is None:
             raise ValueError(
                 "iResBlock log-det estimation is stochastic (russian-roulette truncation "
                 "/ Hutchinson trace); pass a torch.Generator, e.g. "
                 "model.log_prob(x, generator=torch.Generator(device).manual_seed(step)). "
                 "For a deterministic path use exact_trace=True with a fixed "
                 "n_power_series, or brute_force=True in 2-D.")
+        if noise is None:
+            noise = self.draw_noise(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        drawn = dict(zip(kinds, noise, strict=True))
+        n_arr, vareps = drawn.get("horizon"), drawn.get("probe")
         geom_p = torch.sigmoid(self.geom_p_logit)
 
         if (self.training and self.n_power_series is None and self.neumann_grad
                 and not self.exact_trace):
-            n_arr = draw_horizon(generator, self.n_dist, self.geom_p, self.lamb,
-                                 self.n_samples, x.device)
-            vareps = draw_probe(generator, x.shape, x.dtype, x.device)
-            cap = self.n_power_series_max if capturing() else None
+            cap = self.n_power_series_max if capped or capturing() else None
             series = _dynamic_series(n_arr, self.n_exact_terms, self.n_dist, geom_p,
                                      self.lamb, cap)
             if self.grad_in_forward:
@@ -384,8 +439,6 @@ class iResBlock(nn.Module):
         else:
             n_exact = self.n_exact_terms if self.training else 20
             kmax = self.n_power_series_max + (0 if self.training else 18)
-            n_arr = draw_horizon(generator, self.n_dist, self.geom_p, self.lamb,
-                                 self.n_samples, x.device)
             coeffs = _series_coeffs(n_arr, self.n_dist, geom_p, self.lamb, n_exact, kmax)
 
         if self.exact_trace:
@@ -399,7 +452,6 @@ class iResBlock(nn.Module):
                     torch.diagonal(jac_k, dim1=1, dim2=2).sum(-1)
             return g, logdet
 
-        vareps = draw_probe(generator, x.shape, x.dtype, x.device)
         if self.training and self.neumann_grad:
             series = _static_series(coeffs, kmax)
             if self.grad_in_forward:
@@ -434,14 +486,29 @@ class Residual(Flow):
         return cls(net, reverse, reduce_memory, geom_p, lamb, n_power_series, exact_trace,
                    brute_force, n_samples, n_exact_terms, n_dist, n_power_series_max)
 
-    def forward(self, z, context=None, *, generator=None):
+    def forward(self, z, context=None, *, generator=None, noise=None):
+        """The sampling direction; ``noise`` replays the block's log-det
+        draws (:meth:`iResBlock.draw_noise`)."""
         zeros = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
         block = self.iresblock
         if self.reverse:
-            z, log_det = block.apply_inverse(z, zeros, generator)
+            z, log_det = block.apply_inverse(z, zeros, generator, noise)
         else:
-            z, log_det = block.apply_forward(z, zeros, generator)
+            z, log_det = block.apply_forward(z, zeros, generator, noise)
         return z, -log_det
+
+    def noise_layout(self, shape) -> Optional[dict]:
+        """The layout of the sampling direction's draws on a batch of
+        ``shape``, None where it draws nothing."""
+        return self.iresblock.noise_layout(shape)
+
+    def draw_noise(self, shape, *, generator=None, dtype=torch.float32, device="cpu") -> tuple:
+        return self.iresblock.draw_noise(shape, generator=generator, dtype=dtype, device=device)
+
+    def program(self, shape, dtype=torch.float32, device="cpu") -> "_ResidualProgram":
+        """The sampling direction on batches of ``shape`` in the form an
+        exported program takes (see the module docstring)."""
+        return _ResidualProgram(self, shape, dtype, device)
 
     def inverse(self, z, context=None, *, generator=None):
         zeros = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
@@ -466,3 +533,47 @@ class Residual(Flow):
         if self.reverse:
             return self.iresblock._inverse_fixed_point(z)
         return z + self.iresblock.nnet(z)
+
+
+def _fixed_point_program(net, y, atol=1e-5, rtol=1e-5):
+    """:meth:`iResBlock._inverse_fixed_point` as a ``while_loop``: the JAX
+    package's loop, each step the eager loop's (``net`` a traced graph of
+    g)."""
+    from torch._higher_order_ops import while_loop
+
+    tol = atol + torch.abs(y) * rtol
+
+    def go(i, x_prev, x):
+        return (i < FIXED_POINT_MAX) & torch.any((x - x_prev) ** 2 / tol >= 1.0)
+
+    def step(i, x_prev, x):
+        return i + 1, x.clone(), y - net(x)  # a loop's body returns no input itself
+
+    start = (torch.zeros((), dtype=torch.int64, device=y.device), y, y - net(y))
+    return while_loop(go, step, start)[2]
+
+
+class _ResidualProgram(nn.Module):
+    """A residual layer's sampling direction on batches of one shape, as a
+    program runs it: g and the block's log-det (its draws given, a dynamic
+    series capped) graphs traced at that shape."""
+
+    def __init__(self, flow: Residual, shape, dtype, device):
+        super().__init__()
+        block = flow.iresblock
+        self.reverse = flow.reverse
+        x = torch.zeros(shape, dtype=dtype, device=device)
+        draws = block.draw_noise(shape, generator=torch.Generator(device).manual_seed(0),
+                                 dtype=dtype, device=device)
+        self.net = trace_graph(block.nnet, x)
+        self.log_det = trace_graph(
+            lambda x, *noise: block._logdetgrad(x, noise=noise, capped=True), x, *draws)
+
+    def forward(self, z, context=None, *, noise=()):
+        zeros = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+        if self.reverse:
+            x = _fixed_point_program(self.net, z)
+            _, log_det = self.log_det(x, *noise)
+            return x, -(zeros + log_det)
+        g, log_det = self.log_det(z, *noise)
+        return z + g, -(zeros - log_det)

@@ -58,6 +58,22 @@ def capturing() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
+def trace_graph(fn, *example):
+    """``fn`` as an FX graph of ATen ops and the port's operators, traced on
+    the real tensors ``example`` with grad mode off (``make_fx``), the
+    tensors it reads held in the graph.  A gradient it takes
+    (``torch.autograd.grad``) is traced into the graph's backward ops, so
+    that an exported program can call it: ``torch.export`` cannot trace
+    ``torch.autograd.grad`` (the program holds a fake constant), nor can the
+    bodies of its loops (``scan``, ``while_loop``), which call such graphs
+    instead.  The graph holds the shapes of ``example``, and any Python
+    branch ``fn`` takes on their values."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    with torch.no_grad():  # varargs: make_fx would count fn's defaulted arguments
+        return make_fx(lambda *args: fn(*args))(*example)
+
+
 def count_launch(counts, backward: bool, inverse: bool):
     """Add one to ``counts[backward][inverse]`` on the device, when
     ``counts`` (a wrapper's ``DEVICE_LAUNCHES``: None, or an int64 (2, 2)

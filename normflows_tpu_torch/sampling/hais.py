@@ -8,6 +8,11 @@ Every rung of the ladder is an ``HamiltonianMonteCarlo`` layer on the bridge
 ``prior`` and ``target`` modules.  One generator serves the prior's draw
 and every rung in turn, where the JAX package splits its key into one a
 rung.
+
+:meth:`HAIS.program` is the ladder in the form an exported program takes
+(``serving.export_sampler``): the rungs a ``scan`` over their bridges'
+coefficients, step sizes, masses and draws, each rung's move
+``flows.stochastic.program_move`` over traced graphs of the bridge.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from torch import nn
 from ..core.facades import _default_generator
 from ..distributions.base import draw_noise
 from ..distributions.linear_interpolation import LinearInterpolation
-from ..flows.stochastic import HamiltonianMonteCarlo
+from ..flows.stochastic import HamiltonianMonteCarlo, program_move, value_and_grad
+from ..ops.backend import trace_graph
 
 
 class HAIS(nn.Module):
@@ -68,6 +74,20 @@ class HAIS(nn.Module):
         return eps0, [(torch.randn(shape, **kw), torch.rand(num_samples, **kw))
                       for _ in self.layers]
 
+    def noise_layout(self, num_samples: int) -> dict:
+        """The rungs' draws after the prior's, as ``distributions.base.
+        draw_layout`` lays them out: each rung's momentum normals and accept
+        uniforms, stacked over the rungs."""
+        shape = [num_samples, *self.prior.event_shape]
+        return {"repeat": len(self.layers), "draws": [["normal", shape],
+                                                      ["uniform", [num_samples]]]}
+
+    def program(self, num_samples: int) -> "_HAISProgram":
+        """The ladder on ``num_samples`` chains in an exported program's
+        form: ``(eps0, [(p_eps, u)]) -> (samples, log_w)``, the rungs'
+        draws stacked (:meth:`noise_layout`)."""
+        return _HAISProgram(self, num_samples)
+
     def from_noise(self, eps0, layer_noise):
         """:meth:`sample` on given draws: ``eps0`` the prior's noise, and
         ``layer_noise`` one ``(p_eps, u)`` pair a rung."""
@@ -77,3 +97,59 @@ class HAIS(nn.Module):
             z, ld = layer(z, noise=noise)
             log_w = log_w + ld
         return z, log_w + self.target.log_prob(z)
+
+
+def _bridge_log_prob(target, prior, coefs, z):
+    """``LinearInterpolation(target, prior, alpha).log_prob(z)`` with
+    ``coefs = [alpha, 1 - alpha]`` (float32) a tensor."""
+    return coefs[0] * target.log_prob(z) + coefs[1] * prior.log_prob(z)
+
+
+class _HAISProgram(nn.Module):
+    """:meth:`HAIS.from_noise` as a program runs it.  Every rung must be an
+    HMC layer on a bridge of the HAIS's own target and prior, all with one
+    leapfrog count and gradient clamp (as ``HAIS.create`` builds them)."""
+
+    def __init__(self, hais: HAIS, num_samples: int):
+        super().__init__()
+        layers = list(hais.layers)
+        first = layers[0]
+        for layer in layers:
+            if not (isinstance(layer, HamiltonianMonteCarlo)
+                    and isinstance(layer.target, LinearInterpolation)
+                    and layer.target.dist1 is hais.target and layer.target.dist2 is hais.prior
+                    and layer.steps == first.steps
+                    and layer.max_abs_grad == first.max_abs_grad):
+                raise ValueError("a HAIS program runs its rungs as one loop: every rung must be "
+                                 "an HMC layer on a LinearInterpolation of the HAIS's target and "
+                                 "prior, with one leapfrog count and max_abs_grad")
+        self.hais = hais
+        ref = first.log_step_size
+        z = torch.zeros(num_samples, *hais.prior.event_shape, dtype=ref.dtype,
+                        device=ref.device)
+        c = torch.zeros(2, dtype=torch.float32, device=ref.device)
+
+        self.value_grad = trace_graph(lambda z, c: value_and_grad(
+            lambda x: _bridge_log_prob(hais.target, hais.prior, c, x), z, first.max_abs_grad),
+            z, c)
+        self.register_buffer("coefs", torch.tensor(
+            [[layer.target.alpha, 1.0 - layer.target.alpha] for layer in layers],
+            dtype=torch.float32, device=ref.device))
+
+    def forward(self, eps0, draws):
+        from torch._higher_order_ops.scan import scan
+
+        ((p_eps, u),) = draws
+        hais, steps = self.hais, self.hais.layers[0].steps
+        log_steps = torch.stack([layer.log_step_size for layer in hais.layers])
+        log_masses = torch.stack([layer.log_mass for layer in hais.layers])
+        z, log_q = hais.prior.from_noise(eps0)
+
+        def rung(carry, x):
+            z, log_w = carry
+            c, log_step, log_mass, p, uu = x
+            z, ld = program_move(self.value_grad, z, p, uu, log_step, log_mass, steps, c)
+            return (z, log_w + ld), []
+
+        (z, log_w), _ = scan(rung, (z, -log_q), (self.coefs, log_steps, log_masses, p_eps, u))
+        return z, log_w + hais.target.log_prob(z)

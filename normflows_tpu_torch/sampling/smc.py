@@ -11,6 +11,12 @@ it.  A temperature is one body over two tempered densities and their HMC
 move, each temperature's coefficients copied in ahead of it, so that on a
 card it is captured once (at the first call) and replayed for each
 (``_graphs.replay_loop``); the densities and the move are built once.
+
+:meth:`AnnealedSMC.program` is the ladder in the form an exported program
+takes (``serving.export_sampler``): the temperatures a ``scan`` over their
+coefficients (values of the program, where the live sampler copies them
+into buffers) and their draws, each rung's tempered density and move
+traced graphs (``flows.stochastic.program_move``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 from torch import nn
 
 from ..core.facades import _default_generator
-from ..flows.stochastic import HamiltonianMonteCarlo
+from ..flows.stochastic import HamiltonianMonteCarlo, program_move, value_and_grad
+from ..ops.backend import trace_graph
 from ._graphs import replay_loop
 
 
@@ -75,8 +82,34 @@ class _Tempered(nn.Module):
                                                    device=device), persistent=False)
 
     def log_prob(self, z, context=None):
-        c = self.coefs.to(z.dtype)
-        return c[0] * self.proposal.log_prob(z) + c[1] * self.target.log_prob(z)
+        return tempered_log_prob(self.proposal, self.target, self.coefs, z)
+
+
+def tempered_log_prob(proposal, target, coefs, z):
+    """coefs[0] log q(z) + coefs[1] log p(z) (coefs float32, cast to z's
+    dtype): :class:`_Tempered`'s density at its coefficients."""
+    c = coefs.to(z.dtype)
+    return c[0] * proposal.log_prob(z) + c[1] * target.log_prob(z)
+
+
+def _rung(state, log_prob_prev, log_prob_new, move, draws, ess_threshold):
+    """One temperature: reweight from ``log_prob_prev`` to ``log_prob_new``,
+    accumulate log Z, resample where the ESS collapsed (a ``torch.where``
+    over both branches), move by ``move(z, p_eps, u_accept)``; ``draws =
+    (u_resample, p_eps, u_accept)``.  Returns the state and the resampling
+    flag."""
+    u, p_eps, u_acc = draws
+    n = state.log_w.shape[0]
+    inc = log_prob_new(state.particles) - log_prob_prev(state.particles)
+    log_w = state.log_w + inc
+    # accumulate evidence before normalising
+    log_z = state.log_z + (torch.logsumexp(log_w, 0) - torch.logsumexp(state.log_w, 0))
+    do_resample = effective_sample_size(log_w) < ess_threshold * n
+    resampled, reset_w = systematic_resample(log_w, state.particles, u=u)
+    particles = torch.where(do_resample, resampled, state.particles)
+    log_w = torch.where(do_resample, reset_w, log_w)
+    particles, _ = move(particles, p_eps, u_acc)
+    return SMCState(particles, log_w, log_z), do_resample
 
 
 class AnnealedSMC(nn.Module):
@@ -132,24 +165,6 @@ class AnnealedSMC(nn.Module):
             self.__dict__["_rung_cache"] = {}
         return self.rungs
 
-    def _rung(self, state, prev, new, move, draws):
-        """One temperature: reweight from ``prev`` to ``new``, accumulate
-        log Z, resample where the ESS collapsed (a ``torch.where`` over both
-        branches), move by ``move``; ``draws = (u_resample, p_eps,
-        u_accept)``.  Returns the state and the resampling flag."""
-        u, p_eps, u_acc = draws
-        n = state.log_w.shape[0]
-        inc = new.log_prob(state.particles) - prev.log_prob(state.particles)
-        log_w = state.log_w + inc
-        # accumulate evidence before normalising
-        log_z = state.log_z + (torch.logsumexp(log_w, 0) - torch.logsumexp(state.log_w, 0))
-        do_resample = effective_sample_size(log_w) < self.ess_threshold * n
-        resampled, reset_w = systematic_resample(log_w, state.particles, u=u)
-        particles = torch.where(do_resample, resampled, state.particles)
-        log_w = torch.where(do_resample, reset_w, log_w)
-        particles, _ = move.move(particles, p_eps, u_acc)
-        return SMCState(particles, log_w, log_z), do_resample
-
     def sample(self, num_particles: int, *, generator: Optional[torch.Generator] = None):
         """Run SMC: ``(particles, log_w, log_z)``.  ``generator`` (the
         device's default one when None) draws the proposal's draws, then at
@@ -166,6 +181,28 @@ class AnnealedSMC(nn.Module):
                     torch.rand(z.shape[0], **kw))
 
         return self._run(z, draws, g)
+
+    def _proposal_noise(self):
+        """``(noise_spec, noise_shape)`` of the proposal's draws: a flow's
+        base's, or the base distribution's own."""
+        base = getattr(self.proposal, "q0", self.proposal)
+        return tuple(base.noise_spec), tuple(base.noise_shape)
+
+    def noise_layout(self, num_particles: int) -> dict:
+        """The temperatures' draws after the proposal's, as ``distributions.
+        base.draw_layout`` lays them out: each temperature's resampling
+        uniform, momentum normals and accept uniforms, stacked over the
+        temperatures after the first."""
+        shape = [num_particles, *self._proposal_noise()[1]]
+        return {"repeat": len(self.betas) - 1,
+                "draws": [["uniform", []], ["normal", shape], ["uniform", [num_particles]]]}
+
+    def program(self, num_particles: int) -> "_SMCProgram":
+        """The ladder on ``num_particles`` particles in an exported
+        program's form: ``(eps0, [(u_resample, p_eps, u_accept)]) ->
+        (particles, log_w, log_z)``, the temperatures' draws stacked
+        (:meth:`noise_layout`)."""
+        return _SMCProgram(self, num_particles)
 
     def from_noise(self, eps0, noises):
         """:meth:`sample` on given draws (eagerly): ``eps0`` the proposal's
@@ -193,8 +230,8 @@ class AnnealedSMC(nn.Module):
             r["new"].coefs.copy_(self._coefs[i])
 
         def body(state):
-            new, flag = self._rung(SMCState(*state), r["prev"], r["new"], r["move"],
-                                   draws(rung[0]))
+            new, flag = _rung(SMCState(*state), r["prev"].log_prob, r["new"].log_prob,
+                              r["move"].move, draws(rung[0]), self.ess_threshold)
             return tuple(new), flag
 
         cache = self._rung_cache
@@ -204,3 +241,56 @@ class AnnealedSMC(nn.Module):
                                        cache=cache)
         self.last_resampled, self.last_graph = flags, cache["last"]
         return SMCState(*state)
+
+
+class _SMCProgram(nn.Module):
+    """:meth:`AnnealedSMC.from_noise` as a program runs it: the same values
+    on the same draws, each temperature's coefficients a slice of a buffer
+    the scan runs over.  The proposal's and target's log-densities at the
+    particles are evaluated once for both tempered densities of the
+    reweighting (the eager rung evaluates them once each: the same
+    values), and the move as :func:`flows.stochastic.program_move` does."""
+
+    def __init__(self, smc: AnnealedSMC, num_particles: int):
+        super().__init__()
+        ref = next(iter([*smc.proposal.parameters(), *smc.proposal.buffers()]))
+        shape = (num_particles, *smc._proposal_noise()[1])
+        r = smc._rungs(shape[-1], ref.device)
+        self.smc, self.move = smc, r["move"]
+        z = torch.zeros(shape, dtype=ref.dtype, device=ref.device)
+        c = torch.zeros(2, dtype=torch.float32, device=ref.device)
+
+        self.value_grad = trace_graph(lambda z, c: value_and_grad(
+            lambda x: tempered_log_prob(smc.proposal, smc.target, c, x), z,
+            self.move.max_abs_grad), z, c)
+        self.parts = trace_graph(lambda z: (smc.proposal.log_prob(z), smc.target.log_prob(z)), z)
+        self.register_buffer("coefs", smc._coefs.clone())
+
+    def forward(self, eps0, draws):
+        from torch._higher_order_ops.scan import scan
+
+        ((u, p_eps, u_acc),) = draws
+        move, value_grad = self.move, self.value_grad
+        z, _ = self.smc.proposal.from_noise(eps0)
+
+        def rung(state, x):
+            c_prev, c_new, draw = x[0], x[1], x[2:]
+            parts = self.parts(state[0])
+
+            def tempered(c):  # tempered_log_prob's arithmetic on the parts
+                c = c.to(parts[0].dtype)
+                return lambda _: c[0] * parts[0] + c[1] * parts[1]
+
+            new, flag = _rung(
+                SMCState(*state), tempered(c_prev), tempered(c_new),
+                lambda z, p, u: program_move(value_grad, z, p, u, move.log_step_size,
+                                             move.log_mass, move.steps, c_new),
+                draw, self.smc.ess_threshold)
+            return tuple(new), flag
+
+        # the scan's carry keeps its layout: a flow's samples may come transposed
+        z = z.contiguous()
+        state = (z, z.new_zeros(z.shape[0]), z.new_zeros(()))
+        (particles, log_w, log_z), _ = scan(
+            rung, state, (self.coefs[:-1], self.coefs[1:], u, p_eps, u_acc))
+        return particles, log_w, log_z

@@ -101,7 +101,7 @@ def jax_model_of(tmodel, jmodel):
     leaves = []
     for path, leaf in paths:
         name = _torch_name(jax.tree_util.keystr(path))
-        value = tensors[name].detach().cpu().numpy()
+        value = np.array(tensors[name].detach().cpu())  # a copy: jnp.asarray may alias it
         owner, _, attr = name.rpartition(".")
         if attr in ("weight", "mask") and isinstance(tmodel.get_submodule(owner), Linear):
             value = value.T

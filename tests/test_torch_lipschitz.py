@@ -53,7 +53,8 @@ def jax_net_of(tnet):
     seconds of compiling a layer): ``Swish``, ``InducedNormLinear``,
     ``InducedNormConv2d``, ``LipschitzMLP``, ``LipschitzCNN``."""
     def a(x):
-        return None if x is None else jnp.asarray(x.detach().cpu().numpy())
+        # a copy: jnp.asarray may alias a numpy view of the port's tensor
+        return None if x is None else jnp.asarray(np.array(x.detach().cpu()))
 
     if isinstance(tnet, tl.Swish):
         return jl.Swish(beta=a(tnet.beta))

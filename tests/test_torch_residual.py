@@ -349,7 +349,8 @@ def jax_model_of(tmodel, K, hidden=128):
     paths, treedef = jax.tree_util.tree_flatten_with_path(jmodel)
     leaves = []
     for path, leaf in paths:
-        value = tensors[_torch_name(jax.tree_util.keystr(path))].detach().cpu().numpy()
+        # a copy: jnp.asarray may alias a numpy view of the port's tensor
+        value = np.array(tensors[_torch_name(jax.tree_util.keystr(path))].detach().cpu())
         if value.shape != leaf.shape:
             raise ValueError(f"{path}: the port's {value.shape}, JAX's {leaf.shape}")
         leaves.append(jnp.asarray(value, leaf.dtype))

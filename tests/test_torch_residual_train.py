@@ -8,7 +8,8 @@ numpy inputs, the port fed the JAX package's draws:
   against the JAX package's ``make_train_step`` on the same batches and
   draws;
 * a chunk on the CPU with the power iteration after each step; the example
-  ``residual_twomoons`` on the CPU; serving's refusal of a residual flow.
+  ``residual_twomoons`` on the CPU; ``from_noise`` replaying the blocks'
+  draws of ``sample``.
 
 Bars: 1e-4 on losses and gradient leaves, 1e-4 / 1e-3 on the weights and
 power-iteration buffers after 20 steps (atol / rtol).
@@ -159,12 +160,20 @@ def test_cpu_chunk_trains_with_update_lipschitz():
                          rtol=1e-3)
 
 
-def test_serving_refuses_a_residual_flow(pair, tmp_path):
-    from normflows_tpu_torch import serving
-
+def test_from_noise_replays_the_blocks_draws(pair):
+    """In training mode each block's sampling direction draws its horizon and
+    probe: ``from_noise(eps, layer_noise=...)`` on ``draw_noise``'s draws is
+    ``sample`` on the same generator, bit for bit; in eval mode (2-D) the
+    blocks draw nothing."""
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serving.save_bundle(tm, str(tmp_path), 8, (2,))
+    assert [i for i, _ in tm.drawing_flows(B)] == [0, 2]
+    with torch.no_grad():
+        want = tm.sample(B, generator=torch.Generator().manual_seed(4))
+        eps, noise = tm.draw_noise(B, generator=torch.Generator().manual_seed(4))
+        got = tm.from_noise(eps, layer_noise=noise)
+    assert [len(n) for n in noise] == [2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert residual_twomoons.set_train(tm, False).drawing_flows(B) == []
 
 
 def test_example_runs_on_the_cpu():

@@ -106,3 +106,88 @@ def test_class_conditional_glow_bundle_on_the_card(cuda, tmp_path):
     for b in (1, 16):
         with torch.inference_mode():
             assert torch.equal(bundle.log_prob(x[:b], y[:b]), model.log_prob(x[:b], y[:b]))
+
+
+def stochastic_model(kind, device):
+    """The bundles past plain flows, small: the SNF of examples/snf_hais.py
+    at 2 blocks (MH or HMC), its HAIS at 4 rungs of 3 leapfrog steps, and
+    annealed SMC on the small flagship (3 temperatures, 3 leapfrog steps)."""
+    from normflows_tpu_torch import distributions as D
+    from normflows_tpu_torch.examples import snf_hais
+    from normflows_tpu_torch.sampling import AnnealedSMC
+
+    if kind in ("snf_mh", "snf_hmc"):
+        model = snf_hais.build_snf(device, 0, kind[4:])
+        model.flows = torch.nn.ModuleList(list(model.flows)[:4])
+        return model
+    if kind == "hais":
+        return snf_hais.build_hais(device, betas=6, leapfrog=3)
+    return AnnealedSMC.create(small_model(device), D.GaussianVonMises(device=device),
+                              num_temps=3, num_leapfrog=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["snf_mh", "snf_hmc", "hais", "smc"])
+def test_stochastic_bundle_replays_its_graph_bit_equal(cuda, kind, tmp_path):
+    """A sampler-only bundle of each family that replays as a CUDA graph:
+    the graph (after the call that captures it) gives the eager program's
+    draws from the same seed, and the live model's ``sample``, bit for
+    bit."""
+    from normflows_tpu_torch import serving
+
+    model = stochastic_model(kind, cuda)
+    manifest = serving.save_bundle(model, str(tmp_path), 512, None)
+    assert manifest["route"] == "graphed" and manifest["device"] == "cuda:0"
+    bundle = serving.load_bundle(str(tmp_path))
+    eager = bundle.sample(3, graphed=False)
+    bundle.sample(4)  # captures
+    graphed = bundle.sample(3)
+    with torch.no_grad():
+        live = model.sample(512, generator=torch.Generator(device=cuda).manual_seed(3))
+    for got in (graphed, live):
+        assert all(torch.equal(a, b) for a, b in zip(eager, got))
+
+
+def scan_extra_calls():
+    """How many calls of its body more than its length the installed
+    torch's eager ``scan`` makes (0, or 1 where it runs element 0 twice)."""
+    calls = []
+
+    def body(carry, x):
+        calls.append(x)
+        return carry + x, x
+
+    with torch.no_grad():
+        torch.ops.higher_order.scan(body, [torch.zeros(())], [torch.arange(3.0)], ())
+    return len(calls) - 3
+
+
+@pytest.mark.gpu
+def test_smc_bundle_launches_the_planar_kernels_it_predicts(cuda, tmp_path):
+    """The SMC bundle's planar launches a request on the card's counters:
+    the proposal's draw 2 inverse launches a layer; each temperature one
+    forward evaluation of the proposal's log-density for the reweighting
+    and, in the move, L + 1 of its value and gradient (forward and
+    backward), each scan running its body ``scan_extra_calls()`` more
+    times; the same counts eager and replayed as a graph."""
+    from normflows_tpu_torch import serving
+
+    smc = stochastic_model("smc", cuda)
+    layers, L, e = len(smc.proposal.flows), smc.num_leapfrog, scan_extra_calls()
+    rungs, evals = len(smc.betas) - 1 + e, L + 1 + e
+    want = [[rungs * (1 + evals) * layers, 2 * layers], [rungs * evals * layers, 0]]
+    manifest = serving.save_bundle(smc, str(tmp_path), 512, None)
+    assert manifest["kernel_ops"]["sample"] == ["normflows_tpu_torch::rqs_transposed",
+                                                "normflows_tpu_torch::rqs_transposed_backward"]
+    bundle = serving.load_bundle(str(tmp_path))
+    on_card = torch.zeros(2, 2, dtype=torch.int64, device=cuda)
+    spline_cuda.DEVICE_LAUNCHES = on_card
+    try:
+        bundle.sample(5, graphed=False)
+        assert on_card.tolist() == want
+        bundle.sample(6)  # captures
+        on_card.zero_()
+        bundle.sample(5)
+        assert on_card.tolist() == want
+    finally:
+        spline_cuda.DEVICE_LAUNCHES = None

@@ -183,9 +183,29 @@ def jax_model_of(tmodel, kind, K, prior):
                                     p=JaxPriorTarget(prior=prior))
     tensors = {**dict(tmodel.named_parameters()), **dict(tmodel.named_buffers())}
     paths, treedef = jax.tree_util.tree_flatten_with_path(jm)
+    # copies: on the CPU jnp.asarray can alias a numpy view of a torch tensor,
+    # and the port's optimizer then updates the JAX model's leaves in place,
+    # racing a jitted step that JAX still runs asynchronously
     return jax.tree_util.tree_unflatten(treedef, [
-        jnp.asarray(tensors[_torch_name(jax.tree_util.keystr(p))].detach().cpu().numpy(),
+        jnp.asarray(np.array(tensors[_torch_name(jax.tree_util.keystr(p))].detach().cpu()),
                     leaf.dtype) for p, leaf in paths])
+
+
+def test_jax_model_holds_copies_of_the_port_tensors():
+    """The step comparison below updates the port's weights in place while
+    JAX may still be running its jitted step on the JAX model: that model's
+    leaves must not alias the port's tensors (on the CPU ``jnp.asarray`` of
+    a tensor's numpy view can), or the JAX loss reads the updated weights on
+    a busy machine."""
+    tm = example.build_model("planar", "TwoModes", 2, 0, "cpu")
+    jm = jax_model_of(tm, "planar", 2, jdist.TwoModes(loc=2.0, scale=0.2))
+    before = [np.array(leaf) for leaf in jax.tree_util.tree_leaves(jm)]
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.add_(1.0)
+    after = [np.asarray(leaf) for leaf in jax.tree_util.tree_leaves(jm)]
+    assert len(before) == len(after) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(before, after))
 
 
 def test_reverse_kld_steps_match_jax(monkeypatch):

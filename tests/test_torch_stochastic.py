@@ -17,7 +17,7 @@ same draws (both packages' ``noise=`` hooks):
   (trap 3); the identity ``data_dep_init``; stationarity of both moves;
 * the facade handing MCMC layers a generator, the detached pass of
   ``reverse_kld(score_fn=False)`` seeing each layer's first-pass draws, and
-  ``from_noise`` and serving refusing a model with an MCMC layer;
+  ``from_noise`` replaying every draw of ``sample`` (the layers' too);
 * ``load_jax_leaves`` on an SNF whose trainable target its MH layers and
   ``p`` share, and one Adam update a step of that shared target.
 
@@ -47,7 +47,6 @@ from normflows_tpu.sampling import HAIS as JHAIS
 import normflows_tpu_torch as nft
 from normflows_tpu_torch import distributions as tdist
 from normflows_tpu_torch import flows as tflows
-from normflows_tpu_torch import serving
 from normflows_tpu_torch.examples import snf_hais
 from normflows_tpu_torch.flows import stochastic
 from normflows_tpu_torch.interop import _torch_name, load_jax_leaves
@@ -79,7 +78,7 @@ def jax_model_of(tmodel, jmodel):
     leaves = []
     for path, leaf in paths:
         name = _torch_name(jax.tree_util.keystr(path))
-        value = tensors[name].detach().cpu().numpy()
+        value = np.array(tensors[name].detach().cpu())  # a copy: jnp.asarray may alias it
         owner, _, attr = name.rpartition(".")
         if attr in ("weight", "mask") and isinstance(tmodel.get_submodule(owner), Linear):
             value = value.T
@@ -423,16 +422,21 @@ def test_score_fn_false_sees_the_first_pass_draws(monkeypatch):
     assert_close(float(loss.detach()), float(want), atol=1e-6, rtol=1e-6)
 
 
-def test_from_noise_and_serving_refuse_mcmc_layers(tmp_path):
-    model = snf()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.from_noise(torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="MCMC layer"):
-        serving._prepared(model, "cpu")
-    with pytest.raises(NotImplementedError, match="MCMC layer"):
-        serving.export_sampler(model, 4)
-    with pytest.raises(NotImplementedError, match="MCMC layer"):
-        serving.save_bundle(model, str(tmp_path / "b"), 4, (2,))
+@pytest.mark.parametrize("mcmc", ["mh", "hmc"])
+def test_from_noise_replays_every_draw_of_sample(mcmc):
+    """``from_noise(eps, layer_noise=...)`` on ``draw_noise``'s draws is
+    ``sample`` on the same generator, bit for bit: the base's noise, then
+    each MCMC layer's draws in its order (what a serving bundle's sampler
+    takes); without the layers' draws it raises."""
+    model = snf(mcmc=mcmc)
+    assert [i for i, _ in model.drawing_flows(B)] == [1, 3]
+    with torch.no_grad():
+        want = model.sample(B, generator=torch.Generator().manual_seed(17))
+        eps, noise = model.draw_noise(B, generator=torch.Generator().manual_seed(17))
+        got = model.from_noise(eps, layer_noise=noise)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="layer_noise"):
+        model.from_noise(eps)
 
 
 def test_identity_data_dep_init():
