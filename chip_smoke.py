@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``normflows_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b,...]
 
 Run from the root of a checkout.  It builds the CUDA kernels from the sources
 in the checkout (one ``nvcc`` per source, started together), holds each
@@ -143,10 +143,28 @@ and Adam(5e-4)), in float32 and bfloat16, with exact kernel launch counts:
   part runs in the ranks that phase data_parallel spawns.  Their planar
   launches are the kernels line's ``launches_sharded``.
 
+* the four reference examples of ``normflows_tpu_torch.examples``, the
+  ports of ``examples/circular_nsf.py`` (20 circular AR RQ-spline layers of
+  hidden 128, forward KL at batch 1,024, the target drawn inside the step),
+  ``neural_spline_twomoons.py`` (16 x (AR RQ-spline of hidden 128 +
+  LULinearPermute) on TwoMoons, batch 512), ``augmented_flow.py`` (32 x
+  (MaskedAffineFlow + ActNorm) in 4-D, annealed reverse KL on 1,024 draws)
+  and ``image_density.py`` (32 MaskedAffineFlow layers on an image's
+  density, batch 512), at their scripts' widths and depths: each one's
+  first 50 steps on the card against the CPU on its host inputs, its step
+  time and busy share, then the example as a replay runs it at 500
+  steps to bars set by the JAX package's replays, with 0 non-finite steps
+  and the exact planar launches of rows 1 and 1b on the device counters
+  (the two spline models): phase reference_examples, the kernels line's
+  ``launches_examples``.
+
 Every kernel on a model's path is reached through its ``torch.library``
 operator (``normflows_tpu_torch.ops.backend.kernel_op``).
 It prints one JSON line per phase, then the ``kernels`` line, then
-``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero; without
+``{"ok": true, "device": {...}}`` last.  ``--phases a,b`` runs the device
+and build phases, the phases named and those whose results they take, and
+then the last line without the kernels line (``PHASES`` lists the names);
+without it every phase runs.  Any failure exits non-zero; without
 a CUDA card, or without the package beside it, it exits non-zero before
 printing anything.  It imports nothing of JAX.
 """
@@ -1667,14 +1685,18 @@ def large_d_request_and_step_times(model):
         out[dtype] = r
     emit("times_large_d", requests_and_steps=out, batch=LD_BATCH,
          note=f"ms: host median of {LD_TIMED_REPS} calls, each ending in a synchronise; "
-         "profile: one call under torch.profiler, device time summed over its CUDA kernels; "
+         "profile: one call under torch.profiler tracing the device alone, device time "
+         "summed over its CUDA kernels (the heaviest kernels: PERF.md section 5); "
          "busy_share_of_median: that over the median; steps from the bench's init")
     return out
 
 
 def timed(fn, batch=LD_BATCH, reps=20):
+    """Host median of ``reps`` calls after one, then one call's device time
+    under ``busy`` (the device traced alone, whose trace takes a fraction of
+    the time to read)."""
     ms = host_ms(fn, reps=reps, warmup=1)
-    prof = profile(fn, top=8, warm=True)
+    prof = busy(fn)
     return {"ms": ms, "samples_per_s": batch / (ms / 1e3), "profile": prof,
             "busy_share_of_median": prof["device_ms"] / ms}
 
@@ -3427,11 +3449,12 @@ def python_launches():
 
 def route_times(fns):
     """Host median of SERVE_REPS calls of each function of ``fns``, each
-    ending in a synchronise, and one profiled call's device time over it."""
+    ending in a synchronise, and one profiled call's device time over it
+    (``busy``: the device traced alone)."""
     out = {}
     for route, fn in fns.items():
         ms = host_ms(fn, reps=SERVE_REPS, warmup=1)
-        prof = profile(fn, warm=True)
+        prof = busy(fn)
         out[route] = {"ms": ms, "device_ms": prof["device_ms"],
                       "busy_share_of_median": prof["device_ms"] / ms,
                       "kernel_launches": prof["kernel_launches"]}
@@ -4052,11 +4075,13 @@ def phase_conditional_train(layer_b):
                     with torch.inference_mode():
                         return getattr(m, direction)(xb, ctx)
                 ms = host_ms(call, LD_TIMED_REPS)
-                prof = profile(call)
+                # the heaviest kernels in f32; bf16's device traced alone
+                prof = profile(call) if dtype == "float32" else busy(call)
                 times[f"{name}_{direction}_{dtype}"] = {
                     "ms": ms, "device_ms": prof["device_ms"],
                     "busy_share_of_median": prof["device_ms"] / ms,
-                    "kernel_launches": prof["kernel_launches"], "top": prof["top"][:3]}
+                    "kernel_launches": prof["kernel_launches"],
+                    "top": prof.get("top", [])[:3]}
     r["model_b_times"] = times
     emit("conditional_train", ok=ok, results=r,
          bars={"parity_loss_gap": CPU_TOL, "held_out_kl": COND_KL,
@@ -4486,12 +4511,12 @@ def phase_glow_train():
     model A in bf16 as a user runs it (``examples.glow_image --chunked
     --bf16 --iters GLOW_TRAIN_ITERS``): finite losses, the mean of the last
     100 below that of the first 100; its held-out bits/dim, ms a step and
-    images a second reported; for bf16 and f32, a profiled chunk of
+    images a second reported; for f32, a profiled chunk of
     GLOW_PROFILED_CHUNK steps of a fresh model (device time a step, busy
     share, the convolutions' share, the heaviest kernels); (c) model A in
     f32: a captured chunk of GLOW_F32_STEPS steps against as many eager
     steps (make_train_step, the same capturable Adamax, windows and
-    generator), then a timed chunk."""
+    generator), bit for bit, then a timed chunk."""
     from normflows_tpu_torch import training
     from normflows_tpu_torch.examples import glow_image
 
@@ -4507,7 +4532,7 @@ def phase_glow_train():
     a_ok = (a["non_finite_steps"] == 0 and a["loss_mean_last_100"] < a["loss_mean_first_100"]
             and a["samples_finite"])
     r["a_bf16"] = a
-    for dtype, compute in (("bfloat16", "bfloat16"), ("float32", None)):
+    for dtype, compute in (("float32", None),):  # bf16's: PERF.md section 5
         model, state, chunk, _ = glow_chunk(compute, GLOW_PROFILED_CHUNK)
         gen = torch.Generator(DEVICE).manual_seed(SEED + 140)
         chunk(state, gen)
@@ -4542,6 +4567,14 @@ def phase_glow_train():
     c = {"first_call_seconds": first_s,
          "against_eager": against_eager("glow_train", first, torch.stack(eager_losses), model,
                                         eager)}
+    # cuDNN's deterministic algorithms (nets.cnn.fp32_convs): bit for bit
+    c["against_eager"]["bit_equal_parameters"] = all(
+        torch.equal(p, q) for p, q in zip(model.parameters(), eager.parameters()))
+    if not (c["against_eager"]["bit_equal_losses"]
+            and c["against_eager"]["bit_equal_parameters"]):
+        emit("glow_train", ok=False, results={**r, "a_float32": c})
+        raise SystemExit("glow_train: model A's f32 captured chunk is not bit-equal to its "
+                         "eager steps")
     t0 = time.perf_counter()
     second = chunk(state, gen)[1]["loss"]
     sync()
@@ -4552,7 +4585,8 @@ def phase_glow_train():
     r["a_float32"] = c
     emit("glow_train", ok=ok and a_ok and c["finite"], results=r,
          bars={"q_held_out_bits_per_dim": Q_BPD, "parity_loss": CPU_TOL,
-               "against_eager": [CPU_TOL, STEP_G_TOL]},
+               "against_eager": "bit for bit (losses and parameters), within "
+                                f"[{CPU_TOL}, {STEP_G_TOL}] on the way"},
          note="q: model Q (examples/quality_compare.py's GLOW_CFG) through "
          "examples.glow_image --chunked --host-inputs; a_bf16: model A as "
          "examples.glow_image --chunked --bf16 runs it (seconds include the first "
@@ -4762,26 +4796,6 @@ def phase_residual_path():
     return launched
 
 
-def captured_launches(fn, gen):
-    """``fn`` captured once in a CUDA graph (after two warm-up calls on a side
-    stream; ``gen`` registered with the graph), then replayed once under
-    torch.profiler: the kernels the replay ran."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(gen)
-    with torch.cuda.graph(graph):
-        fn()
-    sync()
-    launches = kernel_shares(graph.replay)["kernel_launches"]
-    del graph
-    return launches
-
-
 def residual_chunk(steps, seed):
     """Model R from the example's init (ActNorm set on its first batch) and its
     chunked trainer as ``examples.residual_twomoons`` builds it, ``steps``
@@ -4804,17 +4818,15 @@ def phase_residual_train():
     captured step): finite losses, the held-out mean log q at least
     RES_LOG_Q; the count of block calls whose horizon exceeded the cap in the
     captured steps (``flows.residual.CAPPED``); no kernel of the port; (b) a
-    profiled chunk of RES_PROFILED_CHUNK steps: ms and device ms a step, the
-    busy share; the kernels of a captured step by part, each part captured
-    alone (the forward with its estimator, forward and backward, the power
-    iteration; the optimizer and the skip the rest of the whole step); (c) a
+    profiled chunk of RES_PROFILED_CHUNK steps: ms, device ms and kernels a
+    step, the busy share (the kernels of a step by part are in PERF.md
+    section 5, no longer read each run); (c) a
     captured chunk of RES_EAGER_STEPS steps against as many eager steps
     (``make_train_step`` with ``update_lipschitz_iters=50``, the same
     capturable AdamW, windows and generator seed)."""
     from normflows_tpu_torch import training
     from normflows_tpu_torch.examples import residual_twomoons as example
     from normflows_tpu_torch.flows import residual
-    from normflows_tpu_torch.utils import update_lipschitz
 
     r = {}
     capped = torch.zeros((), dtype=torch.int64, device=DEVICE)
@@ -4832,7 +4844,7 @@ def phase_residual_train():
     r["capped_block_calls"] = int(capped)
     ok = (record["non_finite_steps"] == 0 and record["held_out_log_q"] >= RES_LOG_Q
           and record["samples_finite"])
-    # (b) a profiled chunk and the parts of a captured step
+    # (b) a profiled chunk
     model, state, chunk, _ = residual_chunk(RES_PROFILED_CHUNK, SEED)
     gen = torch.Generator(DEVICE).manual_seed(SEED + 160)
     chunk(state, gen)
@@ -4843,32 +4855,11 @@ def phase_residual_train():
     ms = (time.perf_counter() - t0) * 1e3 / RES_PROFILED_CHUNK
     prof = kernel_shares(lambda: chunk(state, gen))
     prof.pop("conv_share")  # no convolution here (cuBLAS's xmma GEMMs match its names)
-    step_launches = prof["kernel_launches"] / RES_PROFILED_CHUNK
-    r["profile"] = {**prof, "ms": ms, "device_ms": prof["device_ms"] / RES_PROFILED_CHUNK,
+    r["profile"] = {**prof, "launches_a_step": prof["kernel_launches"] / RES_PROFILED_CHUNK,
+                    "ms": ms, "device_ms": prof["device_ms"] / RES_PROFILED_CHUNK,
                     "busy_share": prof["device_ms"] / RES_PROFILED_CHUNK / ms,
                     "samples_per_s": RES_BATCH / (ms / 1e3)}
-    batch = torch.from_numpy(example.make_moons(np.random.default_rng(SEED + 161),
-                                                RES_BATCH)).to(DEVICE)
-    part_model = copy.deepcopy(model)
-    pgen = torch.Generator(DEVICE).manual_seed(SEED + 162)
-
-    def forward():
-        part_model.forward_kld(batch, generator=pgen)
-
-    def forward_backward():
-        part_model.zero_grad(set_to_none=True)
-        part_model.forward_kld(batch, generator=pgen).backward()
-
-    parts = {"forward_estimator": captured_launches(forward, pgen),
-             "forward_backward": captured_launches(forward_backward, pgen),
-             "power_iteration": captured_launches(
-                 lambda: update_lipschitz(part_model, example.LIPSCHITZ_ITERS), pgen)}
-    parts["backward"] = parts["forward_backward"] - parts["forward_estimator"]
-    parts["optimizer_and_skip"] = step_launches - parts["forward_backward"] - \
-        parts["power_iteration"]
-    parts["whole_step"] = step_launches
-    r["launches_by_part"] = parts
-    del part_model, model, state, chunk
+    del model, state, chunk
     # (c) captured against eager
     model, state, chunk, x_all = residual_chunk(RES_EAGER_STEPS, SEED)
     first = chunk(state, torch.Generator(DEVICE).manual_seed(SEED + 163))[1]["loss"]
@@ -4892,10 +4883,8 @@ def phase_residual_train():
          bars={"held_out_log_q_at_least": RES_LOG_Q, "against_eager": [CPU_TOL, STEP_G_TOL]},
          note="run: examples.residual_twomoons as a user runs it (seconds include the "
          "first chunk's capture; steady_step_ms leaves it out); profile: a "
-         f"{RES_PROFILED_CHUNK}-step chunk after its capture; launches_by_part: kernels "
-         "of a replay of each part captured alone, the optimizer and the skip being the "
-         "whole step's rest; capped_block_calls: block calls of the captured steps whose "
-         "horizon exceeded the cap (n_power_series_max)")
+         f"{RES_PROFILED_CHUNK}-step chunk after its capture; capped_block_calls: block "
+         "calls of the captured steps whose horizon exceeded the cap (n_power_series_max)")
     if not ok:
         raise SystemExit("residual_train: model R missed its bar")
     return launched
@@ -5184,8 +5173,8 @@ def phase_stochastic_path():
 def phase_hais():
     """``examples.snf_hais`` as a user runs it (4,096 chains, 30 rungs):
     log Z, eager and captured, against the quadrature within max(0.02,
-    4 SE); the ESS; host and device ms of one sample, eager and captured,
-    its kernels and the busy share."""
+    4 SE); the ESS; host ms of one sample, eager and captured (its device
+    time and kernels: the served HAIS of phase serving_stochastic)."""
     from normflows_tpu_torch.examples import snf_hais
 
     quad = snf_hais.two_moons_log_z()
@@ -5201,26 +5190,11 @@ def phase_hais():
         bar = max(0.02, 4 * est["log_z_se"])
         r["within"][name] = {"gap": abs(est["log_z"] - LOG_Z), "bar": bar,
                              "ok": abs(est["log_z"] - LOG_Z) <= bar and est["finite_weights"]}
-    # one captured sample's kernels (an eager sample launches the same ones)
-    hais = snf_hais.build_hais(DEVICE)
-    gen = torch.Generator(DEVICE).manual_seed(SEED + 175)
-
-    def draw():
-        with torch.no_grad():
-            return hais.sample(4096, generator=gen)
-
-    replay, _ = snf_hais.captured(draw, gen)
-    prof = kernel_shares(replay)
-    prof.pop("conv_share")
-    r["profile"] = {**prof, "busy_share_captured": prof["device_ms"] / h["captured_ms"],
-                    "busy_share_eager": prof["device_ms"] / h["eager_ms"]}
     ok = (abs(quad - LOG_Z) < 1e-6 and all(v["ok"] for v in r["within"].values())
           and record["snf"]["finite"])
     emit("hais", ok=ok, results=r, bars={"log_z": LOG_Z, "log_z_gap_at_most": "max(0.02, 4 SE)"},
          note="eager_ms / captured_ms: host median of HAIS_REPS samples, each ending in a "
-         "synchronise; profile: one replay of a captured sample under torch.profiler, its "
-         "device time over each median the busy shares; the JAX package's figure for this "
-         "ladder is in PERF.md (a CPU run)")
+         "synchronise; the JAX package's figure for this ladder is in PERF.md (a CPU run)")
     if not ok:
         raise SystemExit("hais: log Z missed the quadrature")
     return launched
@@ -7197,6 +7171,296 @@ def phase_sharded_checkpoint(ranks, root):
         raise SystemExit("sharded_checkpoint: a restored or resumed state differed")
 
 
+# ---- the four reference examples ----------------------------------------------------
+#
+# Each runs at its JAX script's widths, layer counts and batch; the one cut is
+# the step count, REF_ITERS of the scripts' 20,000 (circular_nsf), 3,000
+# (neural_spline_twomoons), 2,000 (augmented_flow) and 4,000 (image_density).
+REF_EXAMPLES = ("circular_nsf", "neural_spline_twomoons", "augmented_flow", "image_density")
+REF_ITERS, REF_CHUNK = 500, 100
+REF_PARITY_CHUNK, REF_PARITY_CALLS = 10, 5  # the first 50 steps, card against CPU
+# where the card and the CPU part: the relative move of every weight of the
+# card's twin that measures the recipe's own sensitivity, and the steps held
+# whatever it says
+REF_TWIN_REL, REF_MIN_HELD = 1e-6, 10
+REF_CPU_PROCESSES = 4  # the CPU's parity runs, one thread each, beside the card
+REF_BATCH = {"circular_nsf": 1024, "neural_spline_twomoons": 512, "augmented_flow": 1024,
+             "image_density": 512}
+REF_LR = {"circular_nsf": 1e-4, "neural_spline_twomoons": 1e-3, "augmented_flow": 1e-4,
+          "image_density": 1e-4}
+REF_LAYERS = {"circular_nsf": 20, "neural_spline_twomoons": 16}
+# planar launches (the kernels line's names) of a forward-KL step, a log_prob
+# and a draw: one forward launch a layer in the density direction and its
+# backward; two inverse launches a layer in the D = 2 recursion of a draw
+REF_STEP = {k: {"rqs_transposed_forward": n, "rqs_transposed_backward_forward": n}
+            for k, n in REF_LAYERS.items()}
+REF_LOG_PROB = {k: {"rqs_transposed_forward": n} for k, n in REF_LAYERS.items()}
+REF_DRAW = {k: {"rqs_transposed_inverse": 2 * n} for k, n in REF_LAYERS.items()}
+# the bars (lo, hi): the JAX package's replays of each example at REF_ITERS
+# steps from the port's initial weights on the example's host inputs
+# (``python -m tests.test_torch_reference_examples --example NAME --seeds 0-2
+# --iters 500``; PERF.md section 6): a density bar at seed SEED's
+# value and the larger of 0.05 and the seeds' spread (max - min) past it; a
+# shape reading within the seeds' range widened by the same
+REF_BARS = {
+    "circular_nsf": {
+        "held_out_forward_kld": (-math.inf, 3.0651569 + max(0.05, 3.0651569 - 3.0474586)),
+        "in_range": (1.0, 1.0)},
+    "neural_spline_twomoons": {
+        "held_out_nll": (-math.inf, 1.5966432 + max(0.05, 1.6189573 - 1.5966432)),
+        "mean_radius": (2.0515532 - max(0.05, 2.0872729 - 2.0515532),
+                        2.0872729 + max(0.05, 2.0872729 - 2.0515532))},
+    "augmented_flow": {
+        "standard_mean_radius": (1.8247597 - max(0.05, 2.0429716 - 1.8247597),
+                                 2.0429716 + max(0.05, 2.0429716 - 1.8247597)),
+        "augmented_std": (1.3166854 - max(0.05, 1.5567813 - 1.3166854),
+                          1.5567813 + max(0.05, 1.5567813 - 1.3166854))},
+    "image_density": {
+        "held_out_log_q": (-3.2371361 - max(0.05, -3.2264464 - -3.2371361), math.inf),
+        "bright_share": (0.6395264 - max(0.05, 0.6641846 - 0.6395264), 1.0)},
+}
+
+
+def reference_chunk(name, where, steps):
+    """``(model, state, chunk)`` of example ``name`` on ``where`` as its
+    ``--host-inputs`` run at SEED builds it, with host inputs for ``steps``
+    steps and REF_PARITY_CHUNK steps a call."""
+    from normflows_tpu_torch.examples import (augmented_flow, circular_nsf, image_density,
+                                              neural_spline_twomoons)
+
+    batch, lr, c = REF_BATCH[name], REF_LR[name], REF_PARITY_CHUNK
+    if name == "circular_nsf":
+        model = circular_nsf.build_model(where, seed=SEED)
+        state, chunk = circular_nsf.make_chunk(
+            model, lr, batch, c, circular_nsf.host_inputs(steps, batch, SEED))
+    elif name == "neural_spline_twomoons":
+        model = neural_spline_twomoons.build_model(where, seed=SEED)
+        state, chunk = neural_spline_twomoons.make_chunk(
+            model, lr, batch, c, neural_spline_twomoons.pool(SEED),
+            neural_spline_twomoons.host_inputs(steps, batch, SEED))
+    elif name == "augmented_flow":
+        model = augmented_flow.initialised_model(where, seed=SEED)
+        state, chunk = augmented_flow.make_chunk(
+            model, lr, batch, 1000, c, augmented_flow.host_inputs(steps, batch, SEED))
+    else:
+        model = image_density.build_model(where, seed=SEED)
+        data = image_density.training_pool(image_density.smiley_image(), SEED, where, True)
+        state, chunk = image_density.make_chunk(model, lr, batch, c, data)
+    return model, state, chunk
+
+
+def first_gradients(model, state, chunk):
+    """The gradient of every parameter of the chunk's loss on its first
+    step's host inputs, at the initial weights; the model's gradients are
+    left as they were (none)."""
+    loss = chunk.loss_fn(model, chunk.batch_fn(state.step, None), None)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def reference_cpu(name):
+    """Example ``name``'s first REF_PARITY_CALLS x REF_PARITY_CHUNK steps
+    on the CPU on its host inputs at SEED (drawn for the card's steps), in a
+    process of its own on one thread: ``(losses, first gradients)``."""
+    torch.set_num_threads(1)
+    model, state, chunk = reference_chunk(name, "cpu",
+                                          REF_PARITY_CHUNK * (REF_PARITY_CALLS + 1))
+    grads = first_gradients(model, state, chunk)
+    return torch.cat([chunk(state)[1]["loss"] for _ in range(REF_PARITY_CALLS)]), grads
+
+
+def parity_losses(name, perturb=None):
+    """``(model, state, chunk, losses, first gradients)``: example
+    ``name``'s chunk on the card (REF_PARITY_CALLS + 1 calls' host inputs),
+    the losses of its first REF_PARITY_CALLS calls and the first step's
+    gradients, with the host ms of a step over the calls after the first
+    (the capture) as ``chunk.ms``; with ``perturb``, every parameter first
+    scaled by (1 + perturb N(0, 1)) entry by entry."""
+    steps = REF_PARITY_CHUNK * (REF_PARITY_CALLS + 1)
+    model, state, chunk = reference_chunk(name, DEVICE, steps)
+    grads = first_gradients(model, state, chunk)
+    if perturb is not None:
+        gen = torch.Generator().manual_seed(SEED + 210)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=gen).to(DEVICE))
+    got = []
+    for c in range(REF_PARITY_CALLS):
+        if c == 1:
+            sync()
+            t0 = time.perf_counter()
+        got.append(chunk(state)[1]["loss"])
+    losses = torch.cat(got).cpu()
+    chunk.ms = (time.perf_counter() - t0) * 1e3 / (steps - 2 * REF_PARITY_CHUNK)
+    return model, state, chunk, losses, grads
+
+
+def parity_horizon(card, other):
+    """The number of leading steps whose losses lie within CPU_TOL (atol
+    and rtol) of each other."""
+    tol = CPU_TOL + CPU_TOL * other.abs()
+    over = ((card - other).abs() > tol).nonzero()
+    return int(over[0, 0]) if len(over) else len(card)
+
+
+def card_parity(name, counts):
+    """Example ``name``'s first REF_PARITY_CALLS x REF_PARITY_CHUNK steps
+    on its host inputs at SEED on the card (``parity_losses``), then the
+    host ms of a step, one more call's busy share and planar launches, and
+    a draw's planar launches, on the device counters ``counts``; the
+    card's losses and first gradients under ``"losses"`` and ``"grads"``
+    for ``hold_parity``."""
+    model, state, chunk, losses, grads = parity_losses(name)
+    prof, launched = on_card(counts, lambda: busy(lambda: chunk(state)))
+    eps = torch.full((16, *model.q0.noise_shape), 0.5, device=DEVICE)
+    _, drawn = on_card(counts, lambda: model.from_noise(eps))
+    return {"steps": REF_PARITY_CHUNK * REF_PARITY_CALLS, "losses": losses, "grads": grads,
+            "ms": chunk.ms, "samples_per_s": REF_BATCH[name] / (chunk.ms / 1e3),
+            "busy_share": prof["busy_share"], "device_ms": prof["device_ms"] / REF_PARITY_CHUNK,
+            "kernel_launches": prof["kernel_launches"] / REF_PARITY_CHUNK,
+            "launches": {"step": replay_launches(name, launched, REF_STEP.get(name, {}),
+                                                 REF_PARITY_CHUNK),
+                         "draw": replay_launches(name, drawn, REF_DRAW.get(name, {}), 1)}}
+
+
+def hold_parity(name, r, cpu):
+    """The card's first steps ``r`` (``card_parity``) against the CPU's,
+    ``cpu`` (``reference_cpu(name)``): the first step's gradient, every
+    leaf within STEP_G_TOL of its norm, and every loss within CPU_TOL.
+    Where a loss leaves CPU_TOL, the recipe's own sensitivity sets how far
+    the bar reaches: the card's twin with every weight moved by REF_TWIN_REL
+    (relative) keeps CPU_TOL of the card for its first ``h`` steps, and the
+    CPU must keep it for as many, at least REF_MIN_HELD."""
+    losses, grads = r.pop("losses"), r.pop("grads")
+    cpu_losses, cpu_grads = cpu
+    worst, gap = leaf_gap(grads, cpu_grads)
+    held = parity_horizon(losses, cpu_losses)
+    r.update(excess=excess(losses, cpu_losses, CPU_TOL, CPU_TOL),
+             max_abs_loss_gap=float((losses - cpu_losses).abs().max()),
+             steps_within_cpu_tol=held, first_gradient_worst_leaf=worst,
+             first_gradient_worst_relative_norm=gap)
+    want = len(losses)
+    if held < want:
+        twin = parity_losses(name, REF_TWIN_REL)[3]
+        want = parity_horizon(losses, twin)
+        r["twin"] = {"relative_perturbation": REF_TWIN_REL, "steps_within_cpu_tol": want,
+                     "abs_loss_gap": (twin - losses).abs().tolist(),
+                     "cpu_abs_loss_gap": (cpu_losses - losses).abs().tolist()}
+    if held < max(want, REF_MIN_HELD) or gap > STEP_G_TOL:
+        emit("reference_examples", ok=False, example=name, parity=r)
+        raise SystemExit(f"reference_examples: {name}'s first steps on the card disagree "
+                         f"with the CPU")
+    return r
+
+
+def reference_bars(name, record):
+    """Which of REF_BARS[name] the record misses (none: []); every example
+    also wants 0 non-finite steps and finite draws."""
+    missed = [k for k in ("non_finite_steps",) if record[k] != 0]
+    missed += [] if record["draws_finite"] else ["draws_finite"]
+    for key, (lo, hi) in REF_BARS.get(name, {}).items():
+        if not lo <= record[key] <= hi:
+            missed.append(key)
+    return missed
+
+
+def phase_reference_examples():
+    """The four reference examples of ``normflows_tpu_torch.examples``
+    (circular_nsf, neural_spline_twomoons, augmented_flow, image_density),
+    each at its JAX script's widths and depths: (a) its first steps on the
+    card (``card_parity``: its step time, busy share and the planar
+    launches of a replayed step and of a draw) against the CPU's, run in
+    REF_CPU_PROCESSES processes beside the card's work and held once the
+    card is done (``hold_parity``); (b) the example as a replay runs it,
+    ``--host-inputs --seed SEED`` at REF_ITERS steps, its numbers held to
+    REF_BARS, with 0 non-finite steps; the planar launches of the whole run
+    on the device counters: (2 warm-up + REF_ITERS) steps, a log_prob and a
+    draw.  Returns the run's launches
+    by the ``kernels`` line's names."""
+    import importlib
+    from concurrent.futures import ProcessPoolExecutor
+
+    from normflows_tpu_torch.training.loop import WARMUP_STEPS
+
+    out, total, ok = {}, {}, True
+    # the CPU's parity runs in processes of their own while the card works
+    spawn = torch.multiprocessing.get_context("spawn")
+    with device_counters() as counts, \
+            ProcessPoolExecutor(REF_CPU_PROCESSES, mp_context=spawn) as pool:
+        cpu = {name: pool.submit(reference_cpu, name) for name in REF_EXAMPLES}
+        for name in REF_EXAMPLES:
+            module = importlib.import_module(f"normflows_tpu_torch.examples.{name}")
+            r = {"parity": card_parity(name, counts)}
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                (_, record), launched = on_card(counts, lambda: module.main(
+                    ["--iters", str(REF_ITERS), "--chunk", str(REF_CHUNK), "--host-inputs",
+                     "--seed", str(SEED), "--device", DEVICE]))
+            want = {k: (WARMUP_STEPS + REF_ITERS) * REF_STEP.get(name, {}).get(k, 0)
+                    + REF_LOG_PROB.get(name, {}).get(k, 0) + REF_DRAW.get(name, {}).get(k, 0)
+                    for k in launched}
+            if launched != want:
+                raise SystemExit(f"reference_examples: {name}'s run launched {launched}, "
+                                 f"expected {want}")
+            add_launches(total, launched)
+            missed = reference_bars(name, record)
+            ok = ok and not missed
+            r["run"] = {**record, "printed": printed.getvalue().splitlines()[:-1],
+                        "launches": launched, "missed": missed}
+            out[name] = r
+        for name in REF_EXAMPLES:
+            hold_parity(name, out[name]["parity"], cpu[name].result())
+    bars = {name: {k: [None if math.isinf(v) else v for v in b] for k, b in kb.items()}
+            for name, kb in REF_BARS.items()}
+    emit("reference_examples", ok=ok, results=out, bars=bars,
+         parity_bars={"loss": [CPU_TOL, CPU_TOL], "first_gradient_leaf_relative_norm": STEP_G_TOL,
+                      "twin_relative_perturbation": REF_TWIN_REL, "min_steps_held": REF_MIN_HELD},
+         iters=REF_ITERS, note="parity: the first steps on host inputs, card against CPU; "
+         "ms and samples_per_s: host time of a step over 4 calls of 10 steps after the "
+         "capture; busy_share, device_ms: one more call under the profiler (device only); "
+         "run: the example's main at --host-inputs --seed SEED, cut to REF_ITERS steps")
+    if not ok:
+        raise SystemExit("reference_examples: an example missed its bars")
+    return total
+
+
+PHASES = ("kernel", "main_path", "times_kernel", "times_requests", "kernel_backward",
+          "train_path",
+          "times_train", "kernel_flat", "kernel_flat_backward", "large_d_path",
+          "large_d_train", "times_large_d", "kernel_made_fused", "kernel_made_fused_backward",
+          "large_d_fused", "times_made_fused", "kernel_ablate", "times_ablate", "coupled_path",
+          "coupled_train", "coupled_float64", "times_coupled", "chunked_train", "chunked_data",
+          "times_chunked", "convergence", "conditional_path", "conditional_train",
+          "glow_path", "image_nsf_path", "glow_train", "reference_examples", "realnvp",
+          "serving_export", "residual_path", "residual_train", "small_flows",
+          "stochastic_path", "hais", "snf_train", "vae_train", "change_base",
+          "sampling_path", "nuts", "neutra_smc", "scan_chain", "serving_stochastic", "loader",
+          "data_parallel", "glow_loader", "chains", "tensor_parallel", "fsdp", "pipeline",
+          "sharded_checkpoint")
+
+
+def phases_chosen(argv):
+    """``--phases a,b,...`` (names of PHASES; device and build always run,
+    and so does a phase whose result a chosen one takes): the set chosen,
+    or None, every phase and the kernels line, without it."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the port (module docstring).")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all, and the kernels line)")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    chosen = set(filter(None, args.phases.split(",")))
+    unknown = chosen - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; the phases are {', '.join(PHASES)}")
+    return chosen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs only on "
@@ -7210,65 +7474,127 @@ def main() -> int:
               file=sys.stderr)
         return 2
     torch.manual_seed(SEED)
+    chosen = phases_chosen(sys.argv[1:])
+
+    def want(*names):
+        """Whether any of ``names`` runs: every phase without ``--phases``,
+        else those chosen (a phase runs too where a chosen one takes its
+        result)."""
+        return chosen is None or any(n in chosen for n in names)
 
     smi = phase_device()
     resources, made_res, flat_res, planar_res = phase_build()
-    errs = phase_kernel()
-    model, launches = phase_main_path()
-    kernel_ms, plain_ms, bound_ms, bound_by, floor_ms = phase_times(model)
-    phase_requests(model)
-    del model
-    bwd_errs = phase_kernel_backward()
-    bwd_launches = phase_train_path()
-    bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by, bwd_floor_ms, eager_flagship = \
-        phase_times_train()
-    flat_errs = phase_kernel_flat()
-    flat_bwd_errs = phase_kernel_flat_backward()
-    ld_model, ld_launches = phase_large_d_path()
-    ld_train_launches = phase_large_d_train()
-    flat_times, _ = phase_times_large_d(ld_model, flat_res)
-    made_errs = phase_kernel_made_fused()
-    made_bwd_errs = phase_kernel_made_fused_backward()
-    made_launches = phase_large_d_fused()
-    made_times, _ = phase_times_made_fused(ld_model, made_res)
-    del ld_model
-    ablate_errs = phase_kernel_ablate()
-    ablate_times = phase_times_ablate(resources)
-    cp_model, cp_launches = phase_coupled_path()
-    cp_train_launches = phase_coupled_train()
-    phase_coupled_float64()
-    eager_coupled = phase_times_coupled(cp_model)
-    del cp_model
-    flagship_replays = phase_chunked_train()
-    coupled_replays = phase_chunked_data()
-    phase_times_chunked(eager_flagship, eager_coupled)
-    _, trained = phase_convergence()
-    cond_launches, layer_b = phase_conditional_path()
-    phase_conditional_train(layer_b)
-    del layer_b
-    phase_glow_path()
-    img_launches, img_times = phase_image_nsf_path()
-    phase_glow_train()
+    if want("kernel"):
+        errs = phase_kernel()
+    if want("main_path", "times_kernel", "times_requests"):
+        model, launches = phase_main_path()
+    if want("times_kernel"):
+        kernel_ms, plain_ms, bound_ms, bound_by, floor_ms = phase_times(model)
+    if want("times_requests"):
+        phase_requests(model)
+    model = None
+    if want("kernel_backward"):
+        bwd_errs = phase_kernel_backward()
+    if want("train_path"):
+        bwd_launches = phase_train_path()
+    if want("times_train", "times_chunked"):
+        bwd_kernel_ms, bwd_plain_ms, bwd_bound_ms, bwd_bound_by, bwd_floor_ms, \
+            eager_flagship = phase_times_train()
+    if want("kernel_flat"):
+        flat_errs = phase_kernel_flat()
+    if want("kernel_flat_backward"):
+        flat_bwd_errs = phase_kernel_flat_backward()
+    if want("large_d_path", "times_large_d", "times_made_fused"):
+        ld_model, ld_launches = phase_large_d_path()
+    if want("large_d_train"):
+        ld_train_launches = phase_large_d_train()
+    if want("times_large_d"):
+        flat_times, _ = phase_times_large_d(ld_model, flat_res)
+    if want("kernel_made_fused"):
+        made_errs = phase_kernel_made_fused()
+    if want("kernel_made_fused_backward"):
+        made_bwd_errs = phase_kernel_made_fused_backward()
+    if want("large_d_fused"):
+        made_launches = phase_large_d_fused()
+    if want("times_made_fused"):
+        made_times, _ = phase_times_made_fused(ld_model, made_res)
+    ld_model = None
+    if want("kernel_ablate"):
+        ablate_errs = phase_kernel_ablate()
+    if want("times_ablate"):
+        ablate_times = phase_times_ablate(resources)
+    if want("coupled_path", "times_coupled", "times_chunked"):
+        cp_model, cp_launches = phase_coupled_path()
+    if want("coupled_train"):
+        cp_train_launches = phase_coupled_train()
+    if want("coupled_float64"):
+        phase_coupled_float64()
+    if want("times_coupled", "times_chunked"):
+        eager_coupled = phase_times_coupled(cp_model)
+    cp_model = None
+    if want("chunked_train"):
+        flagship_replays = phase_chunked_train()
+    if want("chunked_data"):
+        coupled_replays = phase_chunked_data()
+    if want("times_chunked"):
+        phase_times_chunked(eager_flagship, eager_coupled)
+    if want("convergence", "neutra_smc", "serving_stochastic"):
+        _, trained = phase_convergence()
+    if want("conditional_path", "conditional_train"):
+        cond_launches, layer_b = phase_conditional_path()
+    if want("conditional_train"):
+        phase_conditional_train(layer_b)
+    layer_b = None
+    if want("glow_path"):
+        phase_glow_path()
+    if want("image_nsf_path"):
+        img_launches, img_times = phase_image_nsf_path()
+    if want("glow_train"):
+        phase_glow_train()
+    if want("reference_examples"):
+        ref_launches = phase_reference_examples()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bundles_") as root:
-        served = phase_serving_export(root, phase_realnvp(root))
-    new_paths = [phase_residual_path(), phase_residual_train(), phase_small_flows()]
-    stochastic_vae = [phase_stochastic_path(), phase_hais(), phase_snf_train(),
-                      phase_vae_train(), phase_change_base()]
-    sampling = [phase_sampling_path(), phase_nuts(), phase_neutra_smc(trained),
-                phase_scan_chain()]
-    with tempfile.TemporaryDirectory() as root:
-        served_stochastic = phase_serving_stochastic(root, trained)
-    del trained
-    phase_loader()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_root:
-        ranks, dp_launches = phase_data_parallel(world_root)
-        phase_glow_loader()
-        parallel_paths = [dp_launches, phase_chains(ranks)]
-        ref = flagship_two_steps()
-        sharded_paths = [phase_tensor_parallel(ranks, ref), phase_fsdp(ranks, ref),
-                         phase_pipeline(ranks, ref)]
-        del ref
-        phase_sharded_checkpoint(ranks, world_root)
+        if want("realnvp", "serving_export"):
+            real_nvp = phase_realnvp(root)
+        if want("serving_export"):
+            served = phase_serving_export(root, real_nvp)
+    new_paths = [f() for name, f in (("residual_path", phase_residual_path),
+                                     ("residual_train", phase_residual_train),
+                                     ("small_flows", phase_small_flows)) if want(name)]
+    stochastic_vae = [f() for name, f in (("stochastic_path", phase_stochastic_path),
+                                          ("hais", phase_hais), ("snf_train", phase_snf_train),
+                                          ("vae_train", phase_vae_train),
+                                          ("change_base", phase_change_base)) if want(name)]
+    sampling = [f() for name, f in (("sampling_path", phase_sampling_path),
+                                    ("nuts", phase_nuts),
+                                    ("neutra_smc", lambda: phase_neutra_smc(trained)),
+                                    ("scan_chain", phase_scan_chain)) if want(name)]
+    if want("serving_stochastic"):
+        with tempfile.TemporaryDirectory() as root:
+            served_stochastic = phase_serving_stochastic(root, trained)
+    trained = None
+    if want("loader"):
+        phase_loader()
+    world = ("data_parallel", "glow_loader", "chains", "tensor_parallel", "fsdp", "pipeline",
+             "sharded_checkpoint")
+    if want(*world):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as world_root:
+            ranks, dp_launches = phase_data_parallel(world_root)
+            if want("glow_loader"):
+                phase_glow_loader()
+            parallel_paths = [dp_launches, phase_chains(ranks) if want("chains") else {}]
+            ref = flagship_two_steps() if want("tensor_parallel", "fsdp", "pipeline") else None
+            sharded_paths = [f(ranks, ref) for name, f in (
+                ("tensor_parallel", phase_tensor_parallel), ("fsdp", phase_fsdp),
+                ("pipeline", phase_pipeline)) if want(name)]
+            ref = None
+            if want("sharded_checkpoint"):
+                phase_sharded_checkpoint(ranks, world_root)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if chosen is not None:  # the kernels line wants every phase
+        print(json.dumps({"ok": True, "phases": sorted(chosen), "device": device}))
+        return 0
 
     kernels = []
     for d in ("forward", "inverse"):
@@ -7419,15 +7745,17 @@ def main() -> int:
         # the bundles of phase serving_stochastic (the SMC bundle's program
         # requests: rows 1 and 1b; 0 for the rest)
         entry["launches_served_stochastic"] = served_stochastic.get(entry["name"], 0)
+        # the reference examples' runs (phase reference_examples: rows 1 and 1b
+        # in circular_nsf and neural_spline_twomoons; 0 for the rest)
+        entry["launches_examples"] = ref_launches.get(entry["name"], 0)
         entry["launches"] += (entry["launches_conditional"] + entry["launches_image"]
                               + entry["launches_sampling"] + entry["launches_parallel"]
-                              + entry["launches_sharded"] + entry["launches_served_stochastic"])
+                              + entry["launches_sharded"] + entry["launches_served_stochastic"]
+                              + entry["launches_examples"])
         if entry["name"] in img_times:  # the flat kernels at model B's N, event_axis 1
             entry["image_nsf"] = img_times[entry["name"]]
     print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
-    name = torch.cuda.get_device_name(0)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -18,6 +18,13 @@ cuDNN's TF32 off for the call and restores the caller's setting after it (a
 bfloat16 convolution does not read it).  A ``torch.export`` program keeps
 no such setting: ``serving`` runs its programs inside :func:`fp32_convs`
 too.
+
+**Deterministic.**  cuDNN's default choice for a float32 convolution's
+weight gradient at Glow's widths (``wgrad_alg0_engine``) adds partial sums
+with atomics, so two runs of one step, or a captured step and its eager
+twin, part in the last bits.  :func:`fp32_convs` also asks cuDNN for its
+deterministic algorithms (``torch.backends.cudnn.deterministic``), so that
+a float32 step gives the same bits on every run, captured or eager.
 """
 
 from __future__ import annotations
@@ -35,14 +42,15 @@ from ..ops.backend import resolve_device
 
 @contextlib.contextmanager
 def fp32_convs():
-    """cuDNN's TF32 off for the block (``torch.backends.cudnn.allow_tf32``),
-    the caller's setting restored after it."""
-    prior = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    """cuDNN's TF32 off and its deterministic algorithms on for the block
+    (``torch.backends.cudnn.allow_tf32``, ``deterministic``), the caller's
+    settings restored after it."""
+    prior = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prior
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = prior
 
 
 class _FP32Conv(torch.autograd.Function):

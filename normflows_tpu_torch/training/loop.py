@@ -192,6 +192,48 @@ class _FlatState:
             torch.where(keep, live, old, out=live)
 
 
+def _compact(t):
+    """``t``, or a copy of it that owns a storage of its own bytes where its
+    storage is larger (a view of a chunk's flat buffer)."""
+    if isinstance(t, nn.Parameter) or not isinstance(t, torch.Tensor) or \
+            t.untyped_storage().nbytes() == t.numel() * t.element_size():
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _compact_module_entries(module, state_dict, prefix, local_metadata):
+    """A module's ``state_dict`` post-hook: its own parameters as compact
+    copies (``torch.save`` of a view writes its whole storage, here the flat
+    buffer with the optimizer's moments).  With ``keep_vars=True`` the
+    entries are the parameters themselves and stay."""
+    for name in module._parameters:
+        if prefix + name in state_dict:
+            state_dict[prefix + name] = _compact(state_dict[prefix + name])
+
+
+def _compact_optimizer_state(optimizer, state_dict):
+    """An optimizer's ``state_dict`` post-hook: each parameter's state as a
+    new dict of compact copies (the packed dicts are the live ones)."""
+    state_dict["state"] = {i: {k: _compact(v) for k, v in s.items()}
+                           for i, s in state_dict["state"].items()}
+    return state_dict
+
+
+def compact_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """Make ``model.state_dict()`` and ``optimizer.state_dict()`` give
+    tensors that own their bytes, once the parameters and the optimizer's
+    state are views of flat buffers (:class:`_FlatState`); the parameters
+    stay views, so that a captured graph's addresses hold, and
+    ``load_state_dict`` still copies into them in place."""
+    for module in model.modules():
+        if module._parameters and not getattr(module, "_compact_state_dict", False):
+            module.register_state_dict_post_hook(_compact_module_entries)
+            module._compact_state_dict = True
+    if not getattr(optimizer, "_compact_state_dict", False):
+        optimizer.register_state_dict_post_hook(_compact_optimizer_state)
+        optimizer._compact_state_dict = True
+
+
 def _materialize(optimizer):
     """Give every parameter the optimizer state a fresh Adam or Adamax gives
     it on its first update (moments and step count zero: Adam's
@@ -257,6 +299,7 @@ class _StepChunk:
                 group["lr"] = torch.as_tensor(group["lr"], dtype=torch.float32,
                                               device=self.device).clone()
         self.flat = _FlatState(optimizer)
+        compact_state_dicts(self.state.model, optimizer)
         self.count = optimizer.state[optimizer.param_groups[0]["params"][0]]["step"]
         self.watched = self._pointers()
         self.ready = True
@@ -378,6 +421,9 @@ def make_step_chunk(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     The first call moves the parameters and Adam's state tensors into one
     flat buffer for each dtype (each stays a tensor of its shape, now a view
     of the buffer), so that the skip copies and selects each buffer once.
+    ``model.state_dict()`` and ``optimizer.state_dict()`` then give copies
+    that own their bytes (:func:`compact_state_dicts`), so that
+    ``torch.save`` of either writes no more than before the chunk.
 
     On a CUDA model the optimizer must be ``torch.optim.Adam``, ``AdamW``
     or ``Adamax`` with ``capturable=True``.  The first call warms the step up on a side

@@ -1558,3 +1558,95 @@ def test_sharded_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_circular_nsf_chunk_is_bit_equal_to_eager_steps(cuda):
+    """``examples.circular_nsf``'s step (the target drawn on the card inside
+    the step, forward KL, AdamW) at its width (hidden 128, batch 1,024; 4 of
+    its 20 layers): a captured chunk of 5 steps against 5 eager steps of
+    the same capturable AdamW from the same weights and generator seed, bit
+    for bit."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import circular_nsf
+
+    def loss_fn(model, batch, gen):
+        return model.forward_kld(circular_nsf.sample_target(1024, gen, cuda))
+
+    model = circular_nsf.build_model(cuda, K=4)
+    state, chunk = circular_nsf.make_chunk(model, 1e-3, 1024, 5)
+    losses = chunk(state, torch.Generator(cuda).manual_seed(5))[1]["loss"]
+    eager = circular_nsf.build_model(cuda, K=4)
+    opt = torch.optim.AdamW(eager.parameters(), lr=1e-3, weight_decay=1e-4, capturable=True)
+    estate, step = training.make_train_step(eager, opt, loss_fn)
+    gen = torch.Generator(cuda).manual_seed(5)
+    eager_losses = torch.stack([step(estate, None, gen)[1]["loss"] for _ in range(5)])
+    assert torch.equal(losses, eager_losses)
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), eager.parameters()))
+
+
+@pytest.mark.gpu
+def test_captured_beta_is_the_scripts(cuda):
+    """``examples.augmented_flow``'s beta, computed on the card from the
+    chunk's step count inside the captured step, at step counts 0, 500,
+    999, 1,000 and 1,500 set between replays: the JAX script's
+    ``min(1.0, 0.01 + i / 1000)`` in float32, bit for bit."""
+    from normflows_tpu_torch.examples import augmented_flow
+
+    model = augmented_flow.initialised_model(cuda, K=2)
+    state, chunk = augmented_flow.make_chunk(model, 1e-4, 64, 1000, 1)
+    seen = torch.zeros((), device=cuda)
+    beta_of = chunk.batch_fn
+
+    def noted(step, generator):
+        beta = beta_of(step, generator)
+        seen.copy_(beta)
+        return beta
+
+    chunk.batch_fn = noted
+    gen = torch.Generator(cuda).manual_seed(6)
+    for i in (0, 500, 999, 1000, 1500):
+        state.step.fill_(i)
+        chunk(state, gen)
+        assert float(seen) == float(np.float32(min(1.0, 0.01 + i / 1000))), i
+        assert int(state.step) == i + 1
+
+
+@pytest.mark.gpu
+def test_glow_float32_chunk_is_bit_equal_to_eager_steps(cuda):
+    """Glow at model A's geometry (L = 3, hidden 256, CIFAR-10's 3 x 32 x
+    32, batch 128; 2 of its 16 blocks a level) in float32: a captured chunk
+    of 5 Adamax steps against 5 eager steps of the same capturable Adamax,
+    windows and generator seed, bit for bit, and two eager runs alike.
+    cuDNN's default float32 weight gradient there adds with atomics; its
+    deterministic algorithms (``nets.cnn.fp32_convs``) give the same bits on
+    every run."""
+    from normflows_tpu_torch import training
+    from normflows_tpu_torch.examples import glow_image
+
+    x, y = glow_image.synthetic_images(1024, seed=2)
+
+    def built():
+        model = glow_image.build_glow(3, 2, 256, (3, 32, 32), 10, device=cuda, seed=2)
+        model.init_actnorm(*(t.to(cuda) for t in glow_image.init_inputs(x, y, 128, 2)))
+        return model
+
+    model = built()
+    state, chunk = glow_image.make_chunk(model, 1e-3, 128, x, y, chunk=5)
+    losses = chunk(state, torch.Generator(cuda).manual_seed(7))[1]["loss"]
+    xd, yd = x.to(cuda), y.to(cuda)
+    runs = []
+    for _ in range(2):
+        eager = built()
+        estate, step = training.make_train_step(
+            eager, glow_image.make_optimizer(eager, 1e-3),
+            lambda m, b, g: m.forward_kld(glow_image.dequantise(b[0], g), b[1]))
+        gen = torch.Generator(cuda).manual_seed(7)
+        eager_losses = []
+        for i in range(5):
+            s = (i * 128) % (x.shape[0] - 128 + 1)
+            eager_losses.append(step(estate, (xd[s:s + 128], yd[s:s + 128]), gen)[1]["loss"])
+        runs.append((eager, torch.stack(eager_losses)))
+    for eager, eager_losses in runs:
+        assert torch.equal(losses, eager_losses)
+        assert all(torch.equal(p, q) for p, q in zip(model.parameters(), eager.parameters()))
